@@ -12,10 +12,11 @@ Phases (one JSON line each, ``"phase"`` names them):
 2. ``build``: ``nvcc`` builds every kernel of the path from
    ``src/repro_torch/csrc`` for ``sm_90a``, with ``ptxas``'s register,
    shared-memory and spill lines.
-3. ``kernels``: each kernel against its plain PyTorch version on the card
-   over the JAX package's test sweeps and the main path's shapes (one line
-   per case: error beside tolerance), then timed with CUDA events beside
-   its plain version, one library call and its bound.
+3. ``kernels``: each kernel (decode_attention, rmsnorm, flash_attention,
+   ssm_scan) against its plain PyTorch version on the card over the JAX
+   package's test sweeps and the main paths' shapes (one line per case:
+   error beside tolerance), then timed with CUDA events beside its plain
+   version, one library call (where one exists) and its bound.
 4. ``restore``: qwen3-1.7b at full width, random weights from a seeded
    ``torch.Generator`` on the card, saved with ``save_checkpoint`` and
    restored over MDTP from three throttled loopback mirrors (rates 1:2:4;
@@ -27,6 +28,17 @@ Phases (one JSON line each, ``"phase"`` names them):
    path against the plain path on the card.
 6. ``profile``: device time by kernel over four decode steps
    (``torch.profiler``) beside the unprofiled step time.
+7. ``prefill``: qwen3-1.7b's full-sequence prefill (``make_prefill_step``)
+   on the restored weights at B 4, S 2048: 28 flash_attention and 113
+   rmsnorm launches per forward, exactly; the kernel path against the
+   plain path (``hold_kernel_path``); time per prefill and a device
+   profile.
+8. ``hybrid_prefill`` / ``hybrid_generate``: zamba2-7b at full width and
+   depth, random weights drawn on the card: prefill at B 1, S 4096 (13
+   flash_attention, 81 ssm_scan, 108 rmsnorm launches per forward), held
+   against the plain path; then ``generate`` at B 2, 16 + 16 tokens (13
+   decode_attention launches per step), four teacher-forced steps held
+   against the plain path, and a decode profile.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -63,6 +75,29 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: served this many bytes (about a second of its share), mid-restore
 MIRROR_RATE = 64 * MB
 KILL_AT_BYTES = 64 * MB
+
+
+#: (batch, sequence) of the qwen3-1.7b prefill and the zamba2-7b prefill
+PREFILL_SHAPE = (4, 2048)
+HYBRID_SHAPE = (1, 4096)
+
+#: rmsnorm's shapes on the main paths: qwen3-1.7b decode (ln, q-norm,
+#: k-norm at B 4) and prefill (B 4 x S 2048), zamba2-7b prefill (S 4096)
+#: and generate (B 2), d 3584 taking the block-per-row path with an uneven
+#: count of 16-byte vectors per thread
+RMSNORM_PATH_SHAPES = [(4, 1, 2048), (4, 1, 16, 128), (4, 1, 8, 128),
+                       (4, 2048, 2048), (4, 2048, 16, 128), (4, 2048, 8, 128),
+                       (1, 4096, 3584), (2, 1, 3584)]
+
+#: flash_attention at bf16: the largest per-row relative error,
+#: |out - ref| / |ref| over each query row's head vector.  bf16 rounding of
+#: the output and of the plain path's probabilities gives ~2e-3; the
+#: element-wise 2e-2 of the JAX tests is loose where outputs are small, as
+#: they are at the main paths' lengths (|o| ~ 0.03 at S 2048)
+FLASH_BF16_ROW_REL_TOL = 1e-2
+
+#: the port's kernels, by wrapper name
+KERNELS = ("decode_attention", "rmsnorm", "flash_attention", "ssm_scan")
 
 
 class CheckFailed(Exception):
@@ -144,11 +179,12 @@ def kernel_phase(torch, K, dev):
 
     # worst error per kernel and dtype, each beside its dtype's tolerance
     worst = {name: dict.fromkeys(dtypes, 0.0)
-             for name in ("decode_attention", "rmsnorm")}
+             for name in ("decode_attention", "rmsnorm", "flash_attention",
+                          "ssm_scan")}
 
-    def record(name, label, dt, out, ref):
+    def record(name, label, dt, out, ref, tols=TOL):
         err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL[dt]
+        tol = tols[dt]
         ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
         print(json.dumps({"case": f"{name} {dt} {label}", "max_abs_err": err,
                           "tol": tol, "ok": ok}), flush=True)
@@ -156,14 +192,16 @@ def kernel_phase(torch, K, dev):
         worst[name][dt] = max(worst[name][dt], err)
 
     # decode attention: the JAX sweep (tests/test_kernels_decode_ssm.py),
-    # then the main path's shape and the timing shape
+    # then the main paths' shapes (qwen3 serve, zamba2 generate) and the
+    # timing shape
     dcases = ([(2, 2, 4, hd, 512, 300, None) for hd in (64, 112, 128)]
               + [(2, 2, g, 64, 512, 511, None) for g in (1, 2, 8)]
               + [(2, 2, 4, 64, 512, p, None) for p in (0, 1, 255, 256, 500)]
               + [(2, 2, 4, 64, 1024, 900, w) for w in (None, 32, 256, 1 << 20)]
               + [(2, 2, 4, 64, 700, 600, None),
                  (4, 8, 2, 128, 48, 47, None),
-                 (4, 8, 2, 128, 4096, 4095, None)])
+                 (4, 8, 2, 128, 4096, 4095, None)]
+              + [(2, 32, 1, 112, 32, p, None) for p in (0, 15, 31)])
     for dt in dtypes:
         for B, KV, G, hd, S, pos, win in dcases:
             q = randn((B, 1, KV * G, hd), dt)
@@ -177,7 +215,8 @@ def kernel_phase(torch, K, dev):
                    dt, out, ref)
 
     # rmsnorm: the JAX sweep (tests/test_kernels.py) with and without the
-    # fused residual, then the main path's shapes (bf16 x and scale)
+    # fused residual, then the main paths' shapes (RMSNORM_PATH_SHAPES) at
+    # both dtypes the paths run, scale in x's dtype as the models hold it
     rshapes = [(64, 256), (3, 7, 512), (1000, 128), (4, 2048)]
     for dt in dtypes:
         for shape in rshapes:
@@ -188,11 +227,13 @@ def kernel_phase(torch, K, dev):
                 out, ref = K.rmsnorm(x, s, r), K.rmsnorm_plain(x, s, r)
                 torch.cuda.synchronize()
                 record("rmsnorm", f"{shape} residual={with_res}", dt, out, ref)
-    for shape in [(4, 1, 2048), (4, 1, 16, 128), (4, 1, 8, 128)]:
-        x, s = randn(shape, "bfloat16"), randn(shape[-1:], "bfloat16")
-        out, ref = K.rmsnorm(x, s), K.rmsnorm_plain(x, s)
-        torch.cuda.synchronize()
-        record("rmsnorm", f"{shape} main-path", "bfloat16", out, ref)
+    for dt in dtypes:
+        for shape in RMSNORM_PATH_SHAPES:
+            x, s = randn(shape, dt), randn(shape[-1:], dt)
+            out, ref = K.rmsnorm(x, s), K.rmsnorm_plain(x, s)
+            torch.cuda.synchronize()
+            record("rmsnorm", f"{shape} main-path", dt, out, ref)
+            del x, out, ref
 
     # timings at the slice's shapes, bf16.  The decode caches (67 MB of
     # K+V) exceed the 50 MB L2, as each layer's cache does on the path.
@@ -239,6 +280,9 @@ def kernel_phase(torch, K, dev):
              library_ms=r_lib,
              library="F.rms_norm", bound_ms=r_bound, bound_by=r_by, bytes=nb)
 
+    flash = flash_kernel_phase(torch, K, dev, randn, record, worst)
+    ssm = ssm_kernel_phase(torch, K, dev, record, worst)
+
     rows, d, r_ms, r_eager, r_plain, r_lib, r_bound, r_by = r_times[0]
     return [
         {"name": "decode_attention", "route": "cuda",
@@ -260,7 +304,190 @@ def kernel_phase(torch, K, dev):
          "bound_ms": r_bound,
          "bound_by": r_by, "library_ms": r_lib,
          "timed_shape": f"({rows}, {d}) bf16"},
+        flash, ssm,
     ]
+
+
+#: (B, Sq, Sk, H, KV, hd, causal, window, scale): the JAX sweep
+#: (tests/test_kernels.py: head dims, GQA ratios, windows, non-causal,
+#: ragged, block-shape case, custom scale), rows with no visible key, and
+#: the two model paths' shapes
+FLASH_CASES = (
+    [(2, 256, 256, 4, 2, hd, True, None, None) for hd in (64, 112, 128)]
+    + [(2, 128, 128, 8, 8 // g, 64, True, None, None) for g in (1, 2, 8)]
+    + [(1, 512, 512, 4, 1, 64, True, w, None) for w in (32, 128, 511)]
+    + [(2, 128, 256, 4, 4, 64, False, None, None),
+       (1, 200, 200, 2, 2, 64, True, None, None),
+       (1, 512, 512, 2, 1, 64, True, None, None),
+       (1, 128, 128, 4, 1, 128, True, None, 1.0 / 16.0),
+       (1, 256, 64, 2, 1, 64, False, 8, None),
+       (2, 77, 77, 4, 2, 112, True, 1, None),
+       (1, 1, 300, 4, 4, 128, False, None, None),
+       (4, 2048, 2048, 16, 8, 128, True, None, None),
+       (1, 4096, 4096, 32, 32, 112, True, None, None)])
+
+#: (B, S, H, P, N, chunk): the JAX sweep (tests/test_kernels_decode_ssm.py:
+#: chunks, head shapes, ragged S, state continuity) and zamba2-7b's shape
+SSM_CASES = ([(2, 256, 8, 32, 16, c) for c in (32, 64, 128)]
+             + [(2, 256, h, p, 16, 64) for h, p in ((4, 16), (8, 64),
+                                                    (16, 32))]
+             + [(2, 200, 8, 32, 16, 64), (2, 512, 8, 32, 16, 128),
+                (1, 300, 4, 64, 64, 128), (1, 4096, 112, 64, 64, 128)])
+#: tolerances of the JAX package's SSD-scan tests, by output dtype
+SSM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def flash_bound(B, S, H, KV, hd, e=2):
+    """Causal self-attention at Sq = Sk = S: each of q, k, v, o crosses
+    device memory once; QK^T and PV over the S(S+1)/2 visible pairs are
+    2 flops per multiply-add each."""
+    nbytes = (2 * B * S * H + 2 * B * S * KV) * hd * e
+    flops = 4.0 * B * H * hd * S * (S + 1) / 2
+    return nbytes, flops
+
+
+def row_rel_err(out, ref) -> float:
+    """max over rows (the last axis) of |out - ref| / |ref|, rows with
+    |ref| = 0 left out (the element-wise check holds those at 0)."""
+    diff = (out.float() - ref.float()).norm(dim=-1)
+    norm = ref.float().norm(dim=-1)
+    keep = norm > 0
+    return (diff[keep] / norm[keep]).max().item() if keep.any() else 0.0
+
+
+def flash_kernel_phase(torch, K, dev, randn, record, worst):
+    """flash_attention against its plain version over FLASH_CASES (bf16
+    also row by row, FLASH_BF16_ROW_REL_TOL), then timed at the two model
+    paths' shapes (bf16, causal)."""
+    import torch.nn.functional as F
+
+    worst_row_rel = 0.0
+    for dt in ("float32", "bfloat16"):
+        for B, Sq, Sk, H, KV, hd, causal, win, scale in FLASH_CASES:
+            q = randn((B, Sq, H, hd), dt)
+            k, v = randn((B, Sk, KV, hd), dt), randn((B, Sk, KV, hd), dt)
+            kw = dict(causal=causal, window=win, scale=scale)
+            out = K.flash_attention(q, k, v, **kw)
+            ref = K.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"flash_attention {dt}: non-finite output")
+            label = (f"B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} causal{causal} "
+                     f"window{win} scale{scale}")
+            record("flash_attention", label, dt, out, ref)
+            if dt == "bfloat16":
+                rel = row_rel_err(out, ref)
+                ok = rel <= FLASH_BF16_ROW_REL_TOL
+                print(json.dumps({
+                    "case": f"flash_attention bf16 {label} row-relative",
+                    "max_row_rel_err": rel, "tol": FLASH_BF16_ROW_REL_TOL,
+                    "ref_rms": ref.float().square().mean().sqrt().item(),
+                    "ok": ok}), flush=True)
+                check(ok, f"flash_attention bf16 {label}: row-relative error "
+                      f"{rel} over {FLASH_BF16_ROW_REL_TOL}")
+                worst_row_rel = max(worst_row_rel, rel)
+            del q, k, v, out, ref
+
+    times = {}
+    for label, (B, S, H, KV, hd) in (("qwen3-1.7b", (4, 2048, 16, 8, 128)),
+                                     ("zamba2-7b", (1, 4096, 32, 32, 112))):
+        q = randn((B, S, H, hd), "bfloat16")
+        k, v = randn((B, S, KV, hd), "bfloat16"), randn((B, S, KV, hd),
+                                                        "bfloat16")
+        ms, eager = cuda_time_ms(torch, lambda: K.flash_attention(q, k, v),
+                                 10)
+        plain, _ = cuda_time_ms(
+            torch, lambda: K.flash_attention_plain(q, k, v), 2)
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        lib = None      # torch < 2.5 has no GQA in scaled_dot_product_attention
+        if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+            lib, _ = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True), 10)
+        nbytes, flops = flash_bound(B, S, H, KV, hd)
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        shape = f"B{B} S{S} H{H} KV{KV} hd{hd} causal bf16"
+        times[label] = dict(shape=shape, ms=ms, eager_ms=eager,
+                            plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                            bound_by=by, bytes=nbytes, flops=flops,
+                            tflop_s=flops / ms / 1e9)
+        emit("kernel_time", kernel="flash_attention", path=label,
+             library="F.scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True)", **times[label])
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    main = times["qwen3-1.7b"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
+            "launches": None,
+            "max_abs_err": max(worst["flash_attention"].values()),
+            "max_abs_err_by_dtype": worst["flash_attention"], "tol": TOL,
+            "bf16_max_row_rel_err": worst_row_rel,
+            "bf16_row_rel_tol": FLASH_BF16_ROW_REL_TOL, "ms": main["ms"], "eager_ms": main["eager_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "timed_shape": main["shape"], "zamba2-7b": times["zamba2-7b"]}
+
+
+def ssm_bound(B, S, H, P, N, Q, ex=2, ey=4):
+    """Bytes: x, dt, A, B, C read once, y written once.  Flops the chunked
+    form needs: C.B^T over each chunk's lower triangle (shared by the
+    heads), (C.B^T o L)(dt x) over it per head, and C.h^T and the state
+    update (2PN each) per step and head."""
+    nc = -(-S // Q)
+    tri = Q * (Q + 1) / 2
+    nbytes = B * S * H * P * (ex + ey) + B * S * H * 4 + H * 4 \
+        + 2 * B * S * N * ex
+    flops = 2.0 * B * nc * tri * (N + H * P) + 4.0 * B * S * H * P * N
+    return nbytes, flops
+
+
+def ssm_kernel_phase(torch, K, dev, record, worst):
+    """ssm_scan against its plain version over SSM_CASES (x f32, bf16, and
+    bf16 with an f32 y as mamba2_forward asks), then timed at zamba2-7b's
+    shape."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def inputs(B, S, H, P, N, dtype):
+        def n(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        return ((n(B, S, H, P) * 0.5).to(dtype), n(B, S, H).abs() * 0.1,
+                -n(H).abs() - 0.1, (n(B, S, N) * 0.3).to(dtype),
+                (n(B, S, N) * 0.3).to(dtype))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for x_dt, y_dt in ((f32, None), (bf16, None), (bf16, f32)):
+        for B, S, H, P, N, chunk in SSM_CASES:
+            args = inputs(B, S, H, P, N, x_dt)
+            y = K.ssm_scan(*args, chunk=chunk, out_dtype=y_dt)
+            ref = K.ssm_scan_plain(*args, chunk=chunk, out_dtype=y_dt)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(y.float()).all()),
+                  "ssm_scan: non-finite output")
+            dt_name = str(y.dtype).removeprefix("torch.")
+            record("ssm_scan", f"B{B} S{S} H{H} P{P} N{N} chunk{chunk} "
+                   f"x {str(x_dt)[6:]}", dt_name, y, ref, SSM_TOL)
+
+    B, S, H, P, N, Q = 1, 4096, 112, 64, 64, 128
+    args = inputs(B, S, H, P, N, bf16)
+    ms, eager = cuda_time_ms(
+        torch, lambda: K.ssm_scan(*args, chunk=Q, out_dtype=f32), 20)
+    plain, _ = cuda_time_ms(
+        torch, lambda: K.ssm_scan_plain(*args, chunk=Q, out_dtype=f32), 2)
+    nbytes, flops = ssm_bound(B, S, H, P, N, Q)
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
+    shape = f"B{B} S{S} H{H} P{P} N{N} chunk{Q} x bf16 y f32"
+    emit("kernel_time", kernel="ssm_scan", path="zamba2-7b", shape=shape,
+         ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
+         library="none (no single PyTorch call computes the SSD scan)",
+         bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops)
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:79",
+            "launches": None, "max_abs_err": max(worst["ssm_scan"].values()),
+            "max_abs_err_by_dtype": worst["ssm_scan"], "tol": SSM_TOL,
+            "ms": ms, "eager_ms": eager, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None, "timed_shape": shape}
 
 
 # ------------------------------------------------------------------ restore
@@ -363,19 +590,18 @@ def serve_phase(torch, K, cfg, dev, params):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    K.decode_attention.launches = 0
-    K.rmsnorm.launches = 0
+    reset_counts(K)
     t0 = time.perf_counter()
     toks = generate(cfg, model, prompt, gen, device=dev)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"decode_attention": K.decode_attention.launches,
-                "rmsnorm": K.rmsnorm.launches}
+    launches = counts(K)
     peak = torch.cuda.max_memory_allocated()
 
     steps = S0 + gen
     per_step = {"decode_attention": cfg.n_layers,
-                "rmsnorm": 4 * cfg.n_layers + 1}   # ln1, ln2, q/k-norm; final
+                "rmsnorm": 4 * cfg.n_layers + 1,   # ln1, ln2, q/k-norm; final
+                "flash_attention": 0, "ssm_scan": 0}
     for name, n in per_step.items():
         check(launches[name] == n * steps,
               f"{name}: {launches[name]} launches, expected {n} x {steps}")
@@ -441,7 +667,7 @@ def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float):
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     ours = [e for e in kernels
             if "decode_attention_kernel" in e.key or "rmsnorm_kernel" in e.key]
-    emit("profile", steps=n, device_busy_ms_per_step=busy_ms,
+    emit("profile", arch=cfg.name, steps=n, device_busy_ms_per_step=busy_ms,
          step_ms_unprofiled=ms_per_step,
          device_idle_share=(1.0 - busy_ms / ms_per_step) if busy_ms else None,
          top_kernels=[{"name": e.key[:90], "ms_per_step": dev_us(e) / n / 1e3,
@@ -452,6 +678,301 @@ def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float):
                         "calls_per_step": e.count / n,
                         "us_per_call": dev_us(e) / max(e.count, 1)}
                        for e in ours])
+
+
+# ------------------------------------------------------------------ prefill
+
+def counts(K) -> dict:
+    return {name: getattr(K, name).launches for name in KERNELS}
+
+
+def reset_counts(K) -> None:
+    for name in KERNELS:
+        getattr(K, name).launches = 0
+
+
+def device_profile(torch, fn, names) -> dict:
+    """Device time by kernel over one call of ``fn`` (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev_us(e) > 0]
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    return {"device_busy_ms": sum(dev_us(e) for e in kernels) / 1e3,
+            "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+                             "calls": e.count} for e in top],
+            "port_kernels": {n: sum(dev_us(e) for e in kernels
+                                    if f"{n}_kernel" in e.key) / 1e3
+                             for n in names}}
+
+
+def f32_model(cfg, params):
+    """The same model with its weights upcast to f32."""
+    from repro_torch.models.common import tree_map
+
+    return cfg.replace(dtype="float32"), tree_map(lambda t: t.float(), params)
+
+
+def _angle(torch, a, b) -> float:
+    cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(),
+                                                dim=0)
+    return torch.arccos(cos.clamp(-1.0, 1.0)).item()
+
+
+def hold_kernel_path(torch, lk, lp, k32, l32, what: str) -> dict:
+    """Logits of the kernel path against the plain path, at bf16 (lk, lp)
+    and with the weights upcast to f32 (k32, l32).
+
+    f32: within atol = rtol = 1e-2 and cosine > 0.99999.  f32 rounding is
+    2^16 times finer than bf16's; a kernel fault (mask, GQA index, state
+    carry) moves logits by O(1).
+    bf16: the plain path rounds attention probabilities to bf16 where the
+    kernel keeps them f32, and a deep random model amplifies bf16 rounding
+    (zamba2-7b's plain bf16 logits sit far from its f32 ones), so the bound
+    is measured in this run: the plain path's own distance from the f32
+    plain path, in max abs error and in angle.  Both bf16 paths within it
+    of the f32 logits put them within twice it of each other (the
+    triangle bound).  On zamba2-7b that floor is so wide (about 0.67 rad)
+    that the bf16 hold is information, not a limit: there the f32 hold and
+    the kernel sweeps at the path's shapes in bf16 are the limits."""
+    lk, lp, k32, l32 = (t.float() for t in (lk, lp, k32, l32))
+    for name, t in (("bf16", lk), ("f32", k32)):
+        check(bool(torch.isfinite(t).all()),
+              f"{what}: non-finite {name} logits")
+    err32 = (k32 - l32).abs().max().item()
+    cos32 = torch.nn.functional.cosine_similarity(
+        k32.flatten(), l32.flatten(), dim=0).item()
+    check(torch.allclose(k32, l32, atol=1e-2, rtol=1e-2) and cos32 > 0.99999,
+          f"{what}: f32 kernel vs plain logits differ by {err32} "
+          f"(cosine {cos32})")
+    floor = (lp - l32).abs().max().item()
+    err = (lk - lp).abs().max().item()
+    ang_floor, ang = _angle(torch, lp, l32), _angle(torch, lk, lp)
+    check(err <= 2 * floor, f"{what}: bf16 kernel vs plain logits differ by "
+          f"{err}, over twice the bf16 floor {floor}")
+    check(ang <= 2 * ang_floor, f"{what}: bf16 kernel vs plain logits at "
+          f"angle {ang}, over twice the bf16 floor {ang_floor}")
+    cos = torch.nn.functional.cosine_similarity(lk.flatten(), lp.flatten(),
+                                                dim=0).item()
+    return {"f32_max_abs_err": err32, "f32_cosine": cos32,
+            "f32_tol": {"atol": 1e-2, "rtol": 1e-2, "cosine_min": 0.99999},
+            "bf16_max_abs_err": err, "bf16_cosine": cos,
+            "bf16_floor_max_abs": floor, "bf16_angle": ang,
+            "bf16_floor_angle": ang_floor,
+            "bf16_tol": "max_abs_err <= 2 * floor, angle <= 2 * floor angle",
+            "bf16_argmax_agree": (lk.argmax(-1) == lp.argmax(-1)).float()
+            .mean().item()}
+
+
+def compare_prefills(torch, cfg, params, batch, what: str) -> dict:
+    """The prefill's last-position logits on both paths, at bf16 and f32."""
+    from repro_torch.serve.step import make_prefill_step
+
+    lk = make_prefill_step(cfg)(params, batch)
+    lp = make_prefill_step(cfg, plain=True)(params, batch)
+    cfg32, p32 = f32_model(cfg, params)
+    k32 = make_prefill_step(cfg32)(p32, batch)
+    l32 = make_prefill_step(cfg32, plain=True)(p32, batch)
+    del p32
+    torch.cuda.empty_cache()
+    check(tuple(lk.shape) == (batch["tokens"].shape[0], cfg.vocab_size)
+          and lk.dtype == torch.float32,
+          f"{what}: logits {tuple(lk.shape)} {lk.dtype}")
+    return hold_kernel_path(torch, lk, lp, k32, l32, what)
+
+
+def timed_prefill(torch, step, params, batch, reps: int) -> list:
+    """Host-clock seconds per prefill, each ended by a synchronize."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def prefill_phase(torch, K, cfg, dev, params):
+    """qwen3-1.7b's full-sequence prefill (``make_prefill_step``) on the
+    restored weights at B 4, S 2048: launches per forward held exact, the
+    kernel path held against the plain path, time per prefill."""
+    from repro_torch.serve.step import make_prefill_step
+
+    B, S = PREFILL_SHAPE
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    batch = {"tokens": tokens}
+    step, plain_step = make_prefill_step(cfg), make_prefill_step(cfg,
+                                                                 plain=True)
+    with torch.inference_mode():
+        step(params, batch)                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reps = 3
+        reset_counts(K)
+        secs = timed_prefill(torch, step, params, batch, reps)
+        launches = counts(K)
+        peak = torch.cuda.max_memory_allocated()
+        per_fwd = {"flash_attention": cfg.n_layers,
+                   "rmsnorm": 4 * cfg.n_layers + 1,   # ln1, ln2, q/k-norm; final
+                   "ssm_scan": 0, "decode_attention": 0}
+        for name, n in per_fwd.items():
+            check(launches[name] == n * reps,
+                  f"prefill {name}: {launches[name]} launches, expected "
+                  f"{n} x {reps}")
+        cmp = compare_prefills(torch, cfg, params, batch, "qwen3 prefill")
+        plain_s = timed_prefill(torch, plain_step, params, batch, 1)[0]
+        prof = device_profile(torch, lambda: step(params, batch), KERNELS)
+    ms = sorted(secs)[len(secs) // 2] * 1e3
+    emit("prefill", arch=cfg.name, batch=B, seq=S, reps=reps,
+         ms_per_prefill=ms, ms_all=[t * 1e3 for t in secs],
+         prompt_tokens_per_s=B * S / (ms / 1e3), plain_ms=plain_s * 1e3,
+         max_memory_allocated=peak, launches=launches,
+         launches_per_forward={k: v / reps for k, v in launches.items()},
+         plain_vs_kernel=cmp, device_busy_ms=prof["device_busy_ms"],
+         device_idle_share=1.0 - prof["device_busy_ms"] / ms,
+         port_kernels_ms=prof["port_kernels"], top_kernels=prof["top_kernels"])
+    return launches
+
+
+# ------------------------------------------------------------------ hybrid
+
+def hybrid_phase(torch, K, dev):
+    """zamba2-7b at full width and depth, random weights from a seeded
+    ``torch.Generator`` on the card: prefill at B 1, S 4096 (launches per
+    forward held exact, kernel path against plain path), then ``generate``
+    at B 2, 16 + 16 tokens (13 decode_attention launches per step) with
+    four teacher-forced steps held against the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import (Decoder, decode_step,
+                                                forward, init_cache,
+                                                num_params)
+    from repro_torch.serve.step import make_prefill_step
+
+    cfg = get_config("zamba2-7b")
+    t0 = time.perf_counter()
+    model = Decoder(cfg, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    params = model.tree()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    check(n_params == num_params(cfg), f"{cfg.name}: {n_params} parameters")
+
+    n_groups = cfg.n_layers // cfg.hybrid_period
+    per_fwd = {"flash_attention": n_groups, "ssm_scan": cfg.n_layers,
+               # ln1 of every mamba block, ln1 + ln2 of each shared
+               # application, the final norm (zamba2 has no qk-norm)
+               "rmsnorm": cfg.n_layers + 2 * n_groups + 1,
+               "decode_attention": 0}
+    B, S = HYBRID_SHAPE
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    batch = {"tokens": tokens}
+    step, plain_step = make_prefill_step(cfg), make_prefill_step(cfg,
+                                                                 plain=True)
+    with torch.inference_mode():
+        step(params, batch)                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reps = 3
+        reset_counts(K)
+        secs = timed_prefill(torch, step, params, batch, reps)
+        launches = counts(K)
+        peak = torch.cuda.max_memory_allocated()
+        for name, n in per_fwd.items():
+            check(launches[name] == n * reps,
+                  f"hybrid prefill {name}: {launches[name]} launches, "
+                  f"expected {n} x {reps}")
+        torch.cuda.reset_peak_memory_stats()
+        plain_s = timed_prefill(torch, plain_step, params, batch, 1)[0]
+        plain_peak = torch.cuda.max_memory_allocated()
+        cmp = compare_prefills(torch, cfg, params, batch, "zamba2 prefill")
+        prof = device_profile(torch, lambda: step(params, batch), KERNELS)
+    ms = sorted(secs)[len(secs) // 2] * 1e3
+    emit("hybrid_prefill", arch=cfg.name, params=n_params, init_s=t_init,
+         batch=B, seq=S, reps=reps, ms_per_prefill=ms,
+         ms_all=[t * 1e3 for t in secs], prompt_tokens_per_s=B * S / (ms / 1e3),
+         plain_ms=plain_s * 1e3, max_memory_allocated=peak,
+         plain_max_memory_allocated=plain_peak, launches=launches,
+         launches_per_forward={k: v / reps for k, v in launches.items()},
+         plain_vs_kernel=cmp, device_busy_ms=prof["device_busy_ms"],
+         device_idle_share=1.0 - prof["device_busy_ms"] / ms,
+         port_kernels_ms=prof["port_kernels"], top_kernels=prof["top_kernels"])
+    torch.cuda.empty_cache()
+
+    # generate: greedy decode through the ported kernels only
+    B, S0, gen = 2, 16, 16
+    prompt = torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(4))
+    generate(cfg, model, prompt[:, :2], 2, device=dev)        # warm-up
+    torch.cuda.synchronize()
+    reset_counts(K)
+    t0 = time.perf_counter()
+    toks = generate(cfg, model, prompt, gen, device=dev)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    gen_launches = counts(K)
+    steps = S0 + gen
+    per_step = {"decode_attention": n_groups, "rmsnorm": per_fwd["rmsnorm"],
+                "flash_attention": 0, "ssm_scan": 0}
+    for name, n in per_step.items():
+        check(gen_launches[name] == n * steps,
+              f"hybrid generate {name}: {gen_launches[name]} launches, "
+              f"expected {n} x {steps}")
+    check(tuple(toks.shape) == (B, S0 + gen), f"tokens {tuple(toks.shape)}")
+    check(torch.equal(toks[:, :S0], prompt), "prompt not preserved")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token range")
+
+    n_cmp = 4
+    cfg32, p32 = f32_model(cfg, params)
+    caches = {"k": init_cache(cfg, B, S0, dev), "p": init_cache(cfg, B, S0, dev),
+              "k32": init_cache(cfg32, B, n_cmp, dev),
+              "p32": init_cache(cfg32, B, n_cmp, dev)}
+    errs, dec_logits = [], []
+    with torch.inference_mode():
+        for t in range(S0):
+            pos = torch.tensor(t, dtype=torch.int32, device=dev)
+            tok = toks[:, t:t + 1]
+            lk, _ = decode_step(params, cfg, caches["k"], tok, pos)
+            dec_logits.append(lk.float())
+            if t < n_cmp:
+                lp, _ = decode_step(params, cfg, caches["p"], tok, pos,
+                                    plain=True)
+                k32, _ = decode_step(p32, cfg32, caches["k32"], tok, pos)
+                l32, _ = decode_step(p32, cfg32, caches["p32"], tok, pos,
+                                     plain=True)
+                errs.append(hold_kernel_path(torch, lk, lp, k32, l32,
+                                             f"zamba2 decode step {t}"))
+        del p32, caches
+        full, _ = forward(params, cfg, {"tokens": toks[:, :S0]})
+    dec = torch.stack(dec_logits, dim=1)
+    full = full.float()
+    emit("hybrid_generate", arch=cfg.name, batch=B, prompt_len=S0, gen=gen,
+         steps=steps, seconds=elapsed, ms_per_step=elapsed / steps * 1e3,
+         tokens_per_s=B * steps / elapsed, launches=gen_launches,
+         launches_per_step={k: v / steps for k, v in gen_launches.items()},
+         plain_vs_kernel=errs, teacher_forced_steps=n_cmp,
+         decode_vs_forward_max_abs_diff=(dec - full).abs().max().item(),
+         decode_vs_forward_cosine=torch.nn.functional.cosine_similarity(
+             dec.flatten(), full.flatten(), dim=0).item())
+    profile_phase(torch, cfg, dev, params, toks, elapsed / steps * 1e3)
+    del model, params
+    torch.cuda.empty_cache()
+    return launches, gen_launches
 
 
 def main() -> int:
@@ -489,14 +1010,27 @@ def main() -> int:
 
         cfg = get_config("qwen3-1.7b")
         params = restore_phase(torch, cfg, dev)
-        launches, params, toks, step_ms = serve_phase(torch, K, cfg, dev,
-                                                      params)
+        serve_launches, params, toks, step_ms = serve_phase(torch, K, cfg,
+                                                            dev, params)
         profile_phase(torch, cfg, dev, params, toks, step_ms)
+        by_path = {"serve": serve_launches,
+                   "prefill": prefill_phase(torch, K, cfg, dev, params)}
+        del params
+        torch.cuda.empty_cache()
+        by_path["hybrid_prefill"], by_path["hybrid_generate"] = \
+            hybrid_phase(torch, K, dev)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     for entry in summary:
-        entry["launches"] = launches[entry["name"]]
+        name = entry["name"]
+        entry["launches_by_path"] = {p: n.get(name, 0)
+                                     for p, n in by_path.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        if entry["launches"] == 0:
+            print(f"chip_smoke: FAILED: {name} never launched on the main "
+                  f"paths", file=sys.stderr)
+            return 1
     print(json.dumps({"kernels": summary}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

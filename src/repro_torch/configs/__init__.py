@@ -12,10 +12,10 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-ARCH_IDS = ["qwen3_1_7b"]
+ARCH_IDS = ["qwen3_1_7b", "zamba2_7b"]
 
 #: CLI names (--arch) -> module names
-ALIASES = {"qwen3-1.7b": "qwen3_1_7b"}
+ALIASES = {"qwen3-1.7b": "qwen3_1_7b", "zamba2-7b": "zamba2_7b"}
 
 
 def _module(name: str):

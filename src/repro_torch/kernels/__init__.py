@@ -4,6 +4,9 @@ version.
 * ``decode_attention`` replaces the TPU kernel
   ``repro/kernels/decode_attention/kernel.py:decode_attention_bkv``.
 * ``rmsnorm`` replaces ``repro/kernels/rmsnorm/kernel.py:rmsnorm_rows``.
+* ``flash_attention`` replaces
+  ``repro/kernels/flash_attention/kernel.py:flash_attention_bhsd``.
+* ``ssm_scan`` replaces ``repro/kernels/ssm_scan/kernel.py:ssm_scan_bh``.
 
 Dispatch rule of every wrapper: a CPU tensor goes to the plain version; a
 CUDA tensor launches the kernel (built from ``repro_torch/csrc`` at first
@@ -11,7 +14,10 @@ use) or raises.  Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from .decode_attention import decode_attention, decode_attention_plain
+from .flash_attention import flash_attention, flash_attention_plain
 from .rmsnorm import rmsnorm, rmsnorm_plain
+from .ssm_scan import ssm_scan, ssm_scan_plain
 
-__all__ = ["decode_attention", "decode_attention_plain", "rmsnorm",
-           "rmsnorm_plain"]
+__all__ = ["decode_attention", "decode_attention_plain", "flash_attention",
+           "flash_attention_plain", "rmsnorm", "rmsnorm_plain", "ssm_scan",
+           "ssm_scan_plain"]

@@ -27,7 +27,8 @@ __all__ = ["Build", "build", "library", "SOURCES", "NVCC_FLAGS"]
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-SOURCES = ("decode_attention.cu", "rmsnorm.cu")
+SOURCES = ("decode_attention.cu", "flash_attention.cu", "rmsnorm.cu",
+           "ssm_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -132,4 +133,10 @@ def library() -> ctypes.CDLL:
     lib.decode_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, f,
                                             i, i, p]
     lib.decode_attention_launch.restype = i
+    lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
+                                           i, i, i, p]
+    lib.flash_attention_launch.restype = i
+    lib.ssm_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                    p]
+    lib.ssm_scan_launch.restype = i
     return lib

@@ -2,16 +2,19 @@
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 #: dtype codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def dtype_code(t: torch.Tensor, what: str) -> int:
-    code = DTYPE_CODES.get(t.dtype)
+def dtype_code(t: Union[torch.Tensor, torch.dtype], what: str) -> int:
+    dtype = t if isinstance(t, torch.dtype) else t.dtype
+    code = DTYPE_CODES.get(dtype)
     if code is None:
-        raise TypeError(f"{what}: unsupported dtype {t.dtype} "
+        raise TypeError(f"{what}: unsupported dtype {dtype} "
                         f"(kernel takes {sorted(map(str, DTYPE_CODES))})")
     return code
 

@@ -1,0 +1,112 @@
+"""Full-sequence attention (prefill / forward, GQA, causal and sliding
+window): CUDA kernel wrapper and its plain PyTorch version.
+
+Replaces the TPU kernel
+``src/repro/kernels/flash_attention/kernel.py:flash_attention_bhsd``
+(wrapper ``ops.py:flash_attention``).  The kernel is
+``repro_torch/csrc/flash_attention.cu``: one block per (batch, query head,
+64-query tile) walks its reachable 64-key tiles with an f32 online softmax
+in registers; tiles wholly above the diagonal or left of the window are
+never loaded.  It reads the model's ``[B, S, N, hd]`` layout directly: the
+TPU wrapper's transposes, its padding of hd to 128 lanes and of S to the
+block are layout choices of that chip, and a ragged ``Sk`` is masked by the
+kernel itself.
+
+Query ``i`` and key ``j`` sit at positions ``i`` and ``j`` (both from 0,
+as in the TPU kernel).  A row whose every key is masked gives 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from .._build import library
+from .._common import check_cuda, check_status, dtype_code, stream_handle
+
+__all__ = ["flash_attention", "flash_attention_plain"]
+
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (64, 112, 128)
+
+
+def _valid(Sq: int, Sk: int, causal: bool, window: Optional[int],
+           device: torch.device) -> torch.Tensor:
+    """``[Sq, Sk]`` bool: key j is visible from query i."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Sk, device=device)[None, :]
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        valid = valid & (kp <= qp)
+    if window is not None:
+        valid = valid & (kp > qp - window)
+    return valid
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """q ``[B, Sq, H, hd]``; k/v ``[B, Sk, KV, hd]`` -> ``[B, Sq, H, hd]`` in
+    q's dtype.  Materialised f32 scores, softmax and PV product (the
+    reference oracle ``ref.py:attention_ref``); fully masked rows give 0."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
+    s = s.masked_fill(~_valid(Sq, Sk, causal, window, q.device), -math.inf)
+    p = torch.softmax(s, dim=-1).nan_to_num_(0.0)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Same contract as :func:`flash_attention_plain`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``flash_attention.launches``) or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    dev = check_cuda("flash_attention", q=q, k=k, v=v)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, KV, hd) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if H % KV:
+        raise ValueError(f"flash_attention: H={H} is not a multiple of "
+                         f"KV={KV}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: hd={hd} not in {HEAD_DIMS}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k and v must share a dtype")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window={window}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 4:
+            raise ValueError(f"flash_attention: {name} is not 4-byte aligned")
+    code = dtype_code(q, "flash_attention")
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    if B * Sq * H == 0:
+        return out
+    status = library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
+        H, KV, hd, ctypes.c_float(scale), int(causal), window or 0, code,
+        stream_handle(dev))
+    check_status(status, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -3,6 +3,11 @@ decode step, then batched greedy (or sampled) decode, on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --prompt-len 16 --gen 16 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --prompt-len 16 --gen 16 --batch 2
+
+The hybrid's cache holds, per mamba block, its f32 SSD state and conv
+window, and one KV cache per application of the shared attention block.
 
 ``--device cpu`` runs the plain PyTorch path on the CPU (use with
 ``--reduced``).

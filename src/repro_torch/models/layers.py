@@ -1,15 +1,19 @@
-"""Decoder layers for one-token decode: RMSNorm, qk-norm, RoPE, attention
-against the KV cache, and the MLP (port of ``repro.models.layers``).
+"""Decoder layers: RMSNorm, qk-norm, RoPE, full-sequence attention,
+attention against the KV cache, and the MLP (port of
+``repro.models.layers``).
 
 Every function is plain PyTorch over explicit parameter dicts with the
 reference's key names and shapes, so the JAX package's parameter trees
-load unchanged.  The norms call the ``rmsnorm`` kernel wrapper and the
-cache attention calls the ``decode_attention`` wrapper; ``plain=True``
-routes both to their plain PyTorch versions on any device (the on-card
-reference for the kernels).
+load unchanged.  The norms call the ``rmsnorm`` kernel wrapper, the
+full-sequence attention the ``flash_attention`` wrapper and the cache
+attention the ``decode_attention`` wrapper; ``plain=True`` routes all
+three to plain PyTorch on any device (the on-card reference for the
+kernels): for the full-sequence attention that is the reference's own
+query-blocked ``_sdpa``.
 
-Left for later slices: full-sequence ``attention`` (flash_attention),
-the layernorm branch, and the reference's sharding hints.
+Left for later slices: cross-attention (``kv_x``), the layernorm branch,
+the ``attn_probs_dtype="compute"`` lever and the reference's sharding
+hints.
 """
 
 from __future__ import annotations
@@ -21,13 +25,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
-                                 rmsnorm, rmsnorm_plain)
+                                 flash_attention, rmsnorm, rmsnorm_plain)
 from repro_torch.models.common import ModelConfig, ParamSpec
 
 __all__ = [
     "norm_spec", "apply_norm", "rope_sin_cos", "apply_rope",
-    "attention_specs", "attention_from_cache", "mlp_specs", "mlp",
+    "attention_specs", "attention", "attention_from_cache", "mlp_specs",
+    "mlp",
 ]
+
+#: masked-score constant of the reference model (``layers.py:_NEG_INF``)
+_NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 
 # ---------------------------------------------------------------- norms
@@ -120,6 +128,101 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor,
         q = apply_rope(q, sin_q, cos_q)
         k = apply_rope(k, sin_k, cos_k)
     return q, k, v
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    """``[Sq, Sk]`` f32 additive bias from positional validity."""
+    valid = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
+                       device=q_pos.device)
+    if causal:
+        valid = valid & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(valid, zero, _NEG_INF)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """q ``[B, Sq, KV, G, hd]``, k/v ``[B, Sk, KV, hd]``, bias ``[Sq, Sk]`` ->
+    ``[B, Sq, KV, G, hd]``.  f32 scores and softmax, probabilities rounded
+    to the compute dtype before the PV product (the reference's default
+    ``probs_dtype="float32"`` branch)."""
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
+    scores = scores + bias[None, None, None]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+def attention(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    kv_x: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    window: Optional[int] = None,
+    use_rope: bool = True,
+    q_block: int = 1024,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Full-sequence attention (prefill / forward): x ``[B, S, d]`` ->
+    ``[B, S, d]``, at positions 0..S-1 on both paths.
+
+    The kernel path calls ``flash_attention`` (f32 probabilities through the PV product, as the TPU kernel keeps them).
+    ``plain=True`` runs the reference's exact query-blocked ``_sdpa``
+    (blocks of ``q_block`` queries over all keys, or over the
+    ``window - 1 + q_block`` keys a sliding-window block can reach), which
+    rounds the probabilities to the compute dtype first; at bf16 the two
+    agree within bf16 tolerance."""
+    if kv_x is not None:
+        raise NotImplementedError("cross-attention (kv_x) is not ported yet")
+    if cfg.attn_probs_dtype != "float32":
+        raise NotImplementedError("attn_probs_dtype='compute' is not ported")
+    B, Sq, _ = x.shape
+    Sk = Sq
+    positions = torch.arange(Sq, dtype=torch.int32, device=x.device)
+    kv_positions = positions
+
+    q, k, v = _qkv(p, cfg, x, x, positions, kv_positions, use_rope,
+                   plain=plain)
+    KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    scale = cfg.attn_scale or 1.0 / math.sqrt(hd)
+
+    if not plain:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, window=window, scale=scale)
+    else:
+        q = q.reshape(B, Sq, KV, G, hd)
+        if Sq <= q_block:
+            bias = _mask_bias(positions, kv_positions, causal, window)
+            out = _sdpa(q, k, v, bias, scale)
+        else:
+            # exact query-blocked attention; sliding-window causal layers
+            # slice the window - 1 + q_block keys a block can reach
+            if Sq % q_block:
+                raise ValueError(f"Sq={Sq} is not a multiple of "
+                                 f"q_block={q_block}")
+            windowed = (window is not None and causal
+                        and window + q_block < Sk)
+            outs = []
+            for q0 in range(0, Sq, q_block):
+                qi = q[:, q0:q0 + q_block]
+                pi = positions[q0:q0 + q_block]
+                if windowed:
+                    span = window - 1 + q_block
+                    start = min(max(q0 - (window - 1), 0), Sk - span)
+                    kb, vb = k[:, start:start + span], v[:, start:start + span]
+                    bias = _mask_bias(pi, kv_positions[start:start + span],
+                                      causal, window)
+                else:
+                    kb, vb = k, v
+                    bias = _mask_bias(pi, kv_positions, causal, window)
+                outs.append(_sdpa(qi, kb, vb, bias, scale))
+            out = torch.cat(outs, dim=1)
+    out = out.reshape(B, Sq, cfg.n_heads, hd)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
 
 
 def attention_from_cache(

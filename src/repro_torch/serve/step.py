@@ -1,5 +1,6 @@
-"""Serving step: batched one-token decode against the KV cache, then greedy
-or temperature sampling on the device (port of ``repro.serve.step``)."""
+"""Serving steps: full-sequence prefill, and batched one-token decode
+against the cache followed by greedy or temperature sampling on the device
+(port of ``repro.serve.step``)."""
 
 from __future__ import annotations
 
@@ -8,9 +9,21 @@ from typing import Optional
 import torch
 
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import decode_step
+from repro_torch.models.transformer import decode_step, forward
 
-__all__ = ["make_serve_step"]
+__all__ = ["make_serve_step", "make_prefill_step"]
+
+
+def make_prefill_step(cfg: ModelConfig, *, plain: bool = False):
+    """prefill_step(params, batch) -> last-position logits ``[B, V]`` f32.
+
+    ``plain=True`` runs the plain PyTorch versions of the kernels."""
+
+    def prefill_step(params: dict, batch: dict) -> torch.Tensor:
+        logits, _ = forward(params, cfg, batch, plain=plain)
+        return logits[:, -1].float()
+
+    return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, temperature: float = 0.0):

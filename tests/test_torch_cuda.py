@@ -14,11 +14,15 @@ import pytest
 import torch
 
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
-                                 rmsnorm, rmsnorm_plain)
+                                 flash_attention, flash_attention_plain,
+                                 rmsnorm, rmsnorm_plain, ssm_scan,
+                                 ssm_scan_plain)
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: flash_attention at bf16: largest |out - ref| / |ref| over query rows
+FLASH_BF16_ROW_REL_TOL = 1e-2
 
 
 @pytest.fixture
@@ -51,12 +55,33 @@ def test_rmsnorm_kernel_matches_plain(card, shape, dtype, with_res):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (4, 1, 2048), (4, 1, 16, 128), (4, 1, 8, 128),          # qwen3 decode
+    (4, 2048, 2048), (4, 2048, 16, 128), (4, 2048, 8, 128),  # qwen3 prefill
+    (1, 4096, 3584), (2, 1, 3584),                 # zamba2 prefill, decode
+], ids=str)
+def test_rmsnorm_kernel_matches_plain_at_path_shapes(card, shape, dtype):
+    """The models' shapes, scale in x's dtype as the models hold it; d 3584
+    takes the block-per-row path with an uneven count of 16-byte vectors
+    per thread."""
+    x = _randn(shape, dtype, card, 0)
+    scale = _randn(shape[-1:], dtype, card, 1)
+    y = rmsnorm(x, scale)
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), rmsnorm_plain(x, scale).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
     # (B, KV, G, hd, S, pos, window)
     (2, 2, 4, 64, 512, 300, None), (2, 2, 4, 112, 512, 300, None),
     (4, 8, 2, 128, 48, 47, None), (2, 2, 1, 64, 512, 0, None),
     (2, 2, 8, 64, 700, 600, None), (2, 2, 4, 128, 1024, 900, 32),
     (2, 2, 4, 64, 1024, 900, 1 << 20), (1, 1, 16, 128, 300, 299, 256),
+    # zamba2-7b generate: B 2, KV 32, G 1, hd 112, S_max 32
+    (2, 32, 1, 112, 32, 0, None), (2, 32, 1, 112, 32, 15, None),
+    (2, 32, 1, 112, 32, 31, None),
 ], ids=str)
 def test_decode_attention_kernel_matches_plain(card, case, dtype):
     B, KV, G, hd, S, pos, window = case
@@ -74,6 +99,92 @@ def test_decode_attention_kernel_matches_plain(card, case, dtype):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+#: (B, Sq, Sk, H, KV, hd, causal, window, scale) — the JAX sweep
+#: (tests/test_kernels.py: head dims, GQA ratios, windows, non-causal,
+#: ragged, block-shape case, custom scale), rows with every key masked, and
+#: the two model paths' shapes (qwen3-1.7b, zamba2-7b)
+FLASH_CASES = (
+    [(2, 256, 256, 4, 2, hd, True, None, None) for hd in (64, 112, 128)]
+    + [(2, 128, 128, 8, 8 // g, 64, True, None, None) for g in (1, 2, 8)]
+    + [(1, 512, 512, 4, 1, 64, True, w, None) for w in (32, 128, 511)]
+    + [(2, 128, 256, 4, 4, 64, False, None, None),
+       (1, 200, 200, 2, 2, 64, True, None, None),
+       (1, 512, 512, 2, 1, 64, True, None, None),
+       (1, 128, 128, 4, 1, 128, True, None, 1.0 / 16.0),
+       (1, 256, 64, 2, 1, 64, False, 8, None),     # rows past Sk+7: no key
+       (2, 77, 77, 4, 2, 112, True, 1, None),      # window 1: the diagonal
+       (1, 1, 300, 4, 4, 128, False, None, None),
+       (4, 2048, 2048, 16, 8, 128, True, None, None),
+       (1, 4096, 4096, 32, 32, 112, True, None, None)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(card, case, dtype):
+    B, Sq, Sk, H, KV, hd, causal, window, scale = case
+    q = _randn((B, Sq, H, hd), dtype, card, 0)
+    k = _randn((B, Sk, KV, hd), dtype, card, 1)
+    v = _randn((B, Sk, KV, hd), dtype, card, 2)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                scale=scale)
+    assert torch.isfinite(out.float()).all()
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        # row by row: the element-wise 2e-2 is loose where |o| is small, as
+        # at the model paths' lengths (|o| ~ 0.03 at S 2048)
+        diff = (out.float() - ref.float()).norm(dim=-1)
+        norm = ref.float().norm(dim=-1)
+        keep = norm > 0
+        assert (diff[keep] / norm[keep]).max().item() <= FLASH_BF16_ROW_REL_TOL
+
+
+def _ssm_inputs(B, S, H, P, N, dtype, dev, seed):
+    """The JAX sweep's distributions (tests/test_kernels_decode_ssm.py)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    return ((n(B, S, H, P) * 0.5).to(dtype), n(B, S, H).abs() * 0.1,
+            -n(H).abs() - 0.1, (n(B, S, N) * 0.3).to(dtype),
+            (n(B, S, N) * 0.3).to(dtype))
+
+
+#: (B, S, H, P, N, chunk) — the JAX sweep (chunks, head shapes, ragged S,
+#: state continuity) and the zamba2-7b path's shape
+SSM_CASES = ([(2, 256, 8, 32, 16, c) for c in (32, 64, 128)]
+             + [(2, 256, h, p, 16, 64) for h, p in ((4, 16), (8, 64),
+                                                    (16, 32))]
+             + [(2, 200, 8, 32, 16, 64), (2, 512, 8, 32, 16, 128),
+                (1, 300, 4, 64, 64, 128), (1, 4096, 112, 64, 64, 128)])
+SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, None),
+                                    (torch.bfloat16, None),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "bf16-out-f32"])
+@pytest.mark.parametrize("case", SSM_CASES, ids=str)
+def test_ssm_scan_kernel_matches_plain(card, case, dtypes):
+    B, S, H, P, N, chunk = case
+    dtype, out_dtype = dtypes
+    args = _ssm_inputs(B, S, H, P, N, dtype, card, 0)
+    before = ssm_scan.launches
+    y = ssm_scan(*args, chunk=chunk, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    ref = ssm_scan_plain(*args, chunk=chunk, out_dtype=out_dtype)
+    assert y.dtype == ref.dtype == (out_dtype or dtype)
+    assert torch.isfinite(y.float()).all()
+    tol = SSM_TOL[y.dtype]
+    torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=tol)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     q = torch.zeros((1, 1, 4, 96), device=card)      # hd 96: no instance
     k = torch.zeros((1, 8, 2, 96), device=card)
@@ -86,6 +197,33 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         rmsnorm(torch.zeros((8, 4), device=card).t(),
                 torch.ones(8, device=card))
+    q = torch.zeros((1, 8, 4, 96), device=card)
+    with pytest.raises(ValueError, match="hd=96"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 4, 64), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                        q.transpose(1, 2))
+    with pytest.raises(ValueError, match="several devices"):
+        flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q.half(), q.half(), q.half())
+    x, dt, A, Bm, Cm = _ssm_inputs(1, 64, 2, 64, 16, torch.float32, card, 0)
+    with pytest.raises(ValueError, match="chunk=48"):
+        ssm_scan(x, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(ValueError, match="P=24"):
+        ssm_scan(x[..., :24].contiguous(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan(x, dt, A, Bm.transpose(1, 2).contiguous().transpose(1, 2),
+                 Cm)
+    with pytest.raises(ValueError, match="several devices"):
+        ssm_scan(x, dt, A.cpu(), Bm, Cm)
+    with pytest.raises(TypeError, match="float32"):
+        ssm_scan(x, dt.bfloat16(), A, Bm, Cm)
+    with pytest.raises(TypeError, match="ssm_scan out"):
+        ssm_scan(x, dt, A, Bm, Cm, out_dtype=torch.float16)
+    with pytest.raises(TypeError, match="ssm_scan out"):
+        ssm_scan(x, dt, A, Bm, Cm, out_dtype=torch.bfloat16)
 
 
 def test_decoder_kernels_match_plain_path(card):
@@ -111,3 +249,50 @@ def test_decoder_kernels_match_plain_path(card):
                                  plain=True)
             torch.testing.assert_close(lk.float(), lp.float(), atol=0.08,
                                        rtol=0.05)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,S", [("qwen3-1.7b", 96), ("zamba2-7b", 256)])
+def test_reduced_forward_kernels_match_plain_path(card, arch, S, dtype):
+    """Reduced qwen3 (hd 128) and zamba2 (hd 64, P 64) full-sequence
+    forwards, kernel path vs plain path on the card, and the launches of
+    one forward.  f32: within 1e-3.  bf16: the plain path rounds attention
+    probabilities to bf16 where the kernel keeps f32, and a random hybrid
+    amplifies bf16 rounding (its bf16 logits sit ~0.6 from its f32 logits at
+    this width), so the two must lie within twice the plain path's own
+    distance from the f32 forward (the triangle bound) and at cosine
+    > 0.999."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Decoder, forward, program_for
+
+    cfg = reduced_config(arch).replace(
+        d_model=256, n_heads=4, n_kv_heads=2 if arch.startswith("qwen") else 4,
+        d_ff=512, dtype=dtype)
+    if arch.startswith("qwen"):
+        cfg = cfg.replace(head_dim=128)
+    params = Decoder(cfg, device=card).tree()
+    toks = torch.randint(0, cfg.vocab_size, (2, S), device=card,
+                         generator=torch.Generator(card).manual_seed(5))
+    grp, n_groups, rem = program_for(cfg)
+    n_attn = n_groups * (grp.count("attn") + grp.count("shared_attn"))
+    n_mamba = n_groups * grp.count("mamba") + rem.count("mamba")
+    batch = {"tokens": toks}
+    with torch.inference_mode():
+        a0, s0 = flash_attention.launches, ssm_scan.launches
+        lk, _ = forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        assert flash_attention.launches - a0 == n_attn
+        assert ssm_scan.launches - s0 == n_mamba
+        lp, _ = forward(params, cfg, batch, plain=True)
+        lk, lp = lk.float(), lp.float()
+        assert torch.isfinite(lk).all()
+        if dtype == "float32":
+            torch.testing.assert_close(lk, lp, atol=1e-3, rtol=1e-3)
+            return
+        l32, _ = forward(tree_map(lambda t: t.float(), params),
+                         cfg.replace(dtype="float32"), batch, plain=True)
+    floor = (lp - l32).abs().max().item()
+    assert (lk - lp).abs().max().item() <= 2 * floor
+    assert torch.nn.functional.cosine_similarity(
+        lk.flatten(), lp.flatten(), dim=0).item() > 0.999

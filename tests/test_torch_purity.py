@@ -39,6 +39,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     mods = _port_modules()
     assert "repro_torch.checkpoint.manager" in mods
     assert "repro_torch.kernels.decode_attention.ops" in mods
+    for name in ("repro_torch.models.ssm", "repro_torch.configs.zamba2_7b",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.ssm_scan.ops"):
+        assert name in mods
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"
