@@ -166,8 +166,14 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 # ------------------------------------------------------------------ kernels
 
-def kernel_phase(torch, K, dev):
-    """Sweeps and timings of both kernels.  Returns the summary entries
+def ptxas_of(ptxas, name: str) -> list:
+    """``ptxas``'s register / shared-memory / spill lines of every instance
+    of one kernel (its merge kernel included)."""
+    return [ln for ln in ptxas if ln.startswith(name)]
+
+
+def kernel_phase(torch, K, dev, ptxas):
+    """Sweeps and timings of every kernel.  Returns the summary entries
     (launch counts are filled in after the main path's run)."""
     import torch.nn.functional as F
 
@@ -201,7 +207,13 @@ def kernel_phase(torch, K, dev):
               + [(2, 2, 4, 64, 700, 600, None),
                  (4, 8, 2, 128, 48, 47, None),
                  (4, 8, 2, 128, 4096, 4095, None)]
-              + [(2, 32, 1, 112, 32, p, None) for p in (0, 15, 31)])
+              + [(2, 32, 1, 112, 32, p, None) for p in (0, 15, 31)]
+              # the timing shape's cache cut into slices across blocks:
+              # empty, partial and full slices, windows inside one slice
+              # and across two
+              + [(4, 8, 2, 128, 4096, p, None) for p in (0, 1, 300, 2047, 4095)]
+              + [(4, 8, 2, 128, 4096, p, w) for p in (2047, 4095)
+                 for w in (32, 256)])
     for dt in dtypes:
         for B, KV, G, hd, S, pos, win in dcases:
             q = randn((B, 1, KV * G, hd), dt)
@@ -260,7 +272,10 @@ def kernel_phase(torch, K, dev):
          kernel_ms=d_ms, kernel_eager_ms=d_eager, plain_ms=d_plain,
          library_ms=d_lib,
          library="F.scaled_dot_product_attention(enable_gqa=True)",
-         bound_ms=d_bound, bound_by=d_by, bytes=nbytes)
+         bound_ms=d_bound, bound_by=d_by, bytes=nbytes,
+         n_split=K.plan_splits(S, B * KV, torch.cuda.get_device_properties(
+             dev).multi_processor_count),
+         ptxas=ptxas_of(ptxas, "decode_attention"))
 
     r_times = []
     for rows, d in ((4, 2048), (64, 128)):
@@ -278,10 +293,11 @@ def kernel_phase(torch, K, dev):
         emit("kernel_time", kernel="rmsnorm", shape=f"({rows}, {d}) bf16",
              kernel_ms=r_ms, kernel_eager_ms=r_eager, plain_ms=r_plain,
              library_ms=r_lib,
-             library="F.rms_norm", bound_ms=r_bound, bound_by=r_by, bytes=nb)
+             library="F.rms_norm", bound_ms=r_bound, bound_by=r_by, bytes=nb,
+             ptxas=ptxas_of(ptxas, "rmsnorm"))
 
-    flash = flash_kernel_phase(torch, K, dev, randn, record, worst)
-    ssm = ssm_kernel_phase(torch, K, dev, record, worst)
+    flash = flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas)
+    ssm = ssm_kernel_phase(torch, K, dev, record, worst, ptxas)
 
     rows, d, r_ms, r_eager, r_plain, r_lib, r_bound, r_by = r_times[0]
     return [
@@ -294,7 +310,8 @@ def kernel_phase(torch, K, dev):
          "ms": d_ms, "eager_ms": d_eager, "plain_ms": d_plain,
          "bound_ms": d_bound,
          "bound_by": d_by, "library_ms": d_lib,
-         "timed_shape": f"B{B} KV{KV} G{G} hd{hd} S{S} pos{pos} bf16"},
+         "timed_shape": f"B{B} KV{KV} G{G} hd{hd} S{S} pos{pos} bf16",
+         "ptxas": ptxas_of(ptxas, "decode_attention")},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm/kernel.py:39",
@@ -303,7 +320,8 @@ def kernel_phase(torch, K, dev):
          "ms": r_ms, "eager_ms": r_eager, "plain_ms": r_plain,
          "bound_ms": r_bound,
          "bound_by": r_by, "library_ms": r_lib,
-         "timed_shape": f"({rows}, {d}) bf16"},
+         "timed_shape": f"({rows}, {d}) bf16",
+         "ptxas": ptxas_of(ptxas, "rmsnorm")},
         flash, ssm,
     ]
 
@@ -323,6 +341,10 @@ FLASH_CASES = (
        (1, 256, 64, 2, 1, 64, False, 8, None),
        (2, 77, 77, 4, 2, 112, True, 1, None),
        (1, 1, 300, 4, 4, 128, False, None, None),
+       # Sq not a multiple of the bf16 kernel's 128-query tile; hd 112
+       (2, 300, 300, 4, 2, 128, True, None, None),
+       (1, 300, 300, 4, 2, 112, True, None, None),
+       (1, 190, 333, 4, 1, 64, False, 100, None),
        (4, 2048, 2048, 16, 8, 128, True, None, None),
        (1, 4096, 4096, 32, 32, 112, True, None, None)])
 
@@ -355,7 +377,7 @@ def row_rel_err(out, ref) -> float:
     return (diff[keep] / norm[keep]).max().item() if keep.any() else 0.0
 
 
-def flash_kernel_phase(torch, K, dev, randn, record, worst):
+def flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas):
     """flash_attention against its plain version over FLASH_CASES (bf16
     also row by row, FLASH_BF16_ROW_REL_TOL), then timed at the two model
     paths' shapes (bf16, causal)."""
@@ -412,7 +434,8 @@ def flash_kernel_phase(torch, K, dev, randn, record, worst):
                             tflop_s=flops / ms / 1e9)
         emit("kernel_time", kernel="flash_attention", path=label,
              library="F.scaled_dot_product_attention(is_causal=True, "
-                     "enable_gqa=True)", **times[label])
+                     "enable_gqa=True)", **times[label],
+             ptxas=ptxas_of(ptxas, "flash_attention"))
         del q, k, v, qs, ks, vs
         torch.cuda.empty_cache()
     main = times["qwen3-1.7b"]
@@ -426,7 +449,8 @@ def flash_kernel_phase(torch, K, dev, randn, record, worst):
             "bf16_row_rel_tol": FLASH_BF16_ROW_REL_TOL, "ms": main["ms"], "eager_ms": main["eager_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "timed_shape": main["shape"], "zamba2-7b": times["zamba2-7b"]}
+            "timed_shape": main["shape"], "zamba2-7b": times["zamba2-7b"],
+            "ptxas": ptxas_of(ptxas, "flash_attention")}
 
 
 def ssm_bound(B, S, H, P, N, Q, ex=2, ey=4):
@@ -442,7 +466,7 @@ def ssm_bound(B, S, H, P, N, Q, ex=2, ey=4):
     return nbytes, flops
 
 
-def ssm_kernel_phase(torch, K, dev, record, worst):
+def ssm_kernel_phase(torch, K, dev, record, worst, ptxas):
     """ssm_scan against its plain version over SSM_CASES (x f32, bf16, and
     bf16 with an f32 y as mamba2_forward asks), then timed at zamba2-7b's
     shape."""
@@ -480,14 +504,16 @@ def ssm_kernel_phase(torch, K, dev, record, worst):
     emit("kernel_time", kernel="ssm_scan", path="zamba2-7b", shape=shape,
          ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
          library="none (no single PyTorch call computes the SSD scan)",
-         bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops)
+         bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
+         ptxas=ptxas_of(ptxas, "ssm_scan"))
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:79",
             "launches": None, "max_abs_err": max(worst["ssm_scan"].values()),
             "max_abs_err_by_dtype": worst["ssm_scan"], "tol": SSM_TOL,
             "ms": ms, "eager_ms": eager, "plain_ms": plain, "bound_ms": bnd,
-            "bound_by": by, "library_ms": None, "timed_shape": shape}
+            "bound_by": by, "library_ms": None, "timed_shape": shape,
+            "ptxas": ptxas_of(ptxas, "ssm_scan")}
 
 
 # ------------------------------------------------------------------ restore
@@ -666,7 +692,7 @@ def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float):
     busy_ms = sum(dev_us(e) for e in kernels) / n / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     ours = [e for e in kernels
-            if "decode_attention_kernel" in e.key or "rmsnorm_kernel" in e.key]
+            if "decode_attention" in e.key or "rmsnorm_kernel" in e.key]
     emit("profile", arch=cfg.name, steps=n, device_busy_ms_per_step=busy_ms,
          step_ms_unprofiled=ms_per_step,
          device_idle_share=(1.0 - busy_ms / ms_per_step) if busy_ms else None,
@@ -712,8 +738,8 @@ def device_profile(torch, fn, names) -> dict:
             "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
                              "calls": e.count} for e in top],
             "port_kernels": {n: sum(dev_us(e) for e in kernels
-                                    if f"{n}_kernel" in e.key) / 1e3
-                             for n in names}}
+                                    if n in e.key and "kernel" in e.key)
+                             / 1e3 for n in names}}
 
 
 def f32_model(cfg, params):
@@ -1006,7 +1032,7 @@ def main() -> int:
         emit("build", seconds=time.perf_counter() - t0, cached=b.cached,
              library=os.path.relpath(b.path, ROOT), ptxas=list(b.ptxas))
 
-        summary = kernel_phase(torch, K, dev)
+        summary = kernel_phase(torch, K, dev, b.ptxas)
 
         cfg = get_config("qwen3-1.7b")
         params = restore_phase(torch, cfg, dev)

@@ -8,7 +8,8 @@
 // for each (b, kv head) and each of its G query rows:
 //
 //     s_j = (q . k_j) * scale          for keys max(0, pos-window+1) <= j <= pos
-//     o   = sum_j softmax(s)_j v_j     (f32 statistics and accumulator)
+//     o   = sum_j softmax(s)_j v_j     (f32 statistics, probabilities and
+//                                       accumulator)
 //
 // in the model's layouts: q and out [B, 1, H, hd], caches [B, S, KV, hd].
 //
@@ -16,19 +17,27 @@
 // V caches once (2 * B * KV * (keys) * hd * elt bytes) for ~4 flops per
 // cached element, so the least time is those bytes / 3.35 TB/s.
 //
-// Design: one 256-thread block per (b, kv head) walks the valid key range
-// only (no padding, nothing past pos or before the window is read, which is
-// how the TPU kernel's block skipping translates).  Tiles of TK = 32 keys of
-// K and V stream into a ring of shared-memory stages with cp.async, several
-// tiles ahead of the one being used (128 KB in flight per block), so the
-// loads of later tiles overlap the math of the current one.  Per tile each
-// warp computes the G scores of its keys (lanes split hd, warp-shuffle
-// sum), one warp per query row updates the online-softmax m/l, and each
-// thread keeps the accumulators of one output dimension for half of the G
-// rows in registers.  pos is read from device memory, so a decode step
-// never waits on the host.  At B*KV = 32 (qwen3 at batch 4) this fills 32 of
-// the 132 SMs: splitting the key range across blocks (flash-decoding), TMA
-// and wgmma are left for later work.
+// Design (flash-decoding): the grid is (B*KV, n_split).  n_split is chosen
+// by the wrapper from S_max, B*KV and the SM count (never from pos), so
+// that a long cache puts blocks on every SM in one wave, while a short
+// serving cache keeps n_split 1.  Each block reads pos from device memory
+// (a decode step never waits on the host) and walks the valid keys
+// [max(0, pos - window + 1), pos] of its slice of the cache (n_split
+// slices of whole 32-key tiles, sized from S_max) only: nothing past pos
+// or before the window is read, which is how the TPU kernel's block
+// skipping translates; a slice wholly outside that range is empty.
+// Tiles of K and V stream into a ring of shared-memory stages by 16-byte
+// cp.async (48 KB a block at bf16, hd 128, so four blocks share an SM).  Per
+// tile each warp computes the G scores of its keys (each lane reads one
+// contiguous 4- to 16-byte slice of a key row; all of a warp's partial
+// dots are formed before their shuffle reductions, so those overlap),
+// one warp per query row updates the online-softmax m / l, and each
+// thread keeps the accumulators of one output dimension for half of the
+// G rows.  With n_split 1 the block writes the output itself (no
+// scratch, one launch); otherwise it writes its m, l and unnormalised f32
+// accumulator to scratch the wrapper allocates, and a second launch from
+// the same entry point merges the slices.  An empty slice writes
+// m = -inf, l = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,9 +50,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileKeys = 32;
 
-// K+V ring: 8 stages of bf16 (or 4 of f32) tiles at hd 128 = 128 KB
+// K+V ring: 3 stages of bf16 (or 2 of f32) tiles, 48 KB (64 KB) at hd 128
 template <typename T>
-__host__ __device__ constexpr int stages() { return sizeof(T) == 2 ? 8 : 4; }
+__host__ __device__ constexpr int stages() { return sizeof(T) == 2 ? 3 : 2; }
 
 template <typename T, int HD>
 __host__ __device__ constexpr int smem_bytes() {
@@ -71,6 +80,44 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// CPL consecutive elements of a shared-memory row as floats, in one load
+// of 4 to 16 bytes (no type-punned pointer: the words come from ld.shared)
+template <typename T, int CPL>
+__device__ __forceinline__ void load_slice(const T* p, float (&x)[CPL]) {
+  constexpr int W = CPL * (int)sizeof(T) / 4;  // 32-bit words
+  static_assert(W == 1 || W == 2 || W == 4, "4, 8 or 16 bytes");
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  uint32_t w[4];
+  if constexpr (W == 1) {
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(w[0]) : "r"(a) : "memory");
+  } else if constexpr (W == 2) {
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(w[0]), "=r"(w[1]) : "r"(a)
+                 : "memory");
+  } else {
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                 : "r"(a)
+                 : "memory");
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(T) == 2) {  // a bf16 is the high half of an f32
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+      x[i] = __uint_as_float(w[i]);
+    }
+  }
+}
+
+// An opaque copy of x: the compiler cannot re-derive it through the
+// min / max chain that computes it.  Without it nvcc 12.9's optimiser
+// does not finish on the slice bounds below.
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -85,16 +132,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Scratch of one launch with n_split > 1, f32: m [BKV, n_split, G],
+// l [BKV, n_split, G], acc [BKV, n_split, G, HD].
+struct Partials {
+  float* m;
+  float* l;
+  float* acc;
+  __host__ __device__ Partials(float* base, int bkv, int n_split, int G)
+      : m(base), l(base + (size_t)bkv * n_split * G),
+        acc(base + 2 * (size_t)bkv * n_split * G) {}
+};
+
 template <typename T, int HD, int GMAX>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ pos_ptr, T* __restrict__ out, int S, int KV, int G,
-    float scale, int window) {
+    const int* __restrict__ pos_ptr, T* __restrict__ out,
+    float* __restrict__ scratch, int S, int KV, int G, float scale, int window,
+    int n_split, int per) {
   constexpr int TK = kTileKeys;
   constexpr int NS = stages<T>();
   constexpr int EPV = 16 / (int)sizeof(T);       // elements per 16-byte vector
   constexpr int VPR = HD / EPV;                  // 16-byte vectors per key row
-  constexpr int DPL = (HD + 31) / 32;            // dims per lane in the score phase
+  constexpr int CPL = HD >= 96 ? 4 : 2;          // contiguous dims per lane (scores)
+  constexpr int LANES = HD / CPL;                // lanes that hold a slice of a row
   constexpr int GPT = GMAX / 2;                  // query rows per thread in P @ V
   static_assert(HD % EPV == 0, "rows must split into 16-byte vectors");
   static_assert(HD <= kThreads / 2, "two threads per output dimension");
@@ -106,12 +166,15 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   __shared__ float m_s[GMAX], l_s[GMAX], alpha_s[GMAX];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.x / KV, h = blockIdx.x % KV;
+  const int bkv = blockIdx.x, split = blockIdx.y;
+  const int b = bkv / KV, h = bkv % KV;
   const int H = KV * G;
   const int pos = *pos_ptr;
-  const int hi = min(pos, S - 1);
-  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
-  const int n_tiles = hi >= lo ? (hi - lo + TK) / TK : 0;
+  // this block's slice: cache keys [split * per, split * per + per), the
+  // valid ones only
+  const int s_lo = opaque(max(window > 0 ? max(0, pos - window + 1) : 0, split * per));
+  const int s_hi = opaque(min(min(pos, S - 1), split * per + per - 1));
+  const int n_tiles = s_hi >= s_lo ? (s_hi - s_lo + TK) / TK : 0;
 
   const size_t key_stride = (size_t)KV * HD;  // elements between consecutive keys
   const T* kb = k + ((size_t)b * S * KV + h) * HD;
@@ -121,8 +184,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   auto issue = [&](int tile) {
     T* ks = ring + (size_t)(tile % NS) * 2 * TK * HD;
     T* vs = ks + TK * HD;
-    const int t0 = lo + tile * TK;
-    const int n = min(TK, hi - t0 + 1);
+    const int t0 = s_lo + tile * TK;
+    const int n = min(TK, s_hi - t0 + 1);
     for (int i = tid; i < n * VPR; i += kThreads) {
       const int j = i / VPR, c = (i % VPR) * EPV;
       const size_t off = (size_t)(t0 + j) * key_stride + c;
@@ -138,14 +201,12 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 
   // this lane's slice of every query row of the group
   const T* qb = q + ((size_t)b * H + (size_t)h * G) * HD;
-  float qr[GMAX][DPL];
+  float qr[GMAX][CPL];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      qr[g][i] = (g < G && d < HD) ? to_f(qb[g * HD + d]) : 0.f;
-    }
+    for (int c = 0; c < CPL; ++c)
+      qr[g][c] = (g < G && lane < LANES) ? to_f(qb[g * HD + lane * CPL + c]) : 0.f;
   }
   // P @ V ownership: output dimension d, rows g0, g0 + 2, ...
   const int d = tid % (kThreads / 2), g0 = tid / (kThreads / 2);
@@ -166,9 +227,10 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 
     const T* ks = ring + (size_t)(tile % NS) * 2 * TK * HD;
     const T* vs = ks + TK * HD;
-    const int n = min(TK, hi - (lo + tile * TK) + 1);  // every key is valid
+    const int n = min(TK, s_hi - (s_lo + tile * TK) + 1);  // every key is valid
 
-    // scores: warp w takes keys w, w + 8, ...; lanes split hd.  All of a
+    // scores: warp w takes keys w, w + 8, ...; lane l holds dims
+    // l*CPL .. l*CPL + CPL-1 of a row (one 4- to 16-byte load).  All of a
     // warp's partial dots are formed first, so their shuffle reductions are
     // independent and overlap instead of running one after another.
     constexpr int KPW = TK / kWarps;  // keys per warp
@@ -178,16 +240,13 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       const int j = warp + r * kWarps;
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) part[r][g] = 0.f;
-      if (j < n) {
+      if (j < n && lane < LANES) {
+        float kv[CPL];
+        load_slice<T, CPL>(ks + j * HD + lane * CPL, kv);
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int dd = lane + 32 * i;
-          if (dd < HD) {
-            const float kv = to_f(ks[j * HD + dd]);
+        for (int c = 0; c < CPL; ++c)
 #pragma unroll
-            for (int g = 0; g < GMAX; ++g) part[r][g] += qr[g][i] * kv;
-          }
-        }
+          for (int g = 0; g < GMAX; ++g) part[r][g] = fmaf(qr[g][c], kv[c], part[r][g]);
       }
     }
 #pragma unroll
@@ -239,58 +298,114 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   }
   cp_async_wait<0>();
 
-  if (d < HD) {
-    T* ob = out + ((size_t)b * H + (size_t)h * G) * HD;
+  if (n_split == 1) {
+    if (d < HD) {
+      T* ob = out + ((size_t)b * H + (size_t)h * G) * HD;
 #pragma unroll
-    for (int i = 0; i < GPT; ++i) {
-      const int g = g0 + 2 * i;
-      if (g < G) ob[g * HD + d] = from_f<T>(acc[i] / fmaxf(l_s[g], 1e-30f));
+      for (int i = 0; i < GPT; ++i) {
+        const int g = g0 + 2 * i;
+        if (g < G) ob[g * HD + d] = from_f<T>(acc[i] / fmaxf(l_s[g], 1e-30f));
+      }
     }
+  } else {
+    const Partials part(scratch, gridDim.x, n_split, G);
+    const size_t row0 = ((size_t)bkv * n_split + split) * G;
+    if (tid < G) {
+      part.m[row0 + tid] = m_s[tid];
+      part.l[row0 + tid] = l_s[tid];
+    }
+    if (d < HD) {
+#pragma unroll
+      for (int i = 0; i < GPT; ++i) {
+        const int g = g0 + 2 * i;
+        if (g < G) part.acc[(row0 + g) * HD + d] = acc[i];
+      }
+    }
+  }
+}
+
+// One block per (b, kv head): combines the n_split slices' (m, l, acc) of
+// each query row of the group, o = sum_s acc_s e^(m_s - M) / sum_s l_s
+// e^(m_s - M) with M the largest m_s; empty slices (m = -inf) weigh 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) decode_attention_merge_kernel(
+    const float* __restrict__ scratch, T* __restrict__ out, int bkv_total,
+    int n_split, int G, int HD) {
+  const Partials part(const_cast<float*>(scratch), bkv_total, n_split, G);
+  const int bkv = blockIdx.x;
+  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
+    const int g = i / HD, d = i % HD;
+    float M = -INFINITY;
+    for (int s = 0; s < n_split; ++s)
+      M = fmaxf(M, part.m[((size_t)bkv * n_split + s) * G + g]);
+    float L = 0.f, o = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const size_t r = ((size_t)bkv * n_split + s) * G + g;
+      const float ms = part.m[r];
+      if (ms == -INFINITY) continue;
+      const float w = expf(ms - M);
+      L = fmaf(part.l[r], w, L);
+      o = fmaf(part.acc[r * HD + d], w, o);
+    }
+    out[((size_t)bkv * G + g) * HD + d] = from_f<T>(o / fmaxf(L, 1e-30f));
   }
 }
 
 template <typename T, int HD>
 int launch_hd(const void* q, const void* k, const void* v, const void* pos,
-              void* out, int B, int S, int KV, int G, float scale, int window,
-              cudaStream_t stream) {
-  const dim3 grid((unsigned)(B * KV));
+              void* out, void* scratch, int B, int S, int KV, int G,
+              float scale, int window, int n_split, cudaStream_t stream) {
+  const dim3 grid((unsigned)(B * KV), (unsigned)n_split);
   constexpr int smem = smem_bytes<T, HD>();
+  // keys per slice: whole tiles, from the cache length (never from pos)
+  const int per = ((S + n_split - 1) / n_split + kTileKeys - 1) / kTileKeys * kTileKeys;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const int* pp = static_cast<const int*>(pos);
   T* op = static_cast<T*>(out);
+  float* sp = static_cast<float*>(scratch);
   // above 48 KB of dynamic shared memory a kernel must opt in, once
   static bool opted_in = false;
   if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, HD, 4>,
+    cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, HD, 2>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(decode_attention_kernel<T, HD, 4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(decode_attention_kernel<T, HD, 16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
-  if (G <= 4) {
+  if (G <= 2) {
+    decode_attention_kernel<T, HD, 2><<<grid, kThreads, smem, stream>>>(
+        qp, kp, vp, pp, op, sp, S, KV, G, scale, window, n_split, per);
+  } else if (G <= 4) {
     decode_attention_kernel<T, HD, 4><<<grid, kThreads, smem, stream>>>(
-        qp, kp, vp, pp, op, S, KV, G, scale, window);
+        qp, kp, vp, pp, op, sp, S, KV, G, scale, window, n_split, per);
   } else if (G <= 16) {
     decode_attention_kernel<T, HD, 16><<<grid, kThreads, smem, stream>>>(
-        qp, kp, vp, pp, op, S, KV, G, scale, window);
+        qp, kp, vp, pp, op, sp, S, KV, G, scale, window, n_split, per);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  decode_attention_merge_kernel<T><<<B * KV, kThreads, 0, stream>>>(
+      sp, op, B * KV, n_split, G, HD);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* pos,
-           void* out, int B, int S, int KV, int G, int hd, float scale,
-           int window, cudaStream_t stream) {
+           void* out, void* scratch, int B, int S, int KV, int G, int hd,
+           float scale, int window, int n_split, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch_hd<T, 64>(q, k, v, pos, out, B, S, KV, G, scale, window, stream);
-    case 112: return launch_hd<T, 112>(q, k, v, pos, out, B, S, KV, G, scale, window, stream);
-    case 128: return launch_hd<T, 128>(q, k, v, pos, out, B, S, KV, G, scale, window, stream);
+    case 64: return launch_hd<T, 64>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
+    case 112: return launch_hd<T, 112>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
+    case 128: return launch_hd<T, 128>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -298,15 +413,24 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
-// pos points at one int32 in device memory.  Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for an unsupported hd, G or dtype).
+// pos points at one int32 in device memory.  n_split >= 1 slices of the
+// key range; above 1, scratch holds B*KV*n_split*G*(hd + 2) floats and a
+// merge launch follows (scratch may be null at n_split 1).  Returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue for an
+// unsupported hd, G, dtype or split).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* pos, void* out, int B, int S,
-                                       int KV, int G, int hd, float scale,
-                                       int window, int dtype, void* stream) {
+                                       const void* pos, void* out, void* scratch,
+                                       int B, int S, int KV, int G, int hd,
+                                       float scale, int window, int n_split,
+                                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || KV <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float>(q, k, v, pos, out, B, S, KV, G, hd, scale, window, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, pos, out, B, S, KV, G, hd, scale, window, s);
+  if (B <= 0 || S <= 0 || KV <= 0 || G <= 0 || n_split < 1 || n_split > 65535 ||
+      (n_split > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float>(q, k, v, pos, out, scratch, B, S, KV, G, hd, scale, window, n_split, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, pos, out, scratch, B, S, KV, G, hd, scale, window,
+                                 n_split, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,11 +13,13 @@ CUDA tensor launches the kernel (built from ``repro_torch/csrc`` at first
 use) or raises.  Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
-from .decode_attention import decode_attention, decode_attention_plain
+from .decode_attention import (decode_attention, decode_attention_plain,
+                               decode_attention_splitk_plain, plan_splits)
 from .flash_attention import flash_attention, flash_attention_plain
 from .rmsnorm import rmsnorm, rmsnorm_plain
 from .ssm_scan import ssm_scan, ssm_scan_plain
 
-__all__ = ["decode_attention", "decode_attention_plain", "flash_attention",
-           "flash_attention_plain", "rmsnorm", "rmsnorm_plain", "ssm_scan",
-           "ssm_scan_plain"]
+__all__ = ["decode_attention", "decode_attention_plain",
+           "decode_attention_splitk_plain", "flash_attention",
+           "flash_attention_plain", "plan_splits", "rmsnorm", "rmsnorm_plain",
+           "ssm_scan", "ssm_scan_plain"]

@@ -130,8 +130,8 @@ def library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rmsnorm_launch.argtypes = [p, p, p, p, ctypes.c_int64, i, f, i, i, p]
     lib.rmsnorm_launch.restype = i
-    lib.decode_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, f,
-                                            i, i, p]
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                            f, i, i, i, p]
     lib.decode_attention_launch.restype = i
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
                                            i, i, i, p]

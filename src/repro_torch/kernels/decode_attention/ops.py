@@ -5,11 +5,15 @@ Replaces the TPU kernel
 ``src/repro/kernels/decode_attention/kernel.py:decode_attention_bkv``
 (wrapper ``ops.py:decode_attention``).  The kernel is
 ``repro_torch/csrc/decode_attention.cu``: memory-bound (it streams the
-valid keys and values of the cache once), one block per (batch, kv head)
-walking only keys ``max(0, pos - window + 1) .. pos``, f32 online softmax.
-The TPU wrapper's transposes and padding (hd to 128 lanes, S to the block)
-are layout choices of that chip: the kernel reads the model's
-``[B, S_max, KV, hd]`` caches directly and masks nothing it does not read.
+valid keys and values of the cache once), f32 online softmax over keys
+``max(0, pos - window + 1) .. pos`` only.  The grid is (batch x kv head,
+``n_split``): each block walks one slice of the key range and, above one
+slice, a merge launch combines the slices (flash-decoding).
+:func:`plan_splits` picks ``n_split`` on the host from the cache length,
+never from ``pos``.  The TPU wrapper's transposes and padding (hd to 128
+lanes, S to the block) are layout choices of that chip: the kernel reads
+the model's ``[B, S_max, KV, hd]`` caches directly and masks nothing it
+does not read.
 
 ``pos`` is a one-element int32 tensor on the caches' device, read by the
 kernel itself, so a decode step never waits on the host.
@@ -18,6 +22,7 @@ kernel itself, so a decode step never waits on the host.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -26,13 +31,51 @@ import torch
 from .._build import library
 from .._common import check_cuda, check_status, dtype_code, stream_handle
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain",
+           "decode_attention_splitk_plain", "plan_splits", "split_bounds"]
 
 #: masked-score constant of the reference oracle (``ref.py``)
 _NEG_INF = -1e30
 #: head dims the kernel is instantiated for, and the largest GQA group
 HEAD_DIMS = (64, 112, 128)
 MAX_GROUP = 16
+#: keys per tile of the kernel, and the fewest keys a slice of the key
+#: range is given before it pays to split further
+TILE_KEYS = 32
+MIN_SPLIT_KEYS = 256
+#: blocks per SM the split aims for (four 48 KB bf16 blocks share an SM)
+BLOCKS_PER_SM = 4
+
+
+def plan_splits(s_max: int, bkv: int, sms: int) -> int:
+    """Slices of the key range for a cache of ``s_max`` keys, ``bkv``
+    (batch x kv head) rows and a card of ``sms`` SMs: as many as fit in one
+    wave of ``BLOCKS_PER_SM`` blocks on every SM (a second, partial wave
+    would double the time), each slice at least ``MIN_SPLIT_KEYS`` keys
+    long.  1 for a short serving cache, where the kernel writes the
+    output itself with no merge launch."""
+    want = BLOCKS_PER_SM * sms // max(bkv, 1)
+    return max(1, min(want, -(-s_max // MIN_SPLIT_KEYS)))
+
+
+def split_bounds(pos: int, s_max: int, n_split: int,
+                 window: Optional[int] = None) -> list[tuple[int, int]]:
+    """The kernel's slices ``[lo, hi]`` (inclusive; ``lo > hi`` when empty):
+    slice ``s`` is cache keys ``[s * per, (s + 1) * per)``, ``per`` being
+    ``s_max / n_split`` in whole ``TILE_KEYS`` tiles, cut to the valid keys
+    ``max(0, pos - window + 1) .. min(pos, s_max - 1)``, as each block
+    computes it on the device from ``pos``."""
+    per = -(-s_max // n_split)                      # keys per slice ...
+    per = -(-per // TILE_KEYS) * TILE_KEYS          # ... in whole tiles
+    hi = min(pos, s_max - 1)
+    lo = max(0, pos - window + 1) if window is not None else 0
+    return [(max(lo, s * per), min(hi, s * per + per - 1))
+            for s in range(n_split)]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -60,6 +103,45 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def decode_attention_splitk_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor, pos: torch.Tensor, *,
+                                  n_split: int,
+                                  scale: Optional[float] = None,
+                                  window: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """The kernel's split-and-merge arithmetic in plain PyTorch (tests
+    only): each slice of :func:`split_bounds` gives its max m, its sum l
+    and its unnormalised f32 accumulator; an empty slice gives m = -inf,
+    l = 0; the merge weighs each slice by e^(m - max m).  Same contract as
+    :func:`decode_attention_plain`."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    qf = q[:, 0].float().reshape(B, KV, G, hd)
+    ms, ls, accs = [], [], []
+    for lo, hi in split_bounds(int(pos), S, n_split, window):
+        if lo > hi:
+            ms.append(torch.full((B, KV, G), -math.inf))
+            ls.append(torch.zeros((B, KV, G)))
+            accs.append(torch.zeros((B, KV, G, hd)))
+            continue
+        s = torch.einsum("bkgh,bskh->bkgs", qf,
+                         k_cache[:, lo:hi + 1].float()) * scale
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgs,bskh->bkgh", p,
+                                 v_cache[:, lo:hi + 1].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.exp(m - m.amax(0)).nan_to_num_(0.0)      # empty slices weigh 0
+    out = (acc * w[..., None]).sum(0) / (l * w).sum(0).clamp_min(1e-30)[
+        ..., None]
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
                      scale: Optional[float] = None,
@@ -67,7 +149,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Same contract as :func:`decode_attention_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``decode_attention.launches``) or raise."""
+    (counted in ``decode_attention.launches``, once per call, merge launch
+    included) or raise."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos, scale=scale,
                                       window=window)
@@ -101,10 +184,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
+    n_split = plan_splits(S, B * KV, _sm_count(dev.index or 0))
+    scratch = None
+    if n_split > 1:     # m, l and the f32 accumulator of every slice
+        scratch = torch.empty(B * KV * n_split * (H // KV) * (hd + 2),
+                              dtype=torch.float32, device=dev)
     status = library().decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, S, KV, H // KV, hd, ctypes.c_float(scale),
-        window or 0, code, stream_handle(dev))
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), B, S,
+        KV, H // KV, hd, ctypes.c_float(scale), window or 0, n_split, code,
+        stream_handle(dev))
     check_status(status, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -4,13 +4,17 @@ window): CUDA kernel wrapper and its plain PyTorch version.
 Replaces the TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py:flash_attention_bhsd``
 (wrapper ``ops.py:flash_attention``).  The kernel is
-``repro_torch/csrc/flash_attention.cu``: one block per (batch, query head,
-64-query tile) walks its reachable 64-key tiles with an f32 online softmax
-in registers; tiles wholly above the diagonal or left of the window are
-never loaded.  It reads the model's ``[B, S, N, hd]`` layout directly: the
-TPU wrapper's transposes, its padding of hd to 128 lanes and of S to the
-block are layout choices of that chip, and a ragged ``Sk`` is masked by the
-kernel itself.
+``repro_torch/csrc/flash_attention.cu``.  At bf16 it runs on the tensor
+cores: one block per (batch, query head, 128-query tile) walks its
+reachable 128-key tiles, a producer warp loads Q, K and V tiles by TMA
+into a ring of shared-memory stages, and two warpgroups run ``wgmma`` for
+S = QK^T and O += PV with the f32 online softmax in registers; P is
+rounded to bf16 before PV.  At f32 (``wgmma`` has no f32 inputs) it runs a
+scalar kernel with f32 probabilities.  Tiles wholly above the diagonal or
+left of the window are never loaded.  It reads the model's
+``[B, S, N, hd]`` layout directly: the TPU wrapper's transposes, its
+padding of hd to 128 lanes and of S to the block are layout choices of
+that chip; a ragged ``Sk`` is masked by the kernel itself.
 
 Query ``i`` and key ``j`` sit at positions ``i`` and ``j`` (both from 0,
 as in the TPU kernel).  A row whose every key is masked gives 0.
@@ -31,6 +35,9 @@ __all__ = ["flash_attention", "flash_attention_plain"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (64, 112, 128)
+#: the C entry point's code for a TMA tensor map it could not encode
+#: (plus the driver's CUresult)
+ENCODE_ERROR = 20000
 
 
 def _valid(Sq: int, Sk: int, causal: bool, window: Optional[int],
@@ -91,10 +98,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError("flash_attention: q, k and v must share a dtype")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window={window}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 4:
-            raise ValueError(f"flash_attention: {name} is not 4-byte aligned")
     code = dtype_code(q, "flash_attention")
+    # TMA (bf16) wants 16-byte aligned bases and strides; the f32 kernel
+    # copies 4-byte words
+    align = 16 if q.dtype == torch.bfloat16 else 4
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % align or any(
+                st * t.element_size() % align for st in t.stride()[:-1]):
+            raise ValueError(f"flash_attention: {name} is not {align}-byte "
+                             f"aligned (base {t.data_ptr():#x}, strides "
+                             f"{t.stride()})")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
@@ -104,6 +117,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
         H, KV, hd, ctypes.c_float(scale), int(causal), window or 0, code,
         stream_handle(dev))
+    if status >= ENCODE_ERROR:
+        raise RuntimeError(f"flash_attention: TMA tensor map encode failed "
+                           f"(CUresult {status - ENCODE_ERROR})")
     check_status(status, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -82,7 +82,12 @@ def test_rmsnorm_kernel_matches_plain_at_path_shapes(card, shape, dtype):
     # zamba2-7b generate: B 2, KV 32, G 1, hd 112, S_max 32
     (2, 32, 1, 112, 32, 0, None), (2, 32, 1, 112, 32, 15, None),
     (2, 32, 1, 112, 32, 31, None),
-], ids=str)
+] + [
+    # the timing shape's cache, split across blocks: empty, partial and
+    # full slices, windows inside one slice and across slices
+    (4, 8, 2, 128, 4096, p, None) for p in (0, 1, 300, 2047, 4095)
+] + [(4, 8, 2, 128, 4096, p, w) for p in (2047, 4095) for w in (32, 256)],
+    ids=str)
 def test_decode_attention_kernel_matches_plain(card, case, dtype):
     B, KV, G, hd, S, pos, window = case
     q = _randn((B, 1, KV * G, hd), dtype, card, 0)
@@ -114,6 +119,10 @@ FLASH_CASES = (
        (1, 256, 64, 2, 1, 64, False, 8, None),     # rows past Sk+7: no key
        (2, 77, 77, 4, 2, 112, True, 1, None),      # window 1: the diagonal
        (1, 1, 300, 4, 4, 128, False, None, None),
+       # Sq not a multiple of the bf16 kernel's 128-query tile; hd 112
+       (2, 300, 300, 4, 2, 128, True, None, None),
+       (1, 300, 300, 4, 2, 112, True, None, None),
+       (1, 190, 333, 4, 1, 64, False, 100, None),
        (4, 2048, 2048, 16, 8, 128, True, None, None),
        (1, 4096, 4096, 32, 32, 112, True, None, None)])
 
