@@ -16,7 +16,9 @@ Phases (one JSON line each, ``"phase"`` names them):
    ssm_scan) against its plain PyTorch version on the card over the JAX
    package's test sweeps and the main paths' shapes (one line per case:
    error beside tolerance), then timed with CUDA events beside its plain
-   version, one library call (where one exists) and its bound.
+   version, one library call (where one exists) and its bound; rmsnorm
+   also at the prefills' shapes, ssm_scan also launch by launch
+   (``torch.profiler``).
 4. ``restore``: qwen3-1.7b at full width, random weights from a seeded
    ``torch.Generator`` on the card, saved with ``save_checkpoint`` and
    restored over MDTP from three throttled loopback mirrors (rates 1:2:4;
@@ -89,6 +91,13 @@ RMSNORM_PATH_SHAPES = [(4, 1, 2048), (4, 1, 16, 128), (4, 1, 8, 128),
                        (4, 2048, 2048), (4, 2048, 16, 128), (4, 2048, 8, 128),
                        (1, 4096, 3584), (2, 1, 3584)]
 
+#: rmsnorm's timing shapes, bf16: decode (qwen3 B 4 x d 2048, the heads'
+#: q/k-norm), then the prefills, where its time is spent: qwen3 (B 4 x S
+#: 2048 rows of d 2048, and the q/k-norm's 131072 rows of 128) and zamba2
+#: (4096 rows of d 3584)
+RMSNORM_TIME_SHAPES = ((4, 2048), (64, 128), (8192, 2048), (131072, 128),
+                       (4096, 3584))
+
 #: flash_attention at bf16: the largest per-row relative error,
 #: |out - ref| / |ref| over each query row's head vector.  bf16 rounding of
 #: the output and of the plain path's probabilities gives ~2e-3; the
@@ -156,6 +165,34 @@ def cuda_time_ms(torch, fn, iters: int) -> tuple[float, float]:
             fn()
 
     return graph_ms, timed(eager)
+
+
+def dev_us(e) -> float:
+    """Device microseconds of one ``torch.profiler`` key-average entry."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_times_by_name(torch, fn, reps: int, needle: str) -> dict:
+    """Device ms per call of ``fn`` of each kernel whose name holds
+    ``needle`` (``torch.profiler`` over ``reps`` calls after a warm-up)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(rf"({needle}\w*_kernel)", e.key)
+        if m and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            out[m.group(1)] = out.get(m.group(1), 0.0) + dev_us(e) / reps / 1e3
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -278,11 +315,12 @@ def kernel_phase(torch, K, dev, ptxas):
          ptxas=ptxas_of(ptxas, "decode_attention"))
 
     r_times = []
-    for rows, d in ((4, 2048), (64, 128)):
+    for rows, d in RMSNORM_TIME_SHAPES:
         x = randn((rows, d), "bfloat16")
         s = randn((d,), "bfloat16")
         r_ms, r_eager = cuda_time_ms(torch, lambda: K.rmsnorm(x, s), 200)
-        r_plain, _ = cuda_time_ms(torch, lambda: K.rmsnorm_plain(x, s), 200)
+        r_plain, _ = cuda_time_ms(torch, lambda: K.rmsnorm_plain(x, s),
+                                  200 if rows * d <= 1 << 16 else 20)
         r_lib = (cuda_time_ms(torch, lambda: F.rms_norm(x, (d,), s, 1e-6),
                               200)[0]
                  if hasattr(F, "rms_norm") else None)     # torch >= 2.4
@@ -294,11 +332,15 @@ def kernel_phase(torch, K, dev, ptxas):
              kernel_ms=r_ms, kernel_eager_ms=r_eager, plain_ms=r_plain,
              library_ms=r_lib,
              library="F.rms_norm", bound_ms=r_bound, bound_by=r_by, bytes=nb,
-             ptxas=ptxas_of(ptxas, "rmsnorm"))
+             bound_share=r_bound / r_ms, ptxas=ptxas_of(ptxas, "rmsnorm"))
+        del x, s
 
     flash = flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas)
     ssm = ssm_kernel_phase(torch, K, dev, record, worst, ptxas)
 
+    prefill_rms = [{"shape": f"({t[0]}, {t[1]}) bf16", "ms": t[2],
+                    "library_ms": t[5], "bound_ms": t[6],
+                    "bound_share": t[6] / t[2]} for t in r_times[2:]]
     rows, d, r_ms, r_eager, r_plain, r_lib, r_bound, r_by = r_times[0]
     return [
         {"name": "decode_attention", "route": "cuda",
@@ -320,7 +362,7 @@ def kernel_phase(torch, K, dev, ptxas):
          "ms": r_ms, "eager_ms": r_eager, "plain_ms": r_plain,
          "bound_ms": r_bound,
          "bound_by": r_by, "library_ms": r_lib,
-         "timed_shape": f"({rows}, {d}) bf16",
+         "timed_shape": f"({rows}, {d}) bf16", "prefill_shapes": prefill_rms,
          "ptxas": ptxas_of(ptxas, "rmsnorm")},
         flash, ssm,
     ]
@@ -348,13 +390,19 @@ FLASH_CASES = (
        (4, 2048, 2048, 16, 8, 128, True, None, None),
        (1, 4096, 4096, 32, 32, 112, True, None, None)])
 
-#: (B, S, H, P, N, chunk): the JAX sweep (tests/test_kernels_decode_ssm.py:
-#: chunks, head shapes, ragged S, state continuity) and zamba2-7b's shape
+#: (B, S, H, P, N, chunk[, dt scale]): the JAX sweep
+#: (tests/test_kernels_decode_ssm.py: chunks, head shapes, ragged S, state
+#: continuity) and zamba2-7b's shape; then the chunk-parallel kernel's
+#: edges: B > 1 at full width (groups of 8 chunks), one step past a chunk
+#: with H odd, a single ragged chunk (one group, no state launch), and dt x
+#: 10 so that exp(cum) underflows inside a chunk
 SSM_CASES = ([(2, 256, 8, 32, 16, c) for c in (32, 64, 128)]
              + [(2, 256, h, p, 16, 64) for h, p in ((4, 16), (8, 64),
                                                     (16, 32))]
              + [(2, 200, 8, 32, 16, 64), (2, 512, 8, 32, 16, 128),
-                (1, 300, 4, 64, 64, 128), (1, 4096, 112, 64, 64, 128)])
+                (1, 300, 4, 64, 64, 128), (1, 4096, 112, 64, 64, 128)]
+             + [(2, 4096, 112, 64, 64, 128), (1, 129, 3, 64, 64, 128),
+                (1, 64, 112, 64, 64, 128), (1, 2048, 16, 64, 64, 128, 10.0)])
 #: tolerances of the JAX package's SSD-scan tests, by output dtype
 SSM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
@@ -472,17 +520,18 @@ def ssm_kernel_phase(torch, K, dev, record, worst, ptxas):
     shape."""
     gen = torch.Generator(device=dev).manual_seed(4321)
 
-    def inputs(B, S, H, P, N, dtype):
+    def inputs(B, S, H, P, N, dtype, dt_scale=1.0):
         def n(*shape):
             return torch.randn(shape, generator=gen, device=dev)
-        return ((n(B, S, H, P) * 0.5).to(dtype), n(B, S, H).abs() * 0.1,
+        return ((n(B, S, H, P) * 0.5).to(dtype),
+                n(B, S, H).abs() * (0.1 * dt_scale),
                 -n(H).abs() - 0.1, (n(B, S, N) * 0.3).to(dtype),
                 (n(B, S, N) * 0.3).to(dtype))
 
     f32, bf16 = torch.float32, torch.bfloat16
     for x_dt, y_dt in ((f32, None), (bf16, None), (bf16, f32)):
-        for B, S, H, P, N, chunk in SSM_CASES:
-            args = inputs(B, S, H, P, N, x_dt)
+        for B, S, H, P, N, chunk, *dt_scale in SSM_CASES:
+            args = inputs(B, S, H, P, N, x_dt, *dt_scale)
             y = K.ssm_scan(*args, chunk=chunk, out_dtype=y_dt)
             ref = K.ssm_scan_plain(*args, chunk=chunk, out_dtype=y_dt)
             torch.cuda.synchronize()
@@ -490,7 +539,9 @@ def ssm_kernel_phase(torch, K, dev, record, worst, ptxas):
                   "ssm_scan: non-finite output")
             dt_name = str(y.dtype).removeprefix("torch.")
             record("ssm_scan", f"B{B} S{S} H{H} P{P} N{N} chunk{chunk} "
+                   f"dt x{dt_scale[0] if dt_scale else 1.0} "
                    f"x {str(x_dt)[6:]}", dt_name, y, ref, SSM_TOL)
+            del args, y, ref
 
     B, S, H, P, N, Q = 1, 4096, 112, 64, 64, 128
     args = inputs(B, S, H, P, N, bf16)
@@ -498,13 +549,20 @@ def ssm_kernel_phase(torch, K, dev, record, worst, ptxas):
         torch, lambda: K.ssm_scan(*args, chunk=Q, out_dtype=f32), 20)
     plain, _ = cuda_time_ms(
         torch, lambda: K.ssm_scan_plain(*args, chunk=Q, out_dtype=f32), 2)
+    phases = kernel_times_by_name(
+        torch, lambda: K.ssm_scan(*args, chunk=Q, out_dtype=f32), 20,
+        "ssm_scan")
     nbytes, flops = ssm_bound(B, S, H, P, N, Q)
     bnd, by = bound_ms(nbytes, flops, "bfloat16")
     shape = f"B{B} S{S} H{H} P{P} N{N} chunk{Q} x bf16 y f32"
+    groups = K.plan_groups(S, Q, B * H, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     emit("kernel_time", kernel="ssm_scan", path="zamba2-7b", shape=shape,
          ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
          library="none (no single PyTorch call computes the SSD scan)",
          bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
+         chunks_per_group=groups, phase_ms_per_call=phases,
+         phase_ms_sum=sum(phases.values()),
          ptxas=ptxas_of(ptxas, "ssm_scan"))
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssm_scan.cu",
@@ -513,7 +571,7 @@ def ssm_kernel_phase(torch, K, dev, record, worst, ptxas):
             "max_abs_err_by_dtype": worst["ssm_scan"], "tol": SSM_TOL,
             "ms": ms, "eager_ms": eager, "plain_ms": plain, "bound_ms": bnd,
             "bound_by": by, "library_ms": None, "timed_shape": shape,
-            "ptxas": ptxas_of(ptxas, "ssm_scan")}
+            "phase_ms_per_call": phases, "ptxas": ptxas_of(ptxas, "ssm_scan")}
 
 
 # ------------------------------------------------------------------ restore
@@ -682,10 +740,6 @@ def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float):
             decode_step(params, cfg, cache, toks[:, t:t + 1], pos)
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
                and dev_us(e) > 0]
@@ -725,10 +779,6 @@ def device_profile(torch, fn, names) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
@@ -937,7 +987,10 @@ def hybrid_phase(torch, K, dev):
          launches_per_forward={k: v / reps for k, v in launches.items()},
          plain_vs_kernel=cmp, device_busy_ms=prof["device_busy_ms"],
          device_idle_share=1.0 - prof["device_busy_ms"] / ms,
-         port_kernels_ms=prof["port_kernels"], top_kernels=prof["top_kernels"])
+         port_kernels_ms=prof["port_kernels"],
+         ssm_scan_ms_per_call=prof["port_kernels"]["ssm_scan"]
+         / per_fwd["ssm_scan"],
+         top_kernels=prof["top_kernels"])
     torch.cuda.empty_cache()
 
     # generate: greedy decode through the ported kernels only

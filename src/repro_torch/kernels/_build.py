@@ -71,7 +71,9 @@ def _ptxas_lines(log: str) -> tuple[str, ...]:
         if m:
             short = re.search(r"\d+([a-z][a-z_]*_kernel)(I\w*?)(?:EEEv|$)",
                               m.group(1))
-            name = short.group(1) + short.group(2) if short else m.group(1)
+            plain = re.search(r"\d+([a-z][a-z_]*_kernel)E", m.group(1))
+            name = (short.group(1) + short.group(2) if short
+                    else plain.group(1) if plain else m.group(1))
         elif "spill" in ln:
             spill = ln.strip()
         elif "Used" in ln:
@@ -136,7 +138,7 @@ def library() -> ctypes.CDLL:
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
                                            i, i, i, p]
     lib.flash_attention_launch.restype = i
-    lib.ssm_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                    p]
+    lib.ssm_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                    i, i, p]
     lib.ssm_scan_launch.restype = i
     return lib

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -42,3 +43,9 @@ def check_status(code: int, what: str) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

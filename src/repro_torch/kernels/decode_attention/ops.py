@@ -22,14 +22,14 @@ kernel itself, so a decode step never waits on the host.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional
 
 import torch
 
 from .._build import library
-from .._common import check_cuda, check_status, dtype_code, stream_handle
+from .._common import (check_cuda, check_status, dtype_code, sm_count,
+                       stream_handle)
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_splitk_plain", "plan_splits", "split_bounds"]
@@ -71,11 +71,6 @@ def split_bounds(pos: int, s_max: int, n_split: int,
     lo = max(0, pos - window + 1) if window is not None else 0
     return [(max(lo, s * per), min(hi, s * per + per - 1))
             for s in range(n_split)]
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -184,7 +179,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
-    n_split = plan_splits(S, B * KV, _sm_count(dev.index or 0))
+    n_split = plan_splits(S, B * KV, sm_count(dev.index or 0))
     scratch = None
     if n_split > 1:     # m, l and the f32 accumulator of every slice
         scratch = torch.empty(B * KV * n_split * (H // KV) * (hd + 2),

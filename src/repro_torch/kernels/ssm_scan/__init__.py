@@ -1,3 +1,5 @@
-from .ops import ssd_chunked, ssm_scan, ssm_scan_plain
+from .ops import (plan_groups, round_hi_lo, ssd_chunked, ssm_scan,
+                  ssm_scan_phases_plain, ssm_scan_plain)
 
-__all__ = ["ssd_chunked", "ssm_scan", "ssm_scan_plain"]
+__all__ = ["plan_groups", "round_hi_lo", "ssd_chunked", "ssm_scan",
+           "ssm_scan_phases_plain", "ssm_scan_plain"]

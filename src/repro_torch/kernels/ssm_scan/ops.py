@@ -3,15 +3,21 @@ PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/ssm_scan/kernel.py:ssm_scan_bh``
 (wrapper ``ops.py:ssm_scan``).  The kernel is
-``repro_torch/csrc/ssm_scan.cu``: one block per (batch, SSD head) walks the
-chunks in order with the f32 state ``h [P, N]`` in shared memory for the
-whole sequence.  One launch covers every head: the TPU wrapper's
-``head_block`` split is a VMEM choice of that chip.  A ragged ``S`` is
-handled exactly in the kernel, as the TPU wrapper's padding is (a zero dt
-leaves the state unchanged, a zero C gives a zero output).
+``repro_torch/csrc/ssm_scan.cu``, chunk-parallel: the chunks are cut into
+groups of :func:`plan_groups` consecutive chunks; a state launch writes
+each group's end state from zero, a pass launch turns those into the
+state entering each group, and an output launch computes y for every
+(batch, group, head) from it (one launch when there is one group).  bf16
+products run on tensor cores with the f32 operands split into bf16
+hi + lo pairs; f32 runs the same launches with f32 FMAs.  The TPU
+wrapper's ``head_block`` split is a VMEM choice of that chip.  A ragged
+``S`` is handled exactly in the kernel, as the TPU wrapper's padding is (a
+zero dt leaves the state unchanged, a zero C gives a zero output).
 
 The plain version is the chunked SSD form, :func:`ssd_chunked` (which the
 model's ``_ssd_chunked`` is), on the sequence padded to whole chunks.
+:func:`ssm_scan_phases_plain` is the kernel's three-phase arithmetic,
+rounding points included, for the CPU tests; nothing else calls it.
 """
 
 from __future__ import annotations
@@ -22,14 +28,40 @@ import torch
 import torch.nn.functional as F
 
 from .._build import library
-from .._common import check_cuda, check_status, dtype_code, stream_handle
+from .._common import (check_cuda, check_status, dtype_code, sm_count,
+                       stream_handle)
 
-__all__ = ["ssd_chunked", "ssm_scan", "ssm_scan_plain"]
+__all__ = ["plan_groups", "round_hi_lo", "ssd_chunked", "ssm_scan",
+           "ssm_scan_phases_plain", "ssm_scan_plain"]
 
 #: limits of the kernel's shared-memory tiles
 CHUNKS = (32, 64, 128)
 MAX_P = 64
 MAX_N = 64
+#: output blocks per SM, at least, that the chunk groups must leave: with
+#: fewer, a partial last wave of blocks costs a large share of the time
+MIN_WAVES = 6
+
+
+def plan_groups(S: int, chunk: int, bh: int, sms: int) -> int:
+    """Chunks per group for ``S`` steps, ``bh`` (batch x head) rows and a
+    card of ``sms`` SMs: the largest power of two that leaves at least
+    ``MIN_WAVES`` (batch, group, head) output blocks per SM, so the state
+    scratch (one [P, N] state per group) stays small while the card stays
+    full.  1 when even one chunk per group gives fewer blocks; never more
+    than the chunks there are."""
+    n_chunks = -(-S // chunk)
+    g = 1
+    while 2 * g <= n_chunks and bh * -(-n_chunks // (2 * g)) >= MIN_WAVES * sms:
+        g *= 2
+    return g
+
+
+def round_hi_lo(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the bf16 kernel carries an f32 operand: a bf16 ``hi`` and
+    the bf16-rounded remainder ``lo``, summed back in f32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
 
 
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -96,13 +128,84 @@ def ssm_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y[:, :S].to(out_dtype or x.dtype)
 
 
+def ssm_scan_phases_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                          Bm: torch.Tensor, Cm: torch.Tensor, *,
+                          chunk: int = 128, groups: int,
+                          round_bf16: Optional[bool] = None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (tests only): the chunks in
+    groups of ``groups``; phase 1, each group's end state from zero and its
+    total of dt * A (all groups but the last); phase 2, the state entering
+    each group, in order; phase 3, per chunk ``y = W x + exp(cum) o (C
+    h^T)`` with ``W = (C B^T) o exp(cum_q - cum_k) o dt_k`` (k <= q), the
+    state carried through the group.  With ``round_bf16`` (default: x is
+    bf16) W, the state read by ``C h^T`` and ``x dt exp(total - cum)`` pass
+    through :func:`round_hi_lo`, where the bf16 kernel splits them.
+    Same inputs as :func:`ssm_scan_plain`; y in f32."""
+    if round_bf16 is None:
+        round_bf16 = x.dtype == torch.bfloat16
+    rnd = round_hi_lo if round_bf16 else (lambda t: t)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nc, Q, H, P)
+    dtc = F.pad(dt.float(), (0, 0, 0, pad)).reshape(B, nc, Q, H)
+    Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    cum = torch.cumsum(dtc * A.float(), dim=2)            # [B, nc, Q, H]
+    total = cum[:, :, -1]                                 # [B, nc, H]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    n_groups = -(-nc // groups)
+    spans = [range(g * groups, min((g + 1) * groups, nc))
+             for g in range(n_groups)]
+
+    def update(h, c):
+        dec = dtc[:, c] * torch.exp(total[:, c, None] - cum[:, c])
+        xd = rnd(xf[:, c] * dec[..., None])               # [B, Q, H, P]
+        return h * torch.exp(total[:, c])[:, :, None, None] + \
+            torch.einsum("bqhp,bqn->bhpn", xd, Bc[:, c])
+
+    zero = torch.zeros((B, H, P, N))
+    ends, tots = [], []                                   # phase 1
+    for span in spans[:-1]:
+        h, tot = zero, torch.zeros((B, H))
+        for c in span:
+            h, tot = update(h, c), tot + total[:, c]
+        ends.append(h)
+        tots.append(tot)
+    h_in, h = [zero], zero                                # phase 2
+    for s_end, tot in zip(ends, tots):
+        h = torch.exp(tot)[:, :, None, None] * h + s_end
+        h_in.append(h)
+    ys = []                                               # phase 3
+    for span, h in zip(spans, h_in):
+        for c in span:
+            cq = cum[:, c]
+            li = torch.where(mask[None, :, :, None],
+                             cq[:, :, None, :] - cq[:, None, :, :], 0.0)
+            L = torch.where(mask[None, :, :, None], torch.exp(li), 0.0)
+            scores = torch.einsum("bqn,bkn->bqk", Cc[:, c], Bc[:, c])
+            W = rnd(scores[..., None] * L * dtc[:, c][:, None, :, :])
+            y = torch.einsum("bqkh,bkhp->bqhp", W, xf[:, c])
+            y = y + torch.einsum("bqn,bhpn->bqhp", Cc[:, c], rnd(h)) * \
+                torch.exp(cq)[..., None]
+            ys.append(y)
+            if c + 1 < span.stop:
+                h = update(h, c)
+    return torch.stack(ys, dim=1).reshape(B, nc * Q, H, P)[:, :S]
+
+
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Same contract as :func:`ssm_scan_plain`, with y in x's dtype or f32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``ssm_scan.launches``) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.  One call counts once in ``ssm_scan.launches``, though it runs
+    up to three launches (state, pass and output; the first two only when
+    :func:`plan_groups` gives more than one group), with the f32 state
+    scratch allocated here by ``torch.empty``."""
     if x.device.type == "cpu":
         return ssm_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
                               out_dtype=out_dtype)
@@ -129,13 +232,23 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if out_dtype not in (x.dtype, torch.float32):
         raise TypeError(f"ssm_scan out: {out_dtype} for x {x.dtype} (y is "
                         f"x's dtype or float32)")
+    for name, t in (("x", x), ("B", Bm), ("C", Cm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssm_scan: {name} is not 16-byte aligned")
     y = torch.empty((B, S, H, P), dtype=out_dtype, device=dev)
     if B * S * H == 0:
         return y
+    groups = plan_groups(S, chunk, B * H, sm_count(dev.index or 0))
+    slots = -(-(-(-S // chunk)) // groups) - 1
+    scratch = None
+    if slots:           # each group's state [P, N] and its total, f32
+        scratch = torch.empty(B * slots * H * (P * N + 1),
+                              dtype=torch.float32, device=dev)
     status = library().ssm_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), B, S, H, P, N, chunk, xc, yc,
-        stream_handle(dev))
+        Cm.data_ptr(), y.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B, S, H, P, N,
+        chunk, groups, xc, yc, stream_handle(dev))
     check_status(status, "ssm_scan")
     ssm_scan.launches += 1
     return y

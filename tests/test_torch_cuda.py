@@ -152,25 +152,32 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
         assert (diff[keep] / norm[keep]).max().item() <= FLASH_BF16_ROW_REL_TOL
 
 
-def _ssm_inputs(B, S, H, P, N, dtype, dev, seed):
-    """The JAX sweep's distributions (tests/test_kernels_decode_ssm.py)."""
+def _ssm_inputs(B, S, H, P, N, dtype, dev, seed, dt_scale=1.0):
+    """The JAX sweep's distributions (tests/test_kernels_decode_ssm.py),
+    dt scaled by ``dt_scale``."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def n(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
-    return ((n(B, S, H, P) * 0.5).to(dtype), n(B, S, H).abs() * 0.1,
+    return ((n(B, S, H, P) * 0.5).to(dtype),
+            n(B, S, H).abs() * (0.1 * dt_scale),
             -n(H).abs() - 0.1, (n(B, S, N) * 0.3).to(dtype),
             (n(B, S, N) * 0.3).to(dtype))
 
 
-#: (B, S, H, P, N, chunk) — the JAX sweep (chunks, head shapes, ragged S,
-#: state continuity) and the zamba2-7b path's shape
+#: (B, S, H, P, N, chunk[, dt scale]) — the JAX sweep (chunks, head shapes,
+#: ragged S, state continuity) and the zamba2-7b path's shape; then the
+#: chunk-parallel kernel's edges: B > 1 at full width (groups of 8 chunks),
+#: one step past a chunk with H odd, a single ragged chunk (one group, no
+#: state launch), and dt x 10 so that exp(cum) underflows inside a chunk
 SSM_CASES = ([(2, 256, 8, 32, 16, c) for c in (32, 64, 128)]
              + [(2, 256, h, p, 16, 64) for h, p in ((4, 16), (8, 64),
                                                     (16, 32))]
              + [(2, 200, 8, 32, 16, 64), (2, 512, 8, 32, 16, 128),
-                (1, 300, 4, 64, 64, 128), (1, 4096, 112, 64, 64, 128)])
+                (1, 300, 4, 64, 64, 128), (1, 4096, 112, 64, 64, 128)]
+             + [(2, 4096, 112, 64, 64, 128), (1, 129, 3, 64, 64, 128),
+                (1, 64, 112, 64, 64, 128), (1, 2048, 16, 64, 64, 128, 10.0)])
 SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
@@ -180,9 +187,9 @@ SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
                          ids=["f32", "bf16", "bf16-out-f32"])
 @pytest.mark.parametrize("case", SSM_CASES, ids=str)
 def test_ssm_scan_kernel_matches_plain(card, case, dtypes):
-    B, S, H, P, N, chunk = case
+    B, S, H, P, N, chunk, *dt_scale = case
     dtype, out_dtype = dtypes
-    args = _ssm_inputs(B, S, H, P, N, dtype, card, 0)
+    args = _ssm_inputs(B, S, H, P, N, dtype, card, 0, *dt_scale)
     before = ssm_scan.launches
     y = ssm_scan(*args, chunk=chunk, out_dtype=out_dtype)
     torch.cuda.synchronize()
