@@ -46,6 +46,10 @@ Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 those lines.
+
+``python3 chip_smoke.py --rmsnorm-only --src OTHER/src`` builds another
+checkout's kernels and prints only rmsnorm's timing lines: run it for two
+checkouts in turns, in one call, to compare their kernels on one card.
 """
 
 from __future__ import annotations
@@ -85,18 +89,23 @@ HYBRID_SHAPE = (1, 4096)
 
 #: rmsnorm's shapes on the main paths: qwen3-1.7b decode (ln, q-norm,
 #: k-norm at B 4) and prefill (B 4 x S 2048), zamba2-7b prefill (S 4096)
-#: and generate (B 2), d 3584 taking the block-per-row path with an uneven
-#: count of 16-byte vectors per thread
+#: and generate (B 2); d 3584 is 14 16-byte vectors a lane at bf16
 RMSNORM_PATH_SHAPES = [(4, 1, 2048), (4, 1, 16, 128), (4, 1, 8, 128),
                        (4, 2048, 2048), (4, 2048, 16, 128), (4, 2048, 8, 128),
                        (1, 4096, 3584), (2, 1, 3584)]
 
 #: rmsnorm's timing shapes, bf16: decode (qwen3 B 4 x d 2048, the heads'
-#: q/k-norm), then the prefills, where its time is spent: qwen3 (B 4 x S
-#: 2048 rows of d 2048, and the q/k-norm's 131072 rows of 128) and zamba2
-#: (4096 rows of d 3584)
+#: q/k-norm), then every call shape of the prefills, where its time is
+#: spent: qwen3 (B 4 x S 2048 rows of d 2048, the q-norm's 131072 rows of
+#: 128 and the k-norm's 65536) and zamba2 (4096 rows of d 3584)
 RMSNORM_TIME_SHAPES = ((4, 2048), (64, 128), (8192, 2048), (131072, 128),
-                       (4096, 3584))
+                       (65536, 128), (4096, 3584))
+#: ragged row counts on the persistent path: rows that fill no whole step
+#: of a warp, the last warps' steps cut short, a single row
+RMSNORM_RAGGED_SHAPES = [(131071, 128), (4097, 3584), (1, 2048)]
+#: the L2 cache of an H100 (50 MB): a cold timing rotates over enough
+#: distinct inputs and outputs that each call finds its x evicted
+L2_BYTES = 50 * 10**6
 
 #: flash_attention at bf16: the largest per-row relative error,
 #: |out - ref| / |ref| over each query row's head vector.  bf16 rounding of
@@ -263,12 +272,13 @@ def kernel_phase(torch, K, dev, ptxas):
                    f"B{B} KV{KV} G{G} hd{hd} S{S} pos{pos} window{win}",
                    dt, out, ref)
 
-    # rmsnorm: the JAX sweep (tests/test_kernels.py) with and without the
-    # fused residual, then the main paths' shapes (RMSNORM_PATH_SHAPES) at
-    # both dtypes the paths run, scale in x's dtype as the models hold it
-    rshapes = [(64, 256), (3, 7, 512), (1000, 128), (4, 2048)]
+    # rmsnorm: the JAX sweep (tests/test_kernels.py), a width with no
+    # 16-byte access and ragged row counts, with and without the fused
+    # residual; then the main paths' shapes (RMSNORM_PATH_SHAPES) at both
+    # dtypes the paths run, scale in x's dtype as the models hold it
+    rshapes = [(64, 256), (3, 7, 512), (1000, 128), (4, 2048), (5, 130)]
     for dt in dtypes:
-        for shape in rshapes:
+        for shape in rshapes + RMSNORM_RAGGED_SHAPES:
             for with_res in (False, True):
                 x = randn(shape, dt)
                 s = randn(shape[-1:], "float32") * 0.1 + 1.0
@@ -314,34 +324,16 @@ def kernel_phase(torch, K, dev, ptxas):
              dev).multi_processor_count),
          ptxas=ptxas_of(ptxas, "decode_attention"))
 
-    r_times = []
-    for rows, d in RMSNORM_TIME_SHAPES:
-        x = randn((rows, d), "bfloat16")
-        s = randn((d,), "bfloat16")
-        r_ms, r_eager = cuda_time_ms(torch, lambda: K.rmsnorm(x, s), 200)
-        r_plain, _ = cuda_time_ms(torch, lambda: K.rmsnorm_plain(x, s),
-                                  200 if rows * d <= 1 << 16 else 20)
-        r_lib = (cuda_time_ms(torch, lambda: F.rms_norm(x, (d,), s, 1e-6),
-                              200)[0]
-                 if hasattr(F, "rms_norm") else None)     # torch >= 2.4
-        nb = 2 * rows * d * e + d * e
-        r_bound, r_by = bound_ms(nb, 4.0 * rows * d, "float32")
-        r_times.append((rows, d, r_ms, r_eager, r_plain, r_lib, r_bound,
-                        r_by))
-        emit("kernel_time", kernel="rmsnorm", shape=f"({rows}, {d}) bf16",
-             kernel_ms=r_ms, kernel_eager_ms=r_eager, plain_ms=r_plain,
-             library_ms=r_lib,
-             library="F.rms_norm", bound_ms=r_bound, bound_by=r_by, bytes=nb,
-             bound_share=r_bound / r_ms, ptxas=ptxas_of(ptxas, "rmsnorm"))
-        del x, s
+    r_times = [rmsnorm_time(torch, K, dev, randn, ptxas, rows, d)
+               for rows, d in RMSNORM_TIME_SHAPES]
 
     flash = flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas)
     ssm = ssm_kernel_phase(torch, K, dev, record, worst, ptxas)
 
-    prefill_rms = [{"shape": f"({t[0]}, {t[1]}) bf16", "ms": t[2],
-                    "library_ms": t[5], "bound_ms": t[6],
-                    "bound_share": t[6] / t[2]} for t in r_times[2:]]
-    rows, d, r_ms, r_eager, r_plain, r_lib, r_bound, r_by = r_times[0]
+    prefill_rms = [{k: t[k] for k in ("shape", "kernel_ms", "kernel_cold_ms",
+                                      "library_ms", "bound_ms", "bound_share",
+                                      "plan")} for t in r_times[2:]]
+    rt = r_times[0]
     return [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -359,13 +351,86 @@ def kernel_phase(torch, K, dev, ptxas):
          "replaces": "src/repro/kernels/rmsnorm/kernel.py:39",
          "launches": None, "max_abs_err": max(worst["rmsnorm"].values()),
          "max_abs_err_by_dtype": worst["rmsnorm"], "tol": TOL,
-         "ms": r_ms, "eager_ms": r_eager, "plain_ms": r_plain,
-         "bound_ms": r_bound,
-         "bound_by": r_by, "library_ms": r_lib,
-         "timed_shape": f"({rows}, {d}) bf16", "prefill_shapes": prefill_rms,
-         "ptxas": ptxas_of(ptxas, "rmsnorm")},
+         "ms": rt["kernel_ms"], "eager_ms": rt["kernel_eager_ms"],
+         "plain_ms": rt["plain_ms"], "bound_ms": rt["bound_ms"],
+         "bound_by": rt["bound_by"], "library_ms": rt["library_ms"],
+         "timed_shape": rt["shape"], "plan": rt["plan"],
+         "prefill_shapes": prefill_rms, "ptxas": rt["ptxas"]},
         flash, ssm,
     ]
+
+
+def rmsnorm_ptxas(ptxas, plan, dtype) -> list:
+    """``ptxas``'s lines of the rmsnorm instances a plan launches (either
+    scale dtype, without and with the residual)."""
+    kernel = {"rows": "rmsnorm_rows_kernel", "loop": "rmsnorm_loop_kernel",
+              "scalar": "rmsnorm_scalar_kernel"}[plan.path]
+    first = "I13__nv_bfloat16" if dtype == "bfloat16" else "If"
+    lanes = f"Li{plan.lpr}ELi{plan.vpl}E" if plan.path == "rows" else ""
+    return [ln for ln in ptxas
+            if ln.startswith(kernel + first) and lanes in ln]
+
+
+def rmsnorm_time(torch, K, dev, randn, ptxas, rows, d) -> dict:
+    """rmsnorm at one bf16 shape without a residual, timed beside its plain
+    version, ``F.rms_norm``, a ``copy_`` of the same bytes (what a plain
+    stream reaches on this card) and its bound, with its plan and ``ptxas``
+    lines; emitted as a ``kernel_time`` line.  At the prefill shapes also
+    cold: calls rotate over enough x/y pairs to exceed the L2, so each
+    reads its x from device memory (the warm timing reuses one x, which
+    may sit in L2 in part)."""
+    import torch.nn.functional as F
+
+    e = 2
+    x, s = randn((rows, d), "bfloat16"), randn((d,), "bfloat16")
+    r_ms, r_eager = cuda_time_ms(torch, lambda: K.rmsnorm(x, s), 200)
+    r_plain, _ = cuda_time_ms(torch, lambda: K.rmsnorm_plain(x, s),
+                              200 if rows * d <= 1 << 16 else 20)
+    r_lib = (cuda_time_ms(torch, lambda: F.rms_norm(x, (d,), s, 1e-6), 200)[0]
+             if hasattr(F, "rms_norm") else None)          # torch >= 2.4
+    y = torch.empty_like(x)      # the same bytes read and written, no math
+    copy_ms = cuda_time_ms(torch, lambda: y.copy_(x), 200)[0]
+    del y
+    r_cold = lib_cold = None
+    if rows * d >= 1 << 20:
+        n = max(2, -(-3 * L2_BYTES // (2 * rows * d * e)))
+        xs = [randn((rows, d), "bfloat16") for _ in range(n)]
+        ys, turn = [None] * n, [0]
+
+        def rotate(fn):
+            def call():
+                i = turn[0] % n
+                turn[0] += 1
+                ys[i] = fn(xs[i])
+            return call
+
+        iters = 20 * n
+        r_cold = cuda_time_ms(torch, rotate(lambda t: K.rmsnorm(t, s)),
+                              iters)[0]
+        if r_lib is not None:
+            lib_cold = cuda_time_ms(torch, rotate(
+                lambda t: F.rms_norm(t, (d,), s, 1e-6)), iters)[0]
+        del xs, ys
+    nb = 2 * rows * d * e + d * e
+    r_bound, r_by = bound_ms(nb, 4.0 * rows * d, "float32")
+    plan = (K.plan_rows(rows, d, torch.bfloat16,
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count, True,
+                        scale_dtype=torch.bfloat16)
+            if hasattr(K, "plan_rows") else None)   # a tree before the plan
+    out = dict(shape=f"({rows}, {d}) bf16", kernel_ms=r_ms,
+               kernel_eager_ms=r_eager, kernel_cold_ms=r_cold,
+               plain_ms=r_plain, library_ms=r_lib, library_cold_ms=lib_cold,
+               library="F.rms_norm", copy_ms=copy_ms, bound_ms=r_bound,
+               bound_by=r_by, bytes=nb, bound_share=r_bound / r_ms,
+               bound_share_cold=r_bound / r_cold if r_cold else None,
+               plan=plan and plan._asdict(),
+               ptxas=(rmsnorm_ptxas(ptxas, plan, "bfloat16") if plan
+                      else ptxas_of(ptxas, "rmsnorm")))
+    emit("kernel_time", kernel="rmsnorm", **out)
+    del x, s
+    torch.cuda.empty_cache()
+    return out
 
 
 #: (B, Sq, Sk, H, KV, hd, causal, window, scale): the JAX sweep
@@ -746,7 +811,8 @@ def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float):
     busy_ms = sum(dev_us(e) for e in kernels) / n / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     ours = [e for e in kernels
-            if "decode_attention" in e.key or "rmsnorm_kernel" in e.key]
+            if "_kernel" in e.key and ("decode_attention" in e.key
+                                       or "rmsnorm_" in e.key)]
     emit("profile", arch=cfg.name, steps=n, device_busy_ms_per_step=busy_ms,
          step_ms_unprofiled=ms_per_step,
          device_idle_share=(1.0 - busy_ms / ms_per_step) if busy_ms else None,
@@ -1054,16 +1120,43 @@ def hybrid_phase(torch, K, dev):
     return launches, gen_launches
 
 
+def rmsnorm_only(torch, K, dev, build_) -> int:
+    """``--rmsnorm-only``: build, then only rmsnorm's ``kernel_time`` lines
+    at RMSNORM_TIME_SHAPES, for the checkout whose ``src`` was given; run
+    once per checkout in one call, in turns, to compare two trees' kernels
+    on one card."""
+    b = build_()
+    emit("build", src=K.__file__, cached=b.cached)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            getattr(torch, dt))
+
+    for rows, d in RMSNORM_TIME_SHAPES:
+        rmsnorm_time(torch, K, dev, randn, b.ptxas, rows, d)
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rmsnorm-only", action="store_true",
+                    help="time only rmsnorm (for comparing two checkouts)")
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help="the src directory whose repro_torch is driven")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 2
-    src = os.path.join(ROOT, "src")
+    src = os.path.abspath(args.src)
     if not os.path.isdir(os.path.join(src, "repro_torch")):
-        print(f"chip_smoke: no src/repro_torch under {ROOT}; run it from a "
+        print(f"chip_smoke: no repro_torch under {src}; run it from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
@@ -1075,6 +1168,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.rmsnorm_only:
+        return rmsnorm_only(torch, K, dev, build)
     smi = nvidia_smi()
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),

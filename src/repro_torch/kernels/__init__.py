@@ -16,10 +16,11 @@ use) or raises.  Each wrapper counts its launches in ``<wrapper>.launches``.
 from .decode_attention import (decode_attention, decode_attention_plain,
                                decode_attention_splitk_plain, plan_splits)
 from .flash_attention import flash_attention, flash_attention_plain
-from .rmsnorm import rmsnorm, rmsnorm_plain
+from .rmsnorm import plan_rows, rmsnorm, rmsnorm_lanes_plain, rmsnorm_plain
 from .ssm_scan import plan_groups, ssm_scan, ssm_scan_plain
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_splitk_plain", "flash_attention",
-           "flash_attention_plain", "plan_groups", "plan_splits", "rmsnorm",
-           "rmsnorm_plain", "ssm_scan", "ssm_scan_plain"]
+           "flash_attention_plain", "plan_groups", "plan_rows", "plan_splits",
+           "rmsnorm", "rmsnorm_lanes_plain", "rmsnorm_plain", "ssm_scan",
+           "ssm_scan_plain"]

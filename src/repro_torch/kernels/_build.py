@@ -130,7 +130,8 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library with every C entry point typed."""
     lib = ctypes.CDLL(build().path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rmsnorm_launch.argtypes = [p, p, p, p, ctypes.c_int64, i, f, i, i, p]
+    lib.rmsnorm_launch.argtypes = [p, p, p, p, ctypes.c_int64, i, f, i, i, i, i,
+                                   i, i, p]
     lib.rmsnorm_launch.restype = i
     lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                             f, i, i, i, p]

@@ -1,3 +1,5 @@
-from .ops import rmsnorm, rmsnorm_plain
+from .ops import (RowPlan, plan_rows, rmsnorm, rmsnorm_lanes_plain,
+                  rmsnorm_plain)
 
-__all__ = ["rmsnorm", "rmsnorm_plain"]
+__all__ = ["RowPlan", "plan_rows", "rmsnorm", "rmsnorm_lanes_plain",
+           "rmsnorm_plain"]

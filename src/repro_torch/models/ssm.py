@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import resolve_device
 from repro_torch.kernels import ssm_scan
 from repro_torch.kernels.ssm_scan import ssd_chunked as _ssd_chunked
 from repro_torch.models.common import ModelConfig, ParamSpec
@@ -120,7 +121,11 @@ class MambaState(NamedTuple):
 
 def mamba2_init_state(cfg: ModelConfig, batch: int,
                       dtype: torch.dtype = torch.bfloat16,
-                      device: Union[str, torch.device] = "cpu") -> MambaState:
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> MambaState:
+    """Zero SSD state and conv window on ``device`` (``None``: the card;
+    pass ``"cpu"`` for the CPU)."""
+    device = resolve_device(device)
     d_inner, nheads, headdim = _mamba_dims(cfg)
     return MambaState(
         h=torch.zeros((batch, nheads, headdim, cfg.ssm_state),

@@ -12,11 +12,12 @@ tensor back into a numpy bf16 array.
 
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.models.common import tree_leaves
 
 __all__ = ["flatten", "unflatten", "tensor_from_numpy", "tensor_to_numpy",
@@ -59,10 +60,13 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def to_torch(tree: Any, device: Union[str, torch.device] = "cpu") -> dict:
+def to_torch(tree: Any,
+             device: Optional[Union[str, torch.device]] = None) -> dict:
     """numpy tree (nested or "/"-flat) -> nested dict of tensors on
-    ``device``, ready for ``Decoder(cfg, params=...)``."""
-    return unflatten({k: tensor_from_numpy(np.asarray(v)).to(device)
+    ``device`` (``None``: the card; pass ``"cpu"`` for the CPU), ready for
+    ``Decoder(cfg, params=...)``."""
+    dev = resolve_device(device)
+    return unflatten({k: tensor_from_numpy(np.asarray(v)).to(dev)
                       for k, v in flatten(tree).items()})
 
 

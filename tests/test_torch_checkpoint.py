@@ -111,7 +111,7 @@ def test_port_save_is_byte_identical_to_jax_save(tmp_path):
     from repro_torch.weights import to_torch
 
     dt = save_checkpoint(str(tmp_path / "torch"), 1,
-                         to_torch(jax.device_get(state)))
+                         to_torch(jax.device_get(state), "cpu"))
     for name in ("data.bin", "manifest.json"):
         with open(os.path.join(dj, name), "rb") as a, \
                 open(os.path.join(dt, name), "rb") as b:

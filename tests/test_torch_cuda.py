@@ -39,7 +39,11 @@ def _randn(shape, dtype, dev, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(64, 256), (3, 7, 512), (1000, 128),
-                                   (4, 2048), (5, 130)])
+                                   (4, 2048), (5, 130),
+                                   # ragged row counts on the persistent
+                                   # path: no whole warp step, short last
+                                   # steps, one row
+                                   (131071, 128), (4097, 3584), (1, 2048)])
 @pytest.mark.parametrize("with_res", [False, True])
 def test_rmsnorm_kernel_matches_plain(card, shape, dtype, with_res):
     x = _randn(shape, dtype, card, 0)
@@ -62,13 +66,29 @@ def test_rmsnorm_kernel_matches_plain(card, shape, dtype, with_res):
 ], ids=str)
 def test_rmsnorm_kernel_matches_plain_at_path_shapes(card, shape, dtype):
     """The models' shapes, scale in x's dtype as the models hold it; d 3584
-    takes the block-per-row path with an uneven count of 16-byte vectors
-    per thread."""
+    is 14 16-byte vectors a lane at bf16, 28 at f32 (the loop path)."""
     x = _randn(shape, dtype, card, 0)
     scale = _randn(shape[-1:], dtype, card, 1)
     y = rmsnorm(x, scale)
     tol = TOL[dtype]
     torch.testing.assert_close(y.float(), rmsnorm_plain(x, scale).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_rmsnorm_kernel_matches_plain_off_16_byte_alignment(card, dtype,
+                                                            with_res):
+    """x one element past a 16-byte boundary: a width the vector paths
+    take, sent down the scalar path."""
+    rows, d = 33, 2048
+    x = _randn((rows * d + 1,), dtype, card, 0)[1:].view(rows, d)
+    res = (_randn((rows * d + 1,), dtype, card, 2)[1:].view(rows, d)
+           if with_res else None)
+    scale = _randn((d,), dtype, card, 1)
+    y = rmsnorm(x, scale, res)
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), rmsnorm_plain(x, scale, res).float(),
                                atol=tol, rtol=tol)
 
 

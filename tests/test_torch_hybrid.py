@@ -163,7 +163,7 @@ def test_weights_roundtrip_carries_the_hybrid_tree():
     cfg = jcfg.replace(dtype="bfloat16")
     jp = jax.device_get(jax_init_params(jax.random.PRNGKey(1),
                                         JT.model_specs(cfg), cfg.jdtype))
-    back = to_numpy(to_torch(jp))
+    back = to_numpy(to_torch(jp, "cpu"))
     for (path, a) in jax.tree_util.tree_flatten_with_path(jp)[0]:
         node = back
         for k in path:
@@ -171,7 +171,7 @@ def test_weights_roundtrip_carries_the_hybrid_tree():
         assert node.dtype == a.dtype and np.array_equal(
             node.view(np.uint16), np.asarray(a).view(np.uint16))
     jc = jax.device_get(JT.init_cache(cfg, 1, 4))
-    tc = to_torch(jc)
+    tc = to_torch(jc, "cpu")
     assert tc["blocks"]["b0_mamba"]["h"].dtype == torch.float32
     assert tc["blocks"]["b0_mamba"]["conv"].dtype == torch.bfloat16
 
@@ -197,7 +197,7 @@ def test_mamba2_decode_matches_jax():
     pj, pt = _block_params(jp, tp)
     rng = np.random.default_rng(6)
     sj = JS.mamba2_init_state(jcfg, 2, jnp.float32)
-    st = TS.mamba2_init_state(tcfg, 2, torch.float32)
+    st = TS.mamba2_init_state(tcfg, 2, torch.float32, "cpu")
     for _ in range(5):
         xj, xt = _pair(rng.standard_normal((2, 1, tcfg.d_model)), "float32")
         yj, sj = JS.mamba2_decode(pj, jcfg, xj, sj)

@@ -49,9 +49,39 @@ def test_tree_round_trip_and_flat_keys():
     assert list(flat) == ["blocks/b0_attn/attn/wq", "embed"]
     assert unflatten(flat)["blocks"]["b0_attn"]["attn"]["wq"] is \
         tree["blocks"]["b0_attn"]["attn"]["wq"]
-    tt = to_torch(tree)
+    tt = to_torch(tree, "cpu")
     assert tt["blocks"]["b0_attn"]["attn"]["wq"].dtype == torch.bfloat16
-    assert to_torch(flat).keys() == tt.keys()       # flat input, same tree
+    assert to_torch(flat, "cpu").keys() == tt.keys()       # flat input, same tree
     back = flatten(to_numpy(tt))
     for k, v in flat.items():
         assert back[k].dtype == v.dtype and back[k].tobytes() == v.tobytes()
+
+
+def _init_state(*device):
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.ssm import mamba2_init_state
+
+    return mamba2_init_state(reduced_config("zamba2-7b"), 2, torch.float32,
+                             *device)
+
+
+#: the two public functions that once defaulted to the CPU
+ENTRY_POINTS = {
+    "to_torch": lambda *dev: to_torch({"w": np.zeros((2, 3), np.float32)},
+                                      *dev),
+    "mamba2_init_state": _init_state,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_is_the_card(monkeypatch, name):
+    """No device given means the card, as for every entry point of the
+    port: with CUDA hidden the call raises ``resolve_device``'s error, and
+    ``"cpu"`` still gives CPU tensors."""
+    fn = ENTRY_POINTS[name]
+    out = fn("cpu")
+    leaves = [out["w"]] if name == "to_torch" else list(out)
+    assert all(t.device.type == "cpu" for t in leaves)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
