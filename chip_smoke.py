@@ -19,23 +19,40 @@ Phases (one JSON line each, ``"phase"`` names them):
    version, one library call (where one exists) and its bound; rmsnorm
    also at the prefills' shapes, ssm_scan also launch by launch
    (``torch.profiler``).
-4. ``restore``: qwen3-1.7b at full width, random weights from a seeded
-   ``torch.Generator`` on the card, saved with ``save_checkpoint`` and
-   restored over MDTP from three throttled loopback mirrors (rates 1:2:4;
-   the slowest is killed mid-restore) into device memory, every leaf
-   checked bit for bit.
-5. ``serve``: ``generate`` with the restored weights (4 requests, 16 prompt
+4. ``geometry_*``: the chunk-geometry loop on the card
+   (``repro_torch.core``).  ``geometry_sweep`` / ``geometry_winners``: the
+   paper's sweep at its real size, ``sweep_scenarios`` over the six-replica
+   FABRIC fleet and its Fig. 3 and Fig. 4 variants x the seven paper file
+   sizes (1-64 GB) x the Table II grid x 32 seeds at jitter 0.02 (10,752
+   lanes of 6 servers on the round engine), cold and warm, with the rounds
+   run and the winner per scenario; ``geometry_card_vs_cpu``: the same code
+   on the CPU over a subset (1 and 4 GB, 4 seeds), the same winners and
+   times within rtol 1e-5; ``geometry_engines``: the event, round and scan
+   engines at one 4 GB baseline point (round within 2% of event), with the
+   round engine's device busy time; ``geometry_grad``:
+   ``tune_chunk_params_grad`` and ``tune_chunk_params_mcgrad`` at 4 GB from
+   the grid's winner (final gradient finite and nonzero, never worse than
+   the grid).
+5. ``restore`` / ``restore_tuned``: qwen3-1.7b at full width, random
+   weights from a seeded ``torch.Generator`` on the card, saved with
+   ``save_checkpoint`` and restored over MDTP from three throttled loopback
+   mirrors (rates 1:2:4; the slowest is killed mid-restore) into device
+   memory, every leaf checked bit for bit; then restored once more with a
+   ``GridTuner`` on the card re-planning (C, L) from live telemetry
+   (``restore_checkpoint(..., tuner=)``), bit-exact again, with at least
+   one adopted geometry, beside the same tuner update timed alone.
+6. ``serve``: ``generate`` with the restored weights (4 requests, 16 prompt
    + 32 generated tokens, greedy), its kernel launch counts held to the
    exact per-step counts, then four teacher-forced steps of the kernel
    path against the plain path on the card.
-6. ``profile``: device time by kernel over four decode steps
+7. ``profile``: device time by kernel over four decode steps
    (``torch.profiler``) beside the unprofiled step time.
-7. ``prefill``: qwen3-1.7b's full-sequence prefill (``make_prefill_step``)
+8. ``prefill``: qwen3-1.7b's full-sequence prefill (``make_prefill_step``)
    on the restored weights at B 4, S 2048: 28 flash_attention and 113
    rmsnorm launches per forward, exactly; the kernel path against the
    plain path (``hold_kernel_path``); time per prefill and a device
    profile.
-8. ``hybrid_prefill`` / ``hybrid_generate``: zamba2-7b at full width and
+9. ``hybrid_prefill`` / ``hybrid_generate``: zamba2-7b at full width and
    depth, random weights drawn on the card: prefill at B 1, S 4096 (13
    flash_attention, 81 ssm_scan, 108 rmsnorm launches per forward), held
    against the plain path; then ``generate`` at B 2, 16 + 16 tokens (13
@@ -639,40 +656,230 @@ def ssm_kernel_phase(torch, K, dev, record, worst, ptxas):
             "phase_ms_per_call": phases, "ptxas": ptxas_of(ptxas, "ssm_scan")}
 
 
+# ------------------------------------------------------------------ geometry
+
+#: the paper's sweep on the card: three fleets x seven file sizes x the
+#: Table II grid x this many seeds at the scenarios' own jitter
+GEOMETRY_SEEDS = 32
+GEOMETRY_JITTER = 0.02
+
+
+def paper_fleets():
+    """(names, bw, rtt, throttle_t, throttle_bw) of the six-replica FABRIC
+    fleet, its Fig. 3 variant (+0.5 s on the fastest) and its Fig. 4
+    variant (fastest throttled to 500 Mbps); numpy ``[3, 6]`` each."""
+    import numpy as np
+
+    from repro_torch.core.scenarios import (paper_baseline,
+                                            with_added_latency,
+                                            with_throttled_fastest)
+
+    base = paper_baseline()
+    fleets = {"baseline": base, "latency": with_added_latency(base),
+              "throttle": with_throttled_fastest(base)}
+    rows = list(fleets.values())
+    return (list(fleets),
+            np.asarray([[s.bandwidth for s in f] for f in rows]),
+            np.asarray([[s.rtt for s in f] for f in rows]),
+            np.asarray([[s.profile[0][0] if s.profile else np.inf
+                         for s in f] for f in rows]),
+            np.asarray([[s.profile[0][1] if s.profile else s.bandwidth
+                         for s in f] for f in rows]))
+
+
+def blocks_of(iters: int, k: int) -> int:
+    """Steps the host ran for ``iters`` live steps: whole blocks of ``k``
+    (it checks for a live lane only between blocks)."""
+    return max(-(-iters // k) * k, k)
+
+
+def geometry_phase(torch, dev):
+    """The chunk-geometry loop on the card: the paper's sweep at its real
+    size, the card against the CPU, the three engines side by side, and the
+    gradient tuners."""
+    import numpy as np
+
+    from repro_torch.core import autotune as AT
+    from repro_torch.core import online
+    from repro_torch.core import torch_sim as TS
+    from repro_torch.core.chunking import DEFAULT_MIN_CHUNK, ChunkParams
+    from repro_torch.core.scenarios import GB, PAPER_FILE_SIZES
+
+    names, bw, rtt, tt, tb = paper_fleets()
+    grid = AT.default_grid()
+    # scenario rows: fleet-major, then file size
+    rows = [(f, size) for f in range(len(names)) for size in PAPER_FILE_SIZES]
+    idx = [f for f, _ in rows]
+    sizes = np.asarray([size for _, size in rows], np.float64)
+    sweep_kw = dict(throttle_t=tt[idx], throttle_bw=tb[idx], grid=grid,
+                    jitter=GEOMETRY_JITTER, n_seeds=GEOMETRY_SEEDS,
+                    device=dev)
+
+    # 1) the paper's sweep at its real size: 21 x 16 x 32 lanes of N 6
+    timings = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        times = AT.sweep_scenarios(bw[idx], rtt[idx], sizes, **sweep_kw)
+        times = times.cpu().numpy()
+        timings.append(time.perf_counter() - t0)
+    check(times.shape == (len(rows), len(grid)), "sweep shape")
+    check(bool(np.isfinite(times).all()), "sweep has non-finite times")
+    # the same lanes through the round core once more, for its rounds
+    lanes = len(rows) * len(grid) * GEOMETRY_SEEDS
+    b_s, b_g, b_k = len(rows), len(grid), GEOMETRY_SEEDS
+
+    def lane_rows(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        return x[:, None, None, :].expand(b_s, b_g, b_k, x.shape[-1]) \
+            .reshape(lanes, x.shape[-1])
+
+    def lane_grid(v):
+        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        return v[None, :, None].expand(b_s, b_g, b_k).reshape(lanes)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = TS.simulate_round_core(
+        lane_rows(bw[idx]), lane_rows(rtt[idx]), lane_rows(tt[idx]),
+        lane_rows(tb[idx]),
+        torch.arange(b_k, device=dev)[None, None, :].expand(
+            b_s, b_g, b_k).reshape(lanes),
+        (lane_grid([c for c, _ in grid]), lane_grid([l for _, l in grid]),
+         lane_grid([DEFAULT_MIN_CHUNK] * len(grid))),
+        torch.as_tensor(sizes, dtype=torch.float32, device=dev)[
+            :, None, None].expand(b_s, b_g, b_k).reshape(lanes),
+        mode="proportional",
+        config=TS.SimConfig(jitter=GEOMETRY_JITTER))
+    iters = res.iters.cpu().numpy()
+    t_core = time.perf_counter() - t0
+    core_times = res.total_time.reshape(b_s, b_g, b_k).mean(-1).cpu().numpy()
+    check(np.allclose(core_times, times, rtol=1e-6),
+          "the round core and sweep_scenarios disagree on the same lanes")
+    host_steps = blocks_of(int(iters.max()), TS.CHECK_EVERY)
+    winners = {}
+    for r, (f, size) in enumerate(rows):
+        c, l = grid[int(np.argmin(times[r]))]
+        winners[f"{names[f]}/{size // GB}GB"] = [c / MB, l / MB]
+    emit("geometry_sweep", lanes=lanes, servers=int(bw.shape[1]),
+         scenarios=len(rows), grid=len(grid), seeds=GEOMETRY_SEEDS,
+         jitter=GEOMETRY_JITTER, cold_s=timings[0], warm_s=timings[1],
+         lanes_per_s_warm=lanes / timings[1], rounds_max=int(iters.max()),
+         rounds_mean=float(iters.mean()), host_steps=host_steps,
+         core_s=t_core, ms_per_round_step=t_core / host_steps * 1e3)
+    emit("geometry_winners", winner_c_l_mib=winners,
+         best_s={k: float(times[r].min())
+                 for r, k in enumerate(winners)})
+
+    # 2) card against CPU on a subset: the three fleets at 1 and 4 GB, 4
+    # seeds; the draws are counter-based, so the lanes are alike
+    sub = [(f, size) for f in range(len(names)) for size in (1 * GB, 4 * GB)]
+    s_idx = [f for f, _ in sub]
+    s_sizes = np.asarray([size for _, size in sub], np.float64)
+    kw = dict(throttle_t=tt[s_idx], throttle_bw=tb[s_idx], grid=grid,
+              jitter=GEOMETRY_JITTER, n_seeds=4)
+    t0 = time.perf_counter()
+    on_card = AT.sweep_scenarios(bw[s_idx], rtt[s_idx], s_sizes, device=dev,
+                                 **kw).cpu().numpy()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = AT.sweep_scenarios(bw[s_idx], rtt[s_idx], s_sizes,
+                                device="cpu", **kw).numpy()
+    t_cpu = time.perf_counter() - t0
+    same_argmin = bool((on_card.argmin(-1) == on_cpu.argmin(-1)).all())
+    rel = float(np.max(np.abs(on_card - on_cpu) / np.abs(on_cpu)))
+    emit("geometry_card_vs_cpu", lanes=len(sub) * len(grid) * 4,
+         card_s=t_card, cpu_s=t_cpu, same_argmin=same_argmin,
+         max_rel_diff=rel, rtol=1e-5)
+    check(same_argmin, "card and CPU sweeps pick different winners")
+    check(rel <= 1e-5, f"card and CPU sweep times differ by {rel:.3g}")
+
+    # 3) the engines side by side at one 4 GB baseline point
+    params = ChunkParams(4 * MB, 40 * MB)
+    out = {}
+    for engine in ("event", "round", "scan"):
+        run = lambda: TS.simulate_transfer(  # noqa: E731
+            bw[0], rtt[0], 4 * GB, params, engine=engine, device=dev)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run()
+        total = float(r.total_time)
+        ms = (time.perf_counter() - t0) * 1e3
+        steps = blocks_of(int(r.iters), TS.CHECK_EVERY)
+        out[engine] = {"total_time_s": total, "iters": int(r.iters),
+                       "host_steps": steps, "ms": ms,
+                       "ms_per_step": ms / steps}
+    prof = device_profile(torch, lambda: TS.simulate_transfer(
+        bw[0], rtt[0], 4 * GB, params, engine="round", device=dev), ())
+    rel = abs(out["round"]["total_time_s"] / out["event"]["total_time_s"] - 1)
+    emit("geometry_engines", file_gb=4, fleet="baseline",
+         c_l_mib=[4, 40], engines=out, round_vs_event_rel=rel,
+         round_device_busy_ms=prof["device_busy_ms"],
+         round_idle_share=1 - prof["device_busy_ms"] / out["round"]["ms"],
+         round_top_kernels=prof["top_kernels"][:4])
+    check(rel <= 0.02, f"round engine {rel:.3%} off the event engine")
+
+    # 4) the gradient tuners at 4 GB baseline, from the grid's winner
+    live_bw, live_rtt = list(bw[0]), list(rtt[0])
+    t0 = time.perf_counter()
+    seed = AT.autotune_chunk_params(live_bw, live_rtt, 4 * GB, device=dev)
+    t_grid = time.perf_counter() - t0
+    init = (seed.params.initial_chunk, seed.params.large_chunk)
+    steps = 60
+    t0 = time.perf_counter()
+    g = AT.tune_chunk_params_grad(live_bw, live_rtt, 4 * GB, init=init,
+                                  steps=steps, device=dev)
+    t_grad = time.perf_counter() - t0
+    mc_steps = 40
+    t0 = time.perf_counter()
+    mc = online.tune_chunk_params_mcgrad(live_bw, live_rtt, 4 * GB,
+                                         init=init, steps=mc_steps,
+                                         device=dev)
+    t_mc = time.perf_counter() - t0
+    emit("geometry_grad", file_gb=4, fleet="baseline", grid_s=t_grid,
+         grid_winner_mib=[init[0] / MB, init[1] / MB],
+         grid_time_s=seed.predicted_time,
+         grad_s=t_grad, grad_steps=g.steps,
+         grad_ms_per_step=t_grad / (g.steps + 1) * 1e3,
+         grad_params_mib=[g.params.initial_chunk / MB,
+                          g.params.large_chunk / MB],
+         grad_time_s=g.predicted_time, final_grad=list(g.final_grad),
+         mcgrad_s=t_mc, mcgrad_steps=mc.steps, mcgrad_seeds=8,
+         mcgrad_ms_per_step=t_mc / (mc.steps + 1) * 1e3,
+         mcgrad_params_mib=[mc.params.initial_chunk / MB,
+                            mc.params.large_chunk / MB],
+         mcgrad_time_s=mc.predicted_time)
+    check(all(math.isfinite(x) for x in g.final_grad)
+          and any(x != 0.0 for x in g.final_grad),
+          f"grad tuner's final gradient {g.final_grad}")
+    check(g.predicted_time <= seed.predicted_time + 1e-6,
+          "grad tuner is worse than its grid init")
+    check(mc.predicted_time <= seed.predicted_time + 1e-6,
+          "MC grad tuner is worse than its grid init")
+
+
 # ------------------------------------------------------------------ restore
 
-def restore_phase(torch, cfg, dev):
-    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
-    from repro_torch.models.common import tree_leaves
-    from repro_torch.models.transformer import Decoder, model_specs
+def mirrored_restore(torch, cfg, dev, root: str, d: str, tuner=None):
+    """Restore the checkpoint at ``d`` over three throttled loopback mirrors
+    (MIRROR_RATE x 1, 2, 4), the slowest killed once it has served
+    KILL_AT_BYTES.  Returns the tree and a dict of the run's numbers."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.models.transformer import model_specs
     from repro_torch.transfer import RangeServer, Replica, Throttle
 
-    t0 = time.perf_counter()
-    source = Decoder(cfg, device=dev,
-                     generator=torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    n_params = sum(t.numel() for _, t in tree_leaves(source.tree()))
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     servers = []
     try:
         t0 = time.perf_counter()
-        d = save_checkpoint(tmp, 1, source.tree())
-        t_save = time.perf_counter() - t0
-        total = os.path.getsize(os.path.join(d, "data.bin"))
-
-        rates = [MIRROR_RATE, 2 * MIRROR_RATE, 4 * MIRROR_RATE]
-        t0 = time.perf_counter()
-        for rate in rates:
+        for rate in (MIRROR_RATE, 2 * MIRROR_RATE, 4 * MIRROR_RATE):
             s = RangeServer(throttle=Throttle(bytes_per_s=rate, chunk=MB,
                                               shared=True)).start()
             servers.append(s)
             for name in ("manifest.json", "data.bin"):
                 s.add_file(f"/ckpt/step_0000000001/{name}",
                            os.path.join(d, name))
-        t_mount = time.perf_counter() - t0
-
+        mount_s = time.perf_counter() - t0
         victim = servers[0]
         done = threading.Event()
         killed_at = []
@@ -690,10 +897,11 @@ def restore_phase(torch, cfg, dev):
         t0 = time.perf_counter()
         killer.start()
         try:
-            restored, step = restore_checkpoint(tmp, model_specs(cfg), step=1,
-                                                replicas=replicas, device=dev)
+            restored, _ = restore_checkpoint(root, model_specs(cfg), step=1,
+                                             replicas=replicas, tuner=tuner,
+                                             device=dev)
             torch.cuda.synchronize()
-            t_restore = time.perf_counter() - t0
+            seconds = time.perf_counter() - t0
         finally:
             done.set()
             killer.join()
@@ -701,26 +909,113 @@ def restore_phase(torch, cfg, dev):
     finally:
         for s in servers:       # stopping the killed mirror again is a no-op
             s.stop()
-        shutil.rmtree(tmp, ignore_errors=True)
+    return restored, {"restore_s": seconds, "mount_s": mount_s,
+                      "served_bytes_per_mirror": served,
+                      "killed_after_s": killed_at[0] if killed_at else None,
+                      "killed_served": victim.served_bytes}
 
-    want = dict(tree_leaves(source.tree()))
-    got = dict(tree_leaves(restored))
-    check(sorted(want) == sorted(got), "restored keys differ from saved")
+
+def check_bit_exact(torch, want: dict, tree, what: str) -> int:
+    from repro_torch.models.common import tree_leaves
+
+    got = dict(tree_leaves(tree))
+    check(sorted(want) == sorted(got), f"{what}: keys differ from saved")
     for key, t in want.items():
         r = got[key]
-        check(r.device.type == "cuda", f"{key} restored on {r.device}")
+        check(r.device.type == "cuda", f"{what}: {key} on {r.device}")
         check(r.dtype == t.dtype and r.shape == t.shape and torch.equal(r, t),
-              f"restored leaf {key} is not bit-exact")
-    check(bool(killed_at), "the slowest mirror was never killed mid-restore")
-    check(victim.served_bytes < total, "the killed mirror served everything")
-    emit("restore", arch=cfg.name, n_layers=cfg.n_layers,
-         d_model=cfg.d_model, params=n_params, bytes=total, dtype=cfg.dtype,
-         init_s=t_init, save_s=t_save, mount_s=t_mount,
-         restore_s=t_restore, gb_per_s=total / t_restore / 1e9,
-         mirror_rates_mib_s=[r / MB for r in rates],
-         served_bytes_per_mirror=served, killed_mirror=0,
-         killed_after_s=killed_at[0], leaves=len(got), bit_exact=True)
-    del source, want
+              f"{what}: leaf {key} is not bit-exact")
+    return len(got)
+
+
+def restore_phase(torch, cfg, dev):
+    """The default-geometry restore, then (the geometry phase's step 5) the
+    same checkpoint restored again with a GridTuner on the card re-planning
+    (C, L) mid-restore."""
+    from dataclasses import dataclass, field
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.core.online import GridTuner
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import Decoder
+
+    @dataclass
+    class TimedGridTuner(GridTuner):
+        """A GridTuner that keeps each update's telemetry and seconds."""
+
+        seen: list = field(default_factory=list)
+        seconds: list = field(default_factory=list)
+
+        def update(self, t):
+            t0 = time.perf_counter()
+            try:
+                return super().update(t)
+            finally:
+                self.seen.append(t)
+                self.seconds.append(time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    source = Decoder(cfg, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_leaves(source.tree()))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        d = save_checkpoint(tmp, 1, source.tree())
+        t_save = time.perf_counter() - t0
+        total = os.path.getsize(os.path.join(d, "data.bin"))
+        want = dict(tree_leaves(source.tree()))
+        del source
+        restored, run = mirrored_restore(torch, cfg, dev, tmp, d)
+        t_restore = run["restore_s"]
+        leaves = check_bit_exact(torch, want, restored, "restore")
+        check(run["killed_after_s"] is not None,
+              "the slowest mirror was never killed mid-restore")
+        check(run["killed_served"] < total,
+              "the killed mirror served everything")
+        emit("restore", arch=cfg.name, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, params=n_params, bytes=total,
+             dtype=cfg.dtype, init_s=t_init, save_s=t_save,
+             mount_s=run["mount_s"], restore_s=t_restore,
+             gb_per_s=total / t_restore / 1e9,
+             mirror_rates_mib_s=[MIRROR_RATE / MB * k for k in (1, 2, 4)],
+             served_bytes_per_mirror=run["served_bytes_per_mirror"],
+             killed_mirror=0, killed_after_s=run["killed_after_s"],
+             leaves=leaves, bit_exact=True)
+
+        tuner = TimedGridTuner(device=dev)
+        tuned, run_t = mirrored_restore(torch, cfg, dev, tmp, d, tuner=tuner)
+        t_tuned = run_t["restore_s"]
+        check_bit_exact(torch, want, tuned, "tuned restore")
+        del tuned
+        check(run_t["killed_after_s"] is not None
+              and run_t["killed_served"] < total,
+              "tuned restore: the slowest mirror was not killed mid-restore")
+        check(tuner.updates > 0 and tuner.params is not None,
+              "tuned restore: the tuner never adopted a geometry")
+        # the same update alone, the card otherwise idle: does a sweep
+        # queue behind the restore's leaf copies?
+        alone = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            GridTuner(device=dev).update(tuner.seen[0])
+            alone.append(time.perf_counter() - t0)
+        emit("restore_tuned", tuner="GridTuner", restore_s=t_tuned,
+             gb_per_s=total / t_tuned / 1e9, default_restore_s=t_restore,
+             default_gb_per_s=total / t_restore / 1e9,
+             adopted_c_l_mib=[tuner.params.initial_chunk / MB,
+                              tuner.params.large_chunk / MB],
+             updates=tuner.updates, update_s_during_restore=tuner.seconds,
+             update_s_alone=alone,
+             telemetry_bw_mib_s=[b / MB for b in tuner.seen[0].bandwidth],
+             served_bytes_per_mirror=run_t["served_bytes_per_mirror"],
+             killed_after_s=run_t["killed_after_s"], bit_exact=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del want
     torch.cuda.empty_cache()
     return restored
 
@@ -1181,6 +1476,7 @@ def main() -> int:
              library=os.path.relpath(b.path, ROOT), ptxas=list(b.ptxas))
 
         summary = kernel_phase(torch, K, dev, b.ptxas)
+        geometry_phase(torch, dev)
 
         cfg = get_config("qwen3-1.7b")
         params = restore_phase(torch, cfg, dev)

@@ -18,11 +18,14 @@ those names to torch dtypes itself and reads leaves as raw bytes
 mirrors at once with MDTP adaptive byte ranges, received straight into one
 host buffer; each leaf is copied to the device the moment its last byte
 lands, overlapping the host-to-device copies with the transfer.  A mirror
-that dies mid-restore returns its ranges to the pool.
+that dies mid-restore returns its ranges to the pool.  ``tuner=`` (a
+``repro_torch.core.online`` policy) re-tunes the chunk geometry while the
+blob streams in.
 
-Left for later slices: the reference's ``tuner``/``wave_bytes`` between-wave
+Left for later slices: the reference's ``wave_bytes`` between-wave
 re-tuning, fleet ``manager``, crash ``resume``, peer ``mirror``,
-``shard_plan`` and ``CheckpointManager``.
+``shard_plan`` and ``CheckpointManager``; until then they are not
+keywords, so passing one raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -236,6 +239,7 @@ def restore_checkpoint(
     step: Optional[int] = None,
     replicas: Optional[Sequence[Replica]] = None,
     *,
+    tuner: Any = None,
     device: Optional[Union[str, torch.device]] = None,
 ) -> tuple[Any, int]:
     """Restore ``(state, step)`` onto ``device`` (default ``"cuda"``; raises
@@ -247,7 +251,14 @@ def restore_checkpoint(
     given, ``data.bin`` is fetched with MDTP multi-source ranges instead of
     read locally (``root`` is then only used to discover the step if not
     given), streamed: each leaf goes to the device as soon as its byte
-    range completes."""
+    range completes.
+
+    ``tuner`` (a ``repro_torch.core.online`` policy: ``GridTuner``,
+    ``MCGradTuner``, ``BanditTuner``; replica restores only) is passed to
+    the blob fetch's in-transfer telemetry hook: it re-plans (C, L) from
+    live per-mirror throughput while the restore runs, and the client
+    adopts what it returns.  A tuner that fails never fails the
+    restore."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(root)
@@ -271,7 +282,8 @@ def restore_checkpoint(
                 dclient = MDTPClient([Replica(r.host, r.port,
                                               r.path + "/" + _DATA)
                                       for r in base])
-                await dclient.fetch(stream.total_bytes, sink=stream)
+                await dclient.fetch(stream.total_bytes, sink=stream,
+                                    tuner=tuner)
             return stream.finish()
 
         return asyncio.run(run()), step

@@ -170,12 +170,14 @@ def attention(
     """Full-sequence attention (prefill / forward): x ``[B, S, d]`` ->
     ``[B, S, d]``, at positions 0..S-1 on both paths.
 
-    The kernel path calls ``flash_attention`` (f32 probabilities through the PV product, as the TPU kernel keeps them).
-    ``plain=True`` runs the reference's exact query-blocked ``_sdpa``
-    (blocks of ``q_block`` queries over all keys, or over the
-    ``window - 1 + q_block`` keys a sliding-window block can reach), which
-    rounds the probabilities to the compute dtype first; at bf16 the two
-    agree within bf16 tolerance."""
+    The kernel path calls ``flash_attention``: an f32 online softmax
+    whose probabilities are rounded to bf16 before the PV product at bf16
+    (as the reference's XLA path rounds them; the TPU kernel keeps them in
+    f32), and kept in f32 at f32.  ``plain=True`` runs the reference's
+    exact query-blocked ``_sdpa`` (blocks of ``q_block`` queries over all
+    keys, or over the ``window - 1 + q_block`` keys a sliding-window block
+    can reach), which rounds the probabilities to the compute dtype first;
+    at bf16 the two agree within bf16 tolerance."""
     if kv_x is not None:
         raise NotImplementedError("cross-attention (kv_x) is not ported yet")
     if cfg.attn_probs_dtype != "float32":

@@ -43,6 +43,10 @@ def program_for(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
     """(group_def, n_groups, remainder_def) for the decoder stack."""
     if cfg.norm_mult_dtype != "float32":
         raise NotImplementedError("norm_mult_dtype='compute' is not ported")
+    if cfg.norm_custom_bwd:
+        # the reference's custom-VJP rmsnorm forward multiplies in the
+        # compute dtype; it arrives with training
+        raise NotImplementedError("norm_custom_bwd is not ported")
     L = cfg.n_layers
     if cfg.family == "hybrid":
         per = cfg.hybrid_period

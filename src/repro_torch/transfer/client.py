@@ -49,11 +49,9 @@ The client is transport-generic: anything exposing ``fetch_range`` works
 (tests use the in-process ``RangeServer``; production would point at real
 mirrors).
 
-This is the port's own copy of ``repro.transfer.client`` with the two
-tuner couplings left out: ``MDTPClient.retune`` (the reference's fused
-grid sweep) and the ``fetch(tuner=...)`` in-transfer hook.  Both return
-with the port's tuners; until then ``tuner=`` is an unknown keyword and
-raises ``TypeError``, so no tuner can be silently ignored.
+This is the port's own copy of ``repro.transfer.client``; ``retune`` and
+the ``fetch(tuner=...)`` hook drive the port's tuners
+(``repro_torch.core.autotune`` / ``repro_torch.core.online``).
 """
 
 from __future__ import annotations
@@ -72,7 +70,7 @@ from repro_torch.transfer.sched import ChunkScheduler, defaults as sched_default
 from repro_torch.transfer.transport import _Conn, _crc32_async
 
 __all__ = ["Replica", "ClientOptions", "TransferReport", "MDTPClient",
-           "TransferIncompleteError", "fetch_blob",
+           "NoTelemetryError", "TransferIncompleteError", "fetch_blob",
            "wire_elapsed", "DEFAULT_PIPELINE_DEPTH"]
 
 #: default per-connection request pipeline depth.  2 keeps a request on
@@ -90,6 +88,17 @@ DEFAULT_PIPELINE_DEPTH = sched_defaults.PIPELINE_DEPTH
 #: for straggling in-flight ranges on this period instead of waiting on
 #: a notification that will never come.
 _HEDGE_POLL_S = sched_defaults.HEDGE_POLL_S
+
+
+class NoTelemetryError(RuntimeError):
+    """``retune()`` had no usable observations to re-plan from (no
+    completed fetch yet, or every replica failed/went unobserved).
+
+    A dedicated type so callers that tolerate missing telemetry (the
+    checkpoint-restore wave loop) don't have to catch blanket
+    ``RuntimeError``, which would also swallow real failures of the sweep
+    itself.
+    """
 
 
 class TransferIncompleteError(IOError):
@@ -144,6 +153,10 @@ class ClientOptions:
     #: throughput estimator kind (``repro_torch.core.throughput``).
     estimator: str = "ewma"
     ewma_alpha: float = 0.5
+    #: default online tuner (``repro_torch.core.online`` contract: an object
+    #: with ``update(telemetry) -> ChunkParams | None``) applied to every
+    #: ``fetch`` unless overridden per call.
+    tuner: object = None
 
     # -- pipeline / zero-copy data plane ----------------------------------
     #: concurrent pipelined requests per replica connection (>= 1;
@@ -220,14 +233,19 @@ class TransferReport:
     requests_per_replica: dict
     failed_replicas: list
     refetched_ranges: int
+    #: number of mid-transfer tuner adoptions (``fetch(tuner=...)``) — 0
+    #: for un-tuned transfers.
+    retunes: int = 0
     #: final per-replica estimator values (bytes/s; 0 = never observed) —
-    #: the live inputs a tuner re-tunes chunk sizes from.  These are
+    #: the live inputs the autotuner re-tunes chunk sizes from.  These are
     #: WIRE rates: the per-request RTT bias is already removed at the
     #: observation point (:func:`wire_elapsed`), so consumers must not
     #: apply ``rtt_corrected_bandwidth`` again.
     observed_throughputs: dict = field(default_factory=dict)
     #: measured per-replica request RTT in seconds (min over connect time
-    #: and idle-pipe header turnarounds; 0 = never measured).
+    #: and idle-pipe header turnarounds; 0 = never measured).  Feeds
+    #: ``retune`` so the simulated sweep uses live latencies, not a
+    #: guessed constant.
     observed_rtts: dict = field(default_factory=dict)
     #: per-replica count of connection-level retries (reconnect after a
     #: break/stall, with capped exponential backoff between attempts).
@@ -310,6 +328,7 @@ class MDTPClient:
         self._alpha = options.ewma_alpha
         self.retry_after = options.retry_after
         self.max_failures = options.max_failures
+        self.tuner = options.tuner
         self.pipeline_depth = max(int(options.pipeline_depth), 1)
         self.zero_copy = options.zero_copy
         self.request_latency = options.request_latency
@@ -355,9 +374,72 @@ class MDTPClient:
     #: ``fetch``.
     OBS_WINDOW_S = sched_defaults.OBS_WINDOW_S
 
+    def retune(self, file_size: int, **autotune_kw):
+        """Re-tune chunk sizes from the last transfer's live observations.
+
+        Runs the on-device grid sweep (``repro_torch.core.autotune``, one
+        lane batch for the whole (C, L) × seed lattice) against the
+        per-replica throughputs AND measured request RTTs observed during
+        the previous ``fetch`` and adopts the winning ``ChunkParams`` for
+        subsequent transfers.  Typical use: between checkpoint-restore
+        waves, where mirror conditions drift but the replica set is stable.
+
+        The client's own ``pipeline_depth`` is passed to the sweep (unless
+        overridden) so the simulated request-latency amortization matches
+        what this runtime actually does on the wire; likewise an observed
+        corruption rate (re-fetched ranges / requests) is folded in so the
+        sweep's (C, L) pays the same re-fetch overhead the wire did.
+
+        The sweep runs where the client's tuner runs (its ``device``
+        field), else on the card; pass ``device="cpu"`` to run it on the
+        host.
+
+        Returns the ``AutotuneResult``; raises if no transfer has been
+        observed yet or no replica produced a throughput sample.
+        """
+        from repro_torch.core.autotune import autotune_chunk_params
+
+        if self.last_report is None:
+            raise NoTelemetryError("retune() needs a completed fetch() first")
+        # Replicas with no sample (failed / never dispatched) are excluded,
+        # mirroring how fetch() retires them — a 0-throughput entry would
+        # otherwise dominate every simulated grid point.  RTTs stay aligned
+        # with the surviving bandwidth entries.  Estimates are already wire
+        # rates (the RTT bias is stripped per observation, see
+        # ``wire_elapsed``), so they feed the sweep directly.
+        rep = self.last_report
+        bw, rtts = [], []
+        for r in self.replicas:
+            b = rep.observed_throughputs.get(r.name, 0.0)
+            if b <= 0.0:
+                continue
+            rtt = rep.observed_rtts.get(r.name, 0.0)
+            bw.append(b)
+            rtts.append(rtt if rtt > 0.0 else self.DEFAULT_RTT)
+        if not bw:
+            raise NoTelemetryError("no throughput observations to retune from")
+        autotune_kw.setdefault("rtt", rtts)
+        autotune_kw.setdefault("device", getattr(self.tuner, "device", None))
+        autotune_kw.setdefault("pipeline_depth", self.pipeline_depth)
+        total_reqs = sum(rep.requests_per_replica.values())
+        total_corrupt = sum(rep.corrupt_ranges.values())
+        if total_corrupt > 0 and total_reqs > 0:
+            autotune_kw.setdefault(
+                "corruption_rate", min(total_corrupt / total_reqs, 0.5))
+            # a single seed sees one fault realization; average a few
+            autotune_kw.setdefault("n_seeds", 4)
+        res = autotune_chunk_params(bw, file_size=int(file_size),
+                                    **autotune_kw)
+        self._params_arg = res.params
+        return res
+
     def adopt_params(self, params: ChunkParams) -> None:
-        """Adopt chunk geometry for subsequent transfers (the public hook
-        for external re-tuning loops)."""
+        """Adopt chunk geometry for subsequent transfers.
+
+        The public hook for external re-tuning loops (e.g. the
+        checkpoint-restore wave loop feeding an online tuner between
+        waves); ``fetch(tuner=...)`` and ``retune`` adopt internally.
+        """
         self._params_arg = params
 
     def _make_conn(self, replica: Replica) -> "_Conn":
@@ -393,6 +475,7 @@ class MDTPClient:
         costing reconnects goes on probation fleet-wide."""
 
     async def fetch(self, size: int, sink=None, *, offset: int = 0,
+                    tuner=None, tune_interval_bytes: Optional[int] = None,
                     resume=None, into: Optional[bytearray] = None,
                     stripe: Optional[tuple] = None,
                     ) -> tuple[Optional[bytearray], TransferReport]:
@@ -421,6 +504,18 @@ class MDTPClient:
 
         Raises :class:`TransferIncompleteError` if the surviving replicas
         could not deliver every byte — a short buffer never escapes.
+
+        ``tuner`` (default: the client's ``tuner``) re-tunes chunk
+        geometry mid-transfer: every ``tune_interval_bytes`` delivered
+        bytes the client snapshots live telemetry (per-replica estimator
+        values + measured RTTs, achieved window throughput) into a
+        ``repro_torch.core.online.Telemetry`` and adopts whatever ``ChunkParams``
+        the tuner returns — workers pick up the new geometry on their next
+        allocation.  The tuner runs in a thread-pool executor so its
+        (card-bound) sweep never stalls the event loop; at
+        most one update is in flight at a time.  Adopted params persist on
+        the client for subsequent transfers, and ``report.retunes`` counts
+        the adoptions.
 
         ``stripe=(k, n)`` rotates the fresh-byte frontier to start at
         ``size * k // n`` (wrapping) instead of 0.  In a swarm of ``n``
@@ -533,6 +628,15 @@ class MDTPClient:
 
         t0 = time.monotonic()
 
+        tuner = tuner if tuner is not None else self.tuner
+        retunes = 0
+        # telemetry cadence: a handful of updates per transfer by default,
+        # but never finer than a couple of large chunks' worth of signal
+        tune_every = tune_interval_bytes or max(
+            size // 8, 2 * sched.params.large_chunk)
+        tune_state = {"bytes": sched.done_bytes, "t": t0, "busy": False,
+                      "task": None}
+
         def _failed_names() -> list:
             """Retired replica names in retirement order, deduped — the
             report and the giving-up error are name-keyed while the
@@ -543,6 +647,54 @@ class MDTPClient:
                 if nm not in names:
                     names.append(nm)
             return names
+
+        def _telemetry_bandwidths() -> tuple:
+            """Full-fleet positional wire-rate vector for ``Telemetry``:
+            estimator values (already RTT-de-biased at observation time),
+            dead replicas zeroed in place."""
+            bad = set(_failed_names())
+            return tuple(
+                0.0 if r.name in bad else float(est[i].value)
+                for i, r in enumerate(self.replicas))
+
+        async def maybe_retune():
+            """Snapshot telemetry and let the tuner re-plan (at most one
+            update in flight — the trigger site claims the busy flag
+            BEFORE scheduling, so a second trigger can't race in between;
+            runs in an executor so the tuner's simulations don't
+            stall the event loop)."""
+            nonlocal retunes
+            try:
+                try:
+                    from repro_torch.core.online import Telemetry
+
+                    now = time.monotonic()
+                    window_bytes = sched.done_bytes - tune_state["bytes"]
+                    window_t = max(now - tune_state["t"], 1e-9)
+                    telemetry = Telemetry(
+                        bandwidth=_telemetry_bandwidths(),
+                        rtt=tuple(float(x) for x in sched.rtt_min),
+                        remaining_bytes=float(size - sched.done_bytes),
+                        measured_throughput=window_bytes / window_t,
+                        elapsed=now - t0,
+                    )
+                    loop = asyncio.get_running_loop()
+                    new = await loop.run_in_executor(None, tuner.update,
+                                                     telemetry)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    # a failing tuner path (a card that is not there, a
+                    # tuner bug) must never fail a transfer whose bytes
+                    # are flowing fine — keep the current geometry, carry on
+                    new = None
+                tune_state["bytes"] = sched.done_bytes
+                tune_state["t"] = time.monotonic()
+                if new is not None:
+                    sched.adopt_params(new)
+                    retunes += 1
+            finally:
+                tune_state["busy"] = False
 
         # -- endgame-hedging transport state ------------------------------
         #: start -> the connection streaming a duplicate of that range
@@ -874,6 +1026,19 @@ class MDTPClient:
                     # committed: journal the interval (buffered append;
                     # fsync at the journal's checkpoint interval)
                     journal.record(offset + start, ndata, crc)
+                if (tuner is not None and sched.done_bytes < size
+                        and not tune_state["busy"]
+                        and sched.done_bytes - tune_state["bytes"]
+                        >= tune_every):
+                    # fire-and-forget: the triggering lane keeps fetching
+                    # while the tuner (simulating on its device) runs in
+                    # the executor.  The busy flag is claimed HERE,
+                    # synchronously, so no second lane can schedule a
+                    # competing task (and overwrite the task ref the
+                    # end-of-fetch drain awaits) before this one starts.
+                    tune_state["busy"] = True
+                    tune_state["task"] = asyncio.ensure_future(
+                        maybe_retune())
 
         async def worker(i: int):
             """Per-replica supervisor: owns the connection, runs
@@ -996,6 +1161,9 @@ class MDTPClient:
             for t in workers:
                 t.cancel()
             await asyncio.gather(*workers, return_exceptions=True)
+            task = tune_state["task"]
+            if task is not None and not task.done():
+                task.cancel()
             if journal is not None:
                 journal.sync()
             raise
@@ -1009,6 +1177,19 @@ class MDTPClient:
                 with contextlib.suppress(asyncio.CancelledError):
                     await clock
         t_end = time.monotonic()
+        # settle an in-flight tuner update BEFORE any raise, so no task
+        # outlives the event loop: drain it on success (its adoption
+        # isn't lost; transfer time excludes it), cancel it on failure
+        task = tune_state["task"]
+        if task is not None and not task.done():
+            if sched.done_bytes == size:
+                await task
+            else:
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
         if journal is not None:
             # everything committed so far is durable before we either
             # report success or raise (an incomplete transfer's journal
@@ -1021,6 +1202,12 @@ class MDTPClient:
                 f"(failed replicas: {failed})",
                 done_bytes=sched.done_bytes, expected_bytes=size,
                 failed_replicas=failed)
+        if retunes > 0:
+            # adaptation persists: the next fetch starts from the tuned
+            # geometry instead of re-learning from the defaults.  Guarded
+            # on actual adoptions — a tuner that never fired must not pin
+            # this transfer's size-derived defaults onto future ones.
+            self._params_arg = sched.params
         # per-index scheduler counters fold into the report's name-keyed
         # dicts (duplicate names aggregate, as they always did)
         bytes_per = {r.name: 0 for r in self.replicas}
@@ -1036,6 +1223,7 @@ class MDTPClient:
             total_bytes=size, elapsed=t_end - t0,
             bytes_per_replica=bytes_per, requests_per_replica=reqs_per,
             failed_replicas=failed, refetched_ranges=sched.refetched,
+            retunes=retunes,
             observed_throughputs={
                 r.name: float(est[i].value)
                 for i, r in enumerate(self.replicas)

@@ -153,21 +153,6 @@ def test_jax_checkpoint_restores_into_port_decoder_over_mdtp(tmp_path):
                                    atol=1e-4, rtol=1e-4)
 
 
-def test_client_refuses_a_tuner():
-    """The port's client has no tuner hook yet: a tuner is refused, never
-    silently ignored."""
-    import asyncio
-
-    from repro_torch.transfer import MDTPClient
-
-    reps = [Replica("127.0.0.1", 1, "/x")]
-    with pytest.raises(TypeError, match="tuner"):
-        MDTPClient(reps, tuner=object())
-    with pytest.raises(TypeError, match="tuner"):
-        asyncio.run(MDTPClient(reps).fetch(10, tuner=object()))
-    assert not hasattr(MDTPClient, "retune")
-
-
 def test_streaming_restore_handles_split_overlapping_deliveries(tmp_path):
     """Leaves land on the device as soon as their bytes are complete,
     whatever order and overlap the ranges arrive in."""

@@ -1,0 +1,96 @@
+"""The port's copies of the framework-free modules stay copies.
+
+The port keeps its own copy of every JAX-free module it needs, with the
+imports rewritten (``repro.`` -> ``repro_torch.``).  Each copy's syntax
+tree, docstrings stripped, must equal the reference's; the reference is
+read as source text, never imported.  The copied simulator must also give
+the reference's results for each policy.
+"""
+
+import ast
+import dataclasses
+import os
+
+import pytest
+
+_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+_SRC = os.path.join(_ROOT, "src")
+
+COPIES = [
+    "core/chunking.py", "core/throughput.py", "core/simulator.py",
+    "core/mdtp.py", "core/static_chunking.py", "core/aria2.py",
+    "core/bittorrent.py", "core/scenarios.py",
+    "transfer/journal.py", "transfer/codec.py", "transfer/transport.py",
+    "transfer/server.py",
+    "transfer/sched/__init__.py", "transfer/sched/core.py",
+    "transfer/sched/defaults.py",
+]
+
+
+class _Normalize(ast.NodeTransformer):
+    """Drop docstrings; map ``repro`` imports onto ``repro_torch``."""
+
+    def _strip(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        return node
+
+    visit_Module = visit_ClassDef = _strip
+    visit_FunctionDef = visit_AsyncFunctionDef = _strip
+
+    def visit_ImportFrom(self, node):
+        if node.module and (node.module == "repro"
+                            or node.module.startswith("repro.")):
+            node.module = "repro_torch" + node.module[len("repro"):]
+        return node
+
+    def visit_Import(self, node):
+        for alias in node.names:
+            if alias.name == "repro" or alias.name.startswith("repro."):
+                alias.name = "repro_torch" + alias.name[len("repro"):]
+        return node
+
+
+def _tree(pkg: str, rel: str) -> str:
+    path = os.path.join(_SRC, pkg, rel)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    return ast.dump(_Normalize().visit(tree))
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_is_ast_equal_to_the_reference(rel):
+    assert _tree("repro_torch", rel) == _tree("repro", rel), (
+        f"src/repro_torch/{rel} no longer matches src/repro/{rel} "
+        f"(docstrings and the package name aside)")
+
+
+def test_normalizer_sees_a_changed_body():
+    """The comparison is not vacuous: a changed constant shows."""
+    a = ast.dump(_Normalize().visit(ast.parse('"""d"""\nx = 1\n')))
+    b = ast.dump(_Normalize().visit(ast.parse('"""e"""\nx = 2\n')))
+    c = ast.dump(_Normalize().visit(ast.parse('"""e"""\nx = 1\n')))
+    assert a != b and a == c
+
+
+@pytest.mark.parametrize("policy", ["MDTPPolicy", "StaticChunkingPolicy",
+                                    "Aria2Policy", "BitTorrentPolicy"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_copied_simulator_gives_the_reference_result(policy, seed):
+    import repro.core as ref
+    import repro.core.scenarios as ref_scen
+    import repro_torch.core as port
+    import repro_torch.core.scenarios as port_scen
+
+    size = 256 * 1024 * 1024
+    a = ref.simulate(getattr(ref, policy)(), ref_scen.paper_baseline(),
+                     size, seed=seed)
+    b = port.simulate(getattr(port, policy)(), port_scen.paper_baseline(),
+                      size, seed=seed)
+    a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+    assert a == b
+    assert b["total_time"] > 0 and sum(b["bytes_per_server"]) == size

@@ -332,3 +332,32 @@ def test_reduced_forward_kernels_match_plain_path(card, arch, S, dtype):
     assert (lk - lp).abs().max().item() <= 2 * floor
     assert torch.nn.functional.cosine_similarity(
         lk.flatten(), lp.flatten(), dim=0).item() > 0.999
+
+
+def test_sweep_on_the_card_matches_the_cpu(card):
+    """The paper's three fleets under the scenarios' jitter, swept on the
+    card and on the CPU: the draws are counter-based, so the two agree
+    lane for lane (same winners, times at rtol 1e-5)."""
+    import numpy as np
+
+    from repro_torch.core.autotune import autotune_batch, default_grid
+    from repro_torch.core.scenarios import (GB, paper_baseline,
+                                            with_added_latency,
+                                            with_throttled_fastest)
+
+    base = paper_baseline()
+    fleets = [base, with_added_latency(base), with_throttled_fastest(base)]
+    bw = np.asarray([[s.bandwidth for s in f] for f in fleets])
+    rtt = np.asarray([[s.rtt for s in f] for f in fleets])
+    tt = np.asarray([[s.profile[0][0] if s.profile else np.inf for s in f]
+                     for f in fleets])
+    tb = np.asarray([[s.profile[0][1] if s.profile else s.bandwidth
+                      for s in f] for f in fleets])
+    kw = dict(throttle_t=tt, throttle_bw=tb, jitter=0.02, n_seeds=4,
+              grid=default_grid())
+    on_card = autotune_batch(bw, rtt, 1 * GB, device=card, **kw)
+    on_cpu = autotune_batch(bw, rtt, 1 * GB, device="cpu", **kw)
+    for a, b in zip(on_card, on_cpu):
+        assert a.params == b.params
+        np.testing.assert_allclose(a.predicted_times, b.predicted_times,
+                                   rtol=1e-5)

@@ -176,3 +176,15 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         generate(tcfg, params, torch.zeros((1, 2), dtype=torch.long), 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         restore_checkpoint(str(tmp_path), params)
+
+
+@pytest.mark.parametrize("field,value", [("norm_custom_bwd", 1),
+                                         ("norm_mult_dtype", "compute")])
+def test_program_for_refuses_unported_norm_options(field, value):
+    """Norm options whose reference forward differs from the port's (the
+    custom-VJP rmsnorm multiplies in the compute dtype) raise instead of
+    being silently ignored."""
+    _, tcfg = _cfgs("float32")
+    TT.program_for(tcfg)
+    with pytest.raises(NotImplementedError, match=field):
+        TT.program_for(tcfg.replace(**{field: value}))

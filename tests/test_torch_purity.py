@@ -41,7 +41,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.kernels.decode_attention.ops" in mods
     for name in ("repro_torch.models.ssm", "repro_torch.configs.zamba2_7b",
                  "repro_torch.kernels.flash_attention.ops",
-                 "repro_torch.kernels.ssm_scan.ops"):
+                 "repro_torch.kernels.ssm_scan.ops",
+                 "repro_torch.core.simulator", "repro_torch.core.mdtp",
+                 "repro_torch.core.static_chunking", "repro_torch.core.aria2",
+                 "repro_torch.core.bittorrent", "repro_torch.core.scenarios",
+                 "repro_torch.core.torch_alloc", "repro_torch.core.torch_sim",
+                 "repro_torch.core.autotune", "repro_torch.core.online"):
         assert name in mods
     code = (
         "import sys\n"
