@@ -41,6 +41,22 @@ Phases (one JSON line each, ``"phase"`` names them):
    ``GridTuner`` on the card re-planning (C, L) from live telemetry
    (``restore_checkpoint(..., tuner=)``), bit-exact again, with at least
    one adopted geometry, beside the same tuner update timed alone.
+   Then the same checkpoint through every tail option of
+   ``restore_checkpoint``, every leaf bit-exact: ``restore_waves`` (four
+   waves through a ``TransferManager``, the between-wave grid ``retune``
+   on the card adopting a geometry at least once, the slowest mirror
+   killed); ``restore_resume`` (a crash-resumable restore whose mirrors
+   all stop at 40% of the blob must raise; over fresh mirrors it then
+   fetches at most what its journal lacks, plus the manifest and one
+   large chunk per range in flight, and retires journal and spool);
+   ``restore_sharded_fetch`` (``fetch_sharded`` over K = 2 host sinks,
+   host 0's origins at 1/4 of host 1's, stealing on: a steal from host
+   0, every span byte-exact) and ``restore_sharded``
+   (``shard_plan=(h, 2)`` for both hosts: disjoint leaves, together
+   complete); ``restore_broadcast`` (two restores in two threads, B
+   listing A's ``PeerMirror``: the peer served bytes, B's origins less
+   than the blob); ``checkpoint_manager`` (``CheckpointManager`` saves
+   the card's tree twice with keep 1; the kept step restores from disk).
 6. ``serve``: ``generate`` with the restored weights (4 requests, 16 prompt
    + 32 generated tokens, greedy), its kernel launch counts held to the
    exact per-step counts, then four teacher-forced steps of the kernel
@@ -861,58 +877,87 @@ def geometry_phase(torch, dev):
 
 # ------------------------------------------------------------------ restore
 
+class MirrorFleet:
+    """Throttled loopback mirrors of the checkpoint at ``d`` (under
+    ``/ckpt``), one per rate; with ``kill_at`` the first (slowest) one is
+    stopped, its connections killed, once it has served that many bytes.
+    A context manager: every server and the watcher stop on exit."""
+
+    def __init__(self, d: str, rates=None, kill_at=None):
+        from repro_torch.transfer import RangeServer, Replica, Throttle
+
+        rates = rates or (MIRROR_RATE, 2 * MIRROR_RATE, 4 * MIRROR_RATE)
+        self.rates = list(rates)
+        self.servers = []
+        self.killed_at = []
+        self._done = threading.Event()
+        self._watcher = None
+        t0 = time.perf_counter()
+        try:
+            for rate in self.rates:
+                s = RangeServer(throttle=Throttle(bytes_per_s=rate, chunk=MB,
+                                                  shared=True)).start()
+                self.servers.append(s)
+                for name in ("manifest.json", "data.bin"):
+                    s.add_file(f"/ckpt/step_0000000001/{name}",
+                               os.path.join(d, name))
+        except BaseException:
+            self.stop()
+            raise
+        self.mount_s = time.perf_counter() - t0
+        self.replicas = [Replica("127.0.0.1", s.port, "/ckpt")
+                         for s in self.servers]
+        self.t0 = time.perf_counter()
+        if kill_at is not None:
+            self._watcher = threading.Thread(target=self._kill_when_due,
+                                             args=(kill_at,))
+            self._watcher.start()
+
+    def _kill_when_due(self, kill_at: int) -> None:
+        victim = self.servers[0]
+        while not self._done.wait(0.005):
+            if victim.served_bytes >= kill_at:
+                self.killed_at.append(time.perf_counter() - self.t0)
+                victim.stop()
+                victim.kill_connections()
+                return
+
+    @property
+    def served(self) -> list:
+        return [s.served_bytes for s in self.servers]
+
+    def stop(self) -> None:
+        self._done.set()
+        if self._watcher is not None:
+            self._watcher.join()
+        for s in self.servers:      # stopping a killed mirror again is a no-op
+            s.stop()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
 def mirrored_restore(torch, cfg, dev, root: str, d: str, tuner=None):
     """Restore the checkpoint at ``d`` over three throttled loopback mirrors
     (MIRROR_RATE x 1, 2, 4), the slowest killed once it has served
     KILL_AT_BYTES.  Returns the tree and a dict of the run's numbers."""
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.models.transformer import model_specs
-    from repro_torch.transfer import RangeServer, Replica, Throttle
 
-    servers = []
-    try:
-        t0 = time.perf_counter()
-        for rate in (MIRROR_RATE, 2 * MIRROR_RATE, 4 * MIRROR_RATE):
-            s = RangeServer(throttle=Throttle(bytes_per_s=rate, chunk=MB,
-                                              shared=True)).start()
-            servers.append(s)
-            for name in ("manifest.json", "data.bin"):
-                s.add_file(f"/ckpt/step_0000000001/{name}",
-                           os.path.join(d, name))
-        mount_s = time.perf_counter() - t0
-        victim = servers[0]
-        done = threading.Event()
-        killed_at = []
-
-        def kill_when_due():
-            while not done.wait(0.005):
-                if victim.served_bytes >= KILL_AT_BYTES:
-                    killed_at.append(time.perf_counter() - t0)
-                    victim.stop()
-                    victim.kill_connections()
-                    return
-
-        replicas = [Replica("127.0.0.1", s.port, "/ckpt") for s in servers]
-        killer = threading.Thread(target=kill_when_due)
-        t0 = time.perf_counter()
-        killer.start()
-        try:
-            restored, _ = restore_checkpoint(root, model_specs(cfg), step=1,
-                                             replicas=replicas, tuner=tuner,
-                                             device=dev)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        finally:
-            done.set()
-            killer.join()
-        served = [s.served_bytes for s in servers]
-    finally:
-        for s in servers:       # stopping the killed mirror again is a no-op
-            s.stop()
-    return restored, {"restore_s": seconds, "mount_s": mount_s,
-                      "served_bytes_per_mirror": served,
-                      "killed_after_s": killed_at[0] if killed_at else None,
-                      "killed_served": victim.served_bytes}
+    with MirrorFleet(d, kill_at=KILL_AT_BYTES) as fleet:
+        restored, _ = restore_checkpoint(root, model_specs(cfg), step=1,
+                                         replicas=fleet.replicas, tuner=tuner,
+                                         device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - fleet.t0
+    return restored, {"restore_s": seconds, "mount_s": fleet.mount_s,
+                      "served_bytes_per_mirror": fleet.served,
+                      "killed_after_s": (fleet.killed_at[0]
+                                         if fleet.killed_at else None),
+                      "killed_served": fleet.servers[0].served_bytes}
 
 
 def check_bit_exact(torch, want: dict, tree, what: str) -> int:
@@ -922,7 +967,7 @@ def check_bit_exact(torch, want: dict, tree, what: str) -> int:
     check(sorted(want) == sorted(got), f"{what}: keys differ from saved")
     for key, t in want.items():
         r = got[key]
-        check(r.device.type == "cuda", f"{what}: {key} on {r.device}")
+        check(r.device == t.device, f"{what}: {key} on {r.device}")
         check(r.dtype == t.dtype and r.shape == t.shape and torch.equal(r, t),
               f"{what}: leaf {key} is not bit-exact")
     return len(got)
@@ -1013,11 +1058,397 @@ def restore_phase(torch, cfg, dev):
              telemetry_bw_mib_s=[b / MB for b in tuner.seen[0].bandwidth],
              served_bytes_per_mirror=run_t["served_bytes_per_mirror"],
              killed_after_s=run_t["killed_after_s"], bit_exact=True)
+        restore_options_phase(torch, cfg, dev, tmp, d, want, total, restored)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del want
     torch.cuda.empty_cache()
     return restored
+
+
+# ------------------------------------------------- restore options
+
+def host_free_gib() -> float:
+    """MemAvailable of the host, GiB (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 2**30
+    return float("nan")
+
+
+def same_bytes(torch, view, start: int, end: int, path: str) -> bool:
+    """``view[start:end]`` equals the same span of the file at ``path``,
+    compared 256 MiB at a time."""
+    step = 256 * MB
+    buf = bytearray(min(step, max(end - start, 0)))
+    with open(path, "rb") as f:
+        f.seek(start)
+        pos = start
+        while pos < end:
+            n = min(step, end - pos)
+            got = f.readinto(memoryview(buf)[:n])
+            if got != n:
+                return False
+            a = torch.frombuffer(view, dtype=torch.uint8, count=n, offset=pos)
+            b = torch.frombuffer(buf, dtype=torch.uint8, count=n)
+            if not torch.equal(a, b):
+                return False
+            del a, b
+            pos += n
+    return True
+
+
+def restore_waves_phase(torch, cfg, dev, root, d, want, total):
+    """Through a TransferManager fleet with no tuner of its own, in four
+    waves, the slowest mirror killed: the between-wave grid ``retune``
+    runs on the card."""
+    import contextlib
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core.chunking import default_chunk_params
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.transfer import TransferManager
+
+    waves, retunes = [], []
+
+    def c_l(p):
+        return [p.initial_chunk / MB, p.large_chunk / MB]
+
+    def log_client(c):
+        fetch0, retune0 = c.fetch, c.retune
+
+        async def fetch(size, **kw):
+            waves.append({"bytes": size, "c_l_mib": c_l(
+                c._params_arg or default_chunk_params(size))})
+            t0 = time.perf_counter()
+            out = await fetch0(size, **kw)
+            waves[-1]["s"] = time.perf_counter() - t0
+            return out
+
+        def retune(size, **kw):
+            t0 = time.perf_counter()
+            before = c._params_arg
+            try:
+                res = retune0(size, **kw)
+            except Exception as e:
+                retunes.append({"s": time.perf_counter() - t0,
+                                "error": type(e).__name__})
+                raise
+            retunes.append({"s": time.perf_counter() - t0,
+                            "c_l_mib": c_l(res.params),
+                            "changed": res.params != before})
+            return res
+
+        c.fetch, c.retune = fetch, retune
+
+    class LoggedManager(TransferManager):
+        """Logs the blob client's waves and between-wave retunes."""
+
+        @contextlib.asynccontextmanager
+        async def session(self, replicas=None, path=None, **kw):
+            async with super().session(replicas=replicas, path=path,
+                                       **kw) as c:
+                if c.replicas[0].path.endswith("data.bin"):
+                    log_client(c)
+                yield c
+
+    wave = -(-total // 4)
+    with MirrorFleet(d, kill_at=KILL_AT_BYTES) as fleet:
+        mgr = LoggedManager(fleet.replicas)
+        tree, _ = restore_checkpoint(root, model_specs(cfg), step=1,
+                                     replicas=fleet.replicas, manager=mgr,
+                                     wave_bytes=wave, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - fleet.t0
+    leaves = check_bit_exact(torch, want, tree, "restore_waves")
+    del tree
+    torch.cuda.empty_cache()
+    adopted = [r for r in retunes if "error" not in r]
+    check(len(waves) == 4, f"restore_waves: {len(waves)} waves, not 4")
+    check(len(adopted) >= 1,
+          "restore_waves: no between-wave retune adopted a geometry")
+    check(bool(fleet.killed_at), "restore_waves: the slowest mirror was "
+          "never killed mid-restore")
+    emit("restore_waves", restore_s=seconds, gb_per_s=total / seconds / 1e9,
+         wave_bytes=wave, waves=waves, retunes=retunes,
+         retunes_adopted=len(adopted),
+         served_bytes_per_mirror=fleet.served,
+         killed_after_s=fleet.killed_at[0],
+         capacity_mib_s={name: st["capacity"] / MB
+                         for name, st in mgr.snapshot().items()},
+         leaves=leaves, bit_exact=True)
+
+
+def restore_resume_phase(torch, cfg, dev, root, d, want, total):
+    """A crash-resumable restore whose mirrors all stop at ~40% of the
+    blob must raise; a second run over fresh mirrors fetches only what the
+    journal lacks, and retires the journal and the spool."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core.chunking import default_chunk_params
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.transfer import (MDTPClient, ResumeJournal,
+                                      TransferIncompleteError)
+
+    scratch = tempfile.mkdtemp(prefix="resume_", dir=root)
+    jpath = os.path.join(scratch, "journal.log")
+    spool = os.path.join(scratch, "data.spool")
+    stop_at = int(0.4 * total)
+    with MirrorFleet(d) as fleet:
+        done = threading.Event()
+        stopped = []
+
+        def stop_all():
+            while not done.wait(0.005):
+                if sum(fleet.served) >= stop_at:
+                    stopped.append(time.perf_counter() - fleet.t0)
+                    for s in fleet.servers:
+                        s.stop()
+                        s.kill_connections()
+                    return
+
+        watcher = threading.Thread(target=stop_all)
+        watcher.start()
+        err = None
+        try:
+            restore_checkpoint(root, model_specs(cfg), step=1,
+                               replicas=fleet.replicas, resume=scratch,
+                               device=dev)
+        except (TransferIncompleteError, OSError) as e:
+            err = e
+        finally:
+            done.set()
+            watcher.join()
+        first_s = time.perf_counter() - fleet.t0
+        first_served = fleet.served
+    check(err is not None and bool(stopped), "restore_resume: the first run "
+          "did not fail when every mirror stopped")
+    spool_bytes = os.path.getsize(spool)
+    jr = ResumeJournal.open(jpath, total_bytes=total, meta={"step": 1})
+    journaled = sum(n for _, n in jr.covered())
+    jr.close()
+    check(0 < journaled < total, f"restore_resume: {journaled} bytes "
+          f"journaled of {total}")
+
+    with MirrorFleet(d) as fleet:
+        tree, _ = restore_checkpoint(root, model_specs(cfg), step=1,
+                                     replicas=fleet.replicas, resume=scratch,
+                                     device=dev)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - fleet.t0
+        second_served = fleet.served
+        depth = MDTPClient(fleet.replicas).pipeline_depth
+    leaves = check_bit_exact(torch, want, tree, "restore_resume")
+    del tree
+    torch.cuda.empty_cache()
+    # slack: one large chunk per range in flight when the mirrors stopped
+    # (3 mirrors x the pipeline depth), plus the manifest, fetched again
+    manifest_bytes = os.path.getsize(os.path.join(d, "manifest.json"))
+    chunk = default_chunk_params(total).large_chunk
+    slack = len(fleet.servers) * depth * chunk + manifest_bytes
+    bound = total - journaled + slack
+    check(sum(second_served) <= bound, f"restore_resume: the second run "
+          f"fetched {sum(second_served)} bytes, above {bound}")
+    check(not os.path.exists(jpath) and not os.path.exists(spool),
+          "restore_resume: the journal or the spool outlived the restore")
+    shutil.rmtree(scratch, ignore_errors=True)
+    emit("restore_resume", stop_at_bytes=stop_at, stopped_after_s=stopped[0],
+         first_error=type(err).__name__, first_s=first_s,
+         first_served_bytes=sum(first_served), journaled_bytes=journaled,
+         spool_bytes=spool_bytes, second_s=second_s,
+         second_served_bytes=sum(second_served),
+         second_bound_bytes=bound, slack_bytes=slack,
+         slack="3 mirrors x pipeline depth %d x %d MiB + manifest"
+               % (depth, chunk // MB),
+         leaves=leaves, bit_exact=True, scratch_retired=True)
+
+
+def restore_sharded_phase(torch, cfg, dev, root, d, want, total):
+    """Part 1: ``fetch_sharded`` over K = 2 host sinks, host 0's origins at
+    1/4 of host 1's rates, stealing on.  Part 2: ``restore_checkpoint(
+    shard_plan=(h, 2))`` for both hosts onto the card."""
+    import asyncio
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.transfer import (PeerMirror, Replica, Throttle,
+                                      fetch_sharded, plan_shards)
+    from repro_torch.transfer.shard import manifest_boundaries
+
+    free_gib = host_free_gib()
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    plan = plan_shards(total, 2, manifest_boundaries(manifest))
+    blob = os.path.join(d, "data.bin")
+    rates = [MIRROR_RATE * k for k in (1, 2, 4)]
+    with MirrorFleet(d, rates=[r // 4 for r in rates]) as slow, \
+            MirrorFleet(d, rates=rates) as fast:
+        origins = [[Replica(r.host, r.port, "/ckpt/step_0000000001/data.bin")
+                    for r in fleet.replicas] for fleet in (slow, fast)]
+        peers = [PeerMirror(path=f"/shard{h}", throttle=Throttle(
+            bytes_per_s=4 * MIRROR_RATE, chunk=MB, shared=True))
+            for h in range(2)]
+        try:
+            t0 = time.perf_counter()
+            res = asyncio.run(fetch_sharded(total, plan, origins,
+                                            mirrors=peers))
+            seconds = time.perf_counter() - t0
+            peer_served = [m.served_bytes for m in peers]
+        finally:
+            for m in peers:
+                m.stop()
+        origin_served = [slow.served, fast.served]
+    for h, (s, e) in enumerate(plan.spans):
+        check(same_bytes(torch, res.sinks[h].view, s, e, blob),
+              f"restore_sharded: host {h}'s span is not data.bin's")
+    for st in res.steals:
+        check(same_bytes(torch, res.sinks[st.thief].view, st.start, st.end,
+                         blob), "restore_sharded: a stolen span differs")
+    check(len(res.steals) > 0 and res.stolen_bytes > 0,
+          "restore_sharded: the fast host stole nothing from the slow one")
+    check(all(st.victim == 0 and st.thief == 1 for st in res.steals),
+          "restore_sharded: a steal did not rob the throttled host")
+    del res.sinks[:]
+    emit("restore_sharded_fetch", hosts=2, spans=[list(sp) for sp in
+                                                  plan.spans],
+         host_free_gib_before=free_gib, seconds=seconds,
+         elapsed_s_per_host=res.elapsed, steals=len(res.steals),
+         stolen_bytes=res.stolen_bytes,
+         stolen_bytes_per_host=res.stolen_bytes_per_host,
+         peer_served_bytes=peer_served,
+         origin_served_bytes_per_host=[sum(o) for o in origin_served],
+         origin_rates_mib_s=[[r / 4 / MB for r in rates],
+                             [r / MB for r in rates]],
+         spans_bit_exact=True)
+
+    specs = model_specs(cfg)
+    got, secs = [], []
+    for h in range(2):
+        with MirrorFleet(d) as fleet:
+            tree, _ = restore_checkpoint(root, specs, step=1,
+                                         replicas=fleet.replicas,
+                                         shard_plan=(h, 2), device=dev)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - fleet.t0)
+        got.append(dict(tree_leaves(tree)))     # None leaves are skipped
+        del tree
+    keys = [set(g) for g in got]
+    check(not keys[0] & keys[1], "restore_sharded: the hosts' leaves overlap")
+    check(keys[0] | keys[1] == set(want),
+          "restore_sharded: the two hosts together miss leaves")
+    for h in range(2):
+        for key, t in got[h].items():
+            check(t.device == want[key].device and torch.equal(t, want[key]),
+                  f"restore_sharded: host {h}'s leaf {key} is not bit-exact")
+    nbytes = [sum(t.numel() * t.element_size() for t in g.values())
+              for g in got]
+    del got
+    torch.cuda.empty_cache()
+    emit("restore_sharded", hosts=2, restore_s_per_host=secs,
+         leaves_per_host=[len(k) for k in keys], bytes_per_host=nbytes,
+         disjoint=True, complete=True, bit_exact=True)
+
+
+def restore_broadcast_phase(torch, cfg, dev, root, d, want, total):
+    """Two restores at once, in two threads: A serves its landed ranges
+    through a PeerMirror, B lists A's mirror beside its own origins."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.transfer import PeerMirror, Throttle
+
+    specs = model_specs(cfg)
+    out, errors = {}, {}
+
+    def run(name, replicas, **kw):
+        try:
+            t0 = time.perf_counter()
+            tree, _ = restore_checkpoint(root, specs, step=1,
+                                         replicas=replicas, device=dev, **kw)
+            torch.cuda.synchronize()
+            out[name] = (tree, time.perf_counter() - t0)
+        except BaseException as e:       # re-raised below, in the caller
+            errors[name] = e
+
+    mirror = PeerMirror(throttle=Throttle(bytes_per_s=4 * MIRROR_RATE,
+                                          chunk=MB, shared=True)).start()
+    try:
+        with MirrorFleet(d) as fleet_a, MirrorFleet(d) as fleet_b:
+            ta = threading.Thread(target=run, args=("a", fleet_a.replicas),
+                                  kwargs={"mirror": mirror})
+            ta.start()
+            # B starts once A has landed an eighth of the blob to offer
+            deadline = time.perf_counter() + 120
+            while (ta.is_alive() and time.perf_counter() < deadline
+                   and (not mirror.bound or sum(fleet_a.served) < total // 8)):
+                time.sleep(0.01)
+            b_delay = time.perf_counter() - fleet_a.t0
+            tb = threading.Thread(target=run, args=(
+                "b", fleet_b.replicas + [mirror.replica]))
+            tb.start()
+            ta.join()
+            tb.join()
+            served_a, served_b = fleet_a.served, fleet_b.served
+        peer_served = mirror.served_bytes
+    finally:
+        mirror.stop()
+    for name, e in errors.items():
+        raise CheckFailed(f"restore_broadcast: restore {name} raised "
+                          f"{type(e).__name__}: {e}") from e
+    leaves = check_bit_exact(torch, want, out["a"][0], "restore_broadcast A")
+    check_bit_exact(torch, want, out["b"][0], "restore_broadcast B")
+    secs = {k: v[1] for k, v in out.items()}
+    out.clear()
+    torch.cuda.empty_cache()
+    check(peer_served > 0, "restore_broadcast: A's mirror served nothing")
+    check(sum(served_b) < total, "restore_broadcast: B took the whole blob "
+          "from its origins")
+    emit("restore_broadcast", a_restore_s=secs["a"], b_restore_s=secs["b"],
+         b_started_after_s=b_delay, a_origin_served_bytes=served_a,
+         b_origin_served_bytes=served_b, a_mirror_served_bytes=peer_served,
+         b_origin_share=sum(served_b) / total, leaves=leaves, bit_exact=True)
+
+
+def checkpoint_manager_phase(torch, cfg, dev, root, tree, want):
+    """``CheckpointManager(every_steps=1, keep=1, async_save=True)`` saves
+    the card-resident tree twice; GC keeps the last step, which restores
+    bit-exact from the local disk."""
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.models.transformer import model_specs
+
+    mroot = tempfile.mkdtemp(prefix="manager_", dir=root)
+    mgr = CheckpointManager(mroot, every_steps=1, keep=1, async_save=True)
+    snapshot_s, save_s = [], []
+    for step in (1, 2):
+        t0 = time.perf_counter()
+        check(mgr.maybe_save(step, tree), "checkpoint_manager: no save")
+        snapshot_s.append(time.perf_counter() - t0)
+        mgr.wait()
+        save_s.append(time.perf_counter() - t0)
+    kept = sorted(os.listdir(mroot))
+    check(kept == ["step_0000000002"],
+          f"checkpoint_manager: GC kept {kept}")
+    t0 = time.perf_counter()
+    back, step = restore_checkpoint(mroot, model_specs(cfg), device=dev)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    check(step == 2, f"checkpoint_manager: restored step {step}")
+    leaves = check_bit_exact(torch, want, back, "checkpoint_manager")
+    del back
+    torch.cuda.empty_cache()
+    shutil.rmtree(mroot, ignore_errors=True)
+    emit("checkpoint_manager", every_steps=1, keep=1, async_save=True,
+         snapshot_s=snapshot_s, save_s=save_s, kept=kept,
+         local_restore_s=local_s, leaves=leaves, bit_exact=True)
+
+
+def restore_options_phase(torch, cfg, dev, root, d, want, total, tree):
+    """Every tail option of ``restore_checkpoint`` at full size."""
+    restore_waves_phase(torch, cfg, dev, root, d, want, total)
+    restore_resume_phase(torch, cfg, dev, root, d, want, total)
+    restore_sharded_phase(torch, cfg, dev, root, d, want, total)
+    restore_broadcast_phase(torch, cfg, dev, root, d, want, total)
+    checkpoint_manager_phase(torch, cfg, dev, root, tree, want)
 
 
 # ------------------------------------------------------------------ serve

@@ -67,7 +67,9 @@ from repro_torch.core.chunking import ChunkParams, default_chunk_params
 from repro_torch.core.throughput import make_estimator, rtt_corrected_bandwidth
 from repro_torch.transfer.journal import merge_intervals
 from repro_torch.transfer.sched import ChunkScheduler, defaults as sched_defaults
-from repro_torch.transfer.transport import _Conn, _crc32_async
+# _Conn/_RangeReply re-exported here: the data pipeline and the fleet
+# manager import them from this module (their historical home)
+from repro_torch.transfer.transport import _Conn, _RangeReply, _crc32_async
 
 __all__ = ["Replica", "ClientOptions", "TransferReport", "MDTPClient",
            "NoTelemetryError", "TransferIncompleteError", "fetch_blob",

@@ -5,6 +5,12 @@ imports rewritten (``repro.`` -> ``repro_torch.``).  Each copy's syntax
 tree, docstrings stripped, must equal the reference's; the reference is
 read as source text, never imported.  The copied simulator must also give
 the reference's results for each policy.
+
+One exception, named in ``LEFT_OUT``: the port's ``transfer/shard.py``
+leaves out the reference's ``plan_for_ctx`` (it reads the JAX package's
+sharding context and ``jax.process_index()``, and waits for the port's
+``distributed.context``).  The function and its ``__all__`` entry are
+removed from both trees before they are compared.
 """
 
 import ast
@@ -24,11 +30,36 @@ COPIES = [
     "transfer/server.py",
     "transfer/sched/__init__.py", "transfer/sched/core.py",
     "transfer/sched/defaults.py",
+    "transfer/sink.py", "transfer/mirror.py", "transfer/manager.py",
+    "transfer/shard.py",
+    "data/pipeline.py", "data/__init__.py",
 ]
+
+#: module -> top-level names the port leaves out of its copy
+LEFT_OUT = {"transfer/shard.py": {"plan_for_ctx"}}
 
 
 class _Normalize(ast.NodeTransformer):
-    """Drop docstrings; map ``repro`` imports onto ``repro_torch``."""
+    """Drop docstrings; map ``repro`` imports onto ``repro_torch``; drop
+    the top-level functions named in ``left_out`` and their ``__all__``
+    entries."""
+
+    def __init__(self, left_out=()):
+        self.left_out = set(left_out)
+
+    def visit_Module(self, node):
+        node.body = [n for n in node.body
+                     if not (isinstance(n, ast.FunctionDef)
+                             and n.name in self.left_out)]
+        for n in node.body:
+            if (isinstance(n, ast.Assign) and len(n.targets) == 1
+                    and isinstance(n.targets[0], ast.Name)
+                    and n.targets[0].id == "__all__"
+                    and isinstance(n.value, ast.List)):
+                n.value.elts = [e for e in n.value.elts
+                                if not (isinstance(e, ast.Constant)
+                                        and e.value in self.left_out)]
+        return self._strip(node)
 
     def _strip(self, node):
         self.generic_visit(node)
@@ -39,7 +70,7 @@ class _Normalize(ast.NodeTransformer):
             node.body = body[1:] or [ast.Pass()]
         return node
 
-    visit_Module = visit_ClassDef = _strip
+    visit_ClassDef = _strip
     visit_FunctionDef = visit_AsyncFunctionDef = _strip
 
     def visit_ImportFrom(self, node):
@@ -59,7 +90,7 @@ def _tree(pkg: str, rel: str) -> str:
     path = os.path.join(_SRC, pkg, rel)
     with open(path) as f:
         tree = ast.parse(f.read(), path)
-    return ast.dump(_Normalize().visit(tree))
+    return ast.dump(_Normalize(LEFT_OUT.get(rel, ())).visit(tree))
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -75,6 +106,25 @@ def test_normalizer_sees_a_changed_body():
     b = ast.dump(_Normalize().visit(ast.parse('"""e"""\nx = 2\n')))
     c = ast.dump(_Normalize().visit(ast.parse('"""e"""\nx = 1\n')))
     assert a != b and a == c
+
+
+def test_left_out_is_only_what_the_port_omits():
+    """The shard exception is narrow: the reference really has
+    ``plan_for_ctx`` (dropping it changes its tree), the port has no such
+    name, and a left-out name drops nothing else."""
+    import repro_torch.transfer.shard as port_shard
+
+    rel = "transfer/shard.py"
+    path = os.path.join(_SRC, "repro", rel)
+    src = open(path).read()
+    whole = ast.dump(_Normalize().visit(ast.parse(src)))
+    assert whole != _tree("repro", rel)
+    assert not hasattr(port_shard, "plan_for_ctx")
+    assert "plan_for_ctx" not in port_shard.__all__
+    code = 'def f():\n    pass\ndef g():\n    pass\n__all__ = ["f", "g"]\n'
+    kept = _Normalize({"f"}).visit(ast.parse(code))
+    assert [n.name for n in kept.body[:-1]] == ["g"]
+    assert [e.value for e in kept.body[-1].value.elts] == ["g"]
 
 
 @pytest.mark.parametrize("policy", ["MDTPPolicy", "StaticChunkingPolicy",

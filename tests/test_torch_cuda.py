@@ -361,3 +361,49 @@ def test_sweep_on_the_card_matches_the_cpu(card):
         assert a.params == b.params
         np.testing.assert_allclose(a.predicted_times, b.predicted_times,
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("spool", [False, True])
+def test_streaming_restore_pins_and_copies_off_the_loop(card, tmp_path,
+                                                        spool):
+    """In memory, the restore lands in page-locked memory; with a spool,
+    each leaf is copied off the map first.  Either way each leaf's copy is
+    queued on the restore's own stream, ``finish`` returns only landed
+    tensors, bit-exact on the card, and ``close`` unmaps the spool."""
+    import json
+    import os
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.checkpoint.manager import _StreamingRestore
+
+    g = torch.Generator().manual_seed(0)
+    state = {"w": torch.randn((1024, 1024), generator=g),
+             "e": torch.randn((301, 129), generator=g).to(torch.bfloat16),
+             "s": torch.tensor(3, dtype=torch.int32)}
+    d = save_checkpoint(str(tmp_path), 1, state)
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    with open(os.path.join(d, "data.bin"), "rb") as f:
+        blob = f.read()
+    stream = _StreamingRestore(
+        manifest, state, card,
+        spool_path=str(tmp_path / "spool") if spool else None)
+    assert stream._stream is not None
+    assert stream._stream != torch.cuda.current_stream(card)
+    assert (stream._host is None) == spool
+    if not spool:
+        assert stream._host.is_pinned()
+    mm = stream._mmap
+    stream.sink(0, blob)
+    out = stream.finish()
+    assert stream._stream.query()           # nothing handed back in flight
+    stream.close()
+    assert stream._mmap is None
+    if spool:
+        assert mm.closed
+    for k, t in state.items():
+        assert out[k].device.type == "cuda"
+        assert out[k].dtype == t.dtype and torch.equal(out[k].cpu(), t), k
+    local, _ = restore_checkpoint(str(tmp_path), state, device=card)
+    for k, t in state.items():
+        assert torch.equal(local[k].cpu(), t), k

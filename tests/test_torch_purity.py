@@ -46,7 +46,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.core.static_chunking", "repro_torch.core.aria2",
                  "repro_torch.core.bittorrent", "repro_torch.core.scenarios",
                  "repro_torch.core.torch_alloc", "repro_torch.core.torch_sim",
-                 "repro_torch.core.autotune", "repro_torch.core.online"):
+                 "repro_torch.core.autotune", "repro_torch.core.online",
+                 "repro_torch.transfer.sink", "repro_torch.transfer.mirror",
+                 "repro_torch.transfer.shard", "repro_torch.transfer.manager",
+                 "repro_torch.data", "repro_torch.data.pipeline"):
         assert name in mods
     code = (
         "import sys\n"
