@@ -18,7 +18,11 @@ Phases (one JSON line each, ``"phase"`` names them):
    error beside tolerance), then timed with CUDA events beside its plain
    version, one library call (where one exists) and its bound; rmsnorm
    also at the prefills' shapes, ssm_scan also launch by launch
-   (``torch.profiler``).
+   (``torch.profiler``).  The dense family's instances too: flash and
+   decode attention at hd 256 (gemma3-1b, with and without its window of
+   512), decode at G 5 and G 6 (qwen2.5-14b, nemotron-4-15b), rmsnorm at d
+   1152 (rows instance), 5120 and 6144 (loop path), each timed with its
+   ``ptxas`` lines.
 4. ``geometry_*``: the chunk-geometry loop on the card
    (``repro_torch.core``).  ``geometry_sweep`` / ``geometry_winners``: the
    paper's sweep at its real size, ``sweep_scenarios`` over the six-replica
@@ -58,11 +62,15 @@ Phases (one JSON line each, ``"phase"`` names them):
    than the blob); ``checkpoint_manager`` (``CheckpointManager`` saves
    the card's tree twice with keep 1; the kept step restores from disk).
 6. ``serve``: ``generate`` with the restored weights (4 requests, 16 prompt
-   + 32 generated tokens, greedy), its kernel launch counts held to the
-   exact per-step counts, then four teacher-forced steps of the kernel
-   path against the plain path on the card.
-7. ``profile``: device time by kernel over four decode steps
-   (``torch.profiler``) beside the unprofiled step time.
+   + 32 generated tokens, greedy), every step a replay of the captured
+   step (``serve.step.CapturedServeStep``): the launches captured per step
+   held exact, one replay per position; then four teacher-forced steps of
+   the kernel path against the plain path on the card.
+7. ``dense_graph`` / ``profile``: the same ``generate`` with the step run
+   eagerly: tokens identical, the captured step's teacher-forced logits
+   within 1e-3 of the eager step's, ms per step of both, the replays'
+   kernels counted by name in a profile and each path's device idle
+   share (``profile``: the eager step's device time by kernel).
 8. ``prefill``: qwen3-1.7b's full-sequence prefill (``make_prefill_step``)
    on the restored weights at B 4, S 2048: 28 flash_attention and 113
    rmsnorm launches per forward, exactly; the kernel path against the
@@ -73,7 +81,29 @@ Phases (one JSON line each, ``"phase"`` names them):
    flash_attention, 81 ssm_scan, 108 rmsnorm launches per forward), held
    against the plain path; then ``generate`` at B 2, 16 + 16 tokens (13
    decode_attention launches per step), four teacher-forced steps held
-   against the plain path, and a decode profile.
+   against the plain path, and the captured step against the eager one
+   (``dense_graph``).
+10. ``gemma3_prefill`` / ``gemma3_generate`` / ``gemma3_long_decode``:
+   gemma3-1b at full width and depth (5:1 local / global, hd 256, window
+   512), random weights on the card: prefill at B 1 x S 8192 (26
+   flash_attention and 105 rmsnorm launches per forward; the reference's
+   ``prefill_32k`` cut to 8192: the forward materialises [B, S, 262144]
+   logits), held against the plain path at bf16 and f32; the captured
+   ``generate`` at B 4, 600 + 32 tokens (26 decode_attention and 105
+   rmsnorm launches per replay), four teacher-forced kernel-vs-plain steps
+   from position 600, past the window; one captured step against a
+   32768-key cache of random K / V at pos 32760 (the reference's
+   ``decode_32k`` with its batch cut from 128 to 8), timed and held
+   against the plain path.
+11. ``dense_large_prefill`` / ``dense_large_generate``: qwen2.5-14b, then
+   nemotron-4-15b, at full width and depth (29.54 and 31.26 GB of bf16
+   weights drawn on the card): prefill at B 1 x S 4096 (L flash_attention,
+   2 L + 1 rmsnorm launches per forward), held at bf16 and at f32 with the
+   f32 weights upcast one layer at a time (the whole f32 copy would not
+   fit beside the bf16 one); the captured ``generate`` at B 4, 16 + 16 (L
+   decode_attention launches per replay) and four teacher-forced
+   kernel-vs-plain steps.  Each model is freed before the next; each line
+   prints its peak device memory.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -125,7 +155,14 @@ HYBRID_SHAPE = (1, 4096)
 #: and generate (B 2); d 3584 is 14 16-byte vectors a lane at bf16
 RMSNORM_PATH_SHAPES = [(4, 1, 2048), (4, 1, 16, 128), (4, 1, 8, 128),
                        (4, 2048, 2048), (4, 2048, 16, 128), (4, 2048, 8, 128),
-                       (1, 4096, 3584), (2, 1, 3584)]
+                       (1, 4096, 3584), (2, 1, 3584),
+                       # gemma3-1b prefill (S 8192) and decode (B 4 and 8):
+                       # d 1152 and the q/k-norm's 256; qwen2.5-14b and
+                       # nemotron-4-15b prefill (S 4096) and decode (B 4)
+                       (1, 8192, 1152), (1, 8192, 4, 256), (1, 8192, 1, 256),
+                       (4, 1, 1152), (4, 1, 4, 256), (8, 1, 1, 256),
+                       (1, 4096, 5120), (4, 1, 5120), (1, 4096, 6144),
+                       (4, 1, 6144)]
 
 #: rmsnorm's timing shapes, bf16: decode (qwen3 B 4 x d 2048, the heads'
 #: q/k-norm), then every call shape of the prefills, where its time is
@@ -136,6 +173,11 @@ RMSNORM_TIME_SHAPES = ((4, 2048), (64, 128), (8192, 2048), (131072, 128),
 #: ragged row counts on the persistent path: rows that fill no whole step
 #: of a warp, the last warps' steps cut short, a single row
 RMSNORM_RAGGED_SHAPES = [(131071, 128), (4097, 3584), (1, 2048)]
+#: rmsnorm timed at the dense family's widths, bf16: gemma3's d 1152 on the
+#: (16, 9) rows instance (prefill rows, decode rows), qwen2.5's 5120 and
+#: nemotron's 6144 on the loop path (prefill rows, decode rows)
+RMSNORM_FAMILY_SHAPES = ((8192, 1152), (4, 1152), (4096, 5120), (4, 5120),
+                         (4096, 6144), (4, 6144))
 #: the L2 cache of an H100 (50 MB): a cold timing rotates over enough
 #: distinct inputs and outputs that each call finds its x evicted
 L2_BYTES = 50 * 10**6
@@ -149,6 +191,20 @@ FLASH_BF16_ROW_REL_TOL = 1e-2
 
 #: the port's kernels, by wrapper name
 KERNELS = ("decode_attention", "rmsnorm", "flash_attention", "ssm_scan")
+
+#: the dense family's paths: gemma3-1b prefill (S 8192, the reference's
+#: ``prefill_32k`` cut: the forward materialises [B, S, 262144] logits) and
+#: generate (B 4, a 600-token prompt so that the local layers' windows of
+#: 512 cut the last ~120 steps, 32 generated); its long step (the
+#: reference's ``decode_32k``, batch cut from 128 to 8); qwen2.5-14b and
+#: nemotron-4-15b prefill (B 1 x S 4096) and generate (B 4, 16 + 16)
+GEMMA3_PREFILL_SHAPE = (1, 8192)
+GEMMA3_GENERATE = (4, 600, 32)
+GEMMA3_LONG = (8, 32768, 32760)
+LARGE_PREFILL_SHAPE = (1, 4096)
+LARGE_GENERATE = (4, 16, 16)
+#: the captured step against the eager one, teacher-forced logits
+GRAPH_ATOL = 1e-3
 
 
 class CheckFailed(Exception):
@@ -292,7 +348,17 @@ def kernel_phase(torch, K, dev, ptxas):
               # and across two
               + [(4, 8, 2, 128, 4096, p, None) for p in (0, 1, 300, 2047, 4095)]
               + [(4, 8, 2, 128, 4096, p, w) for p in (2047, 4095)
-                 for w in (32, 256)])
+                 for w in (32, 256)]
+              # hd 256 at gemma3's G 4, KV 1 (serving cache and the long
+              # step's 32768 keys, with and without its window of 512),
+              # and G 5 (qwen2.5) and G 6 (nemotron) at hd 128
+              + [(4, 1, 4, 256, 632, p, w) for p in (100, 631)
+                 for w in (None, 512)]
+              + [(8, 1, 4, 256, 32768, 32760, w) for w in (None, 512)]
+              + [(2, 2, 2, 256, 512, 300, None)]
+              + [(4, 8, g, 128, S, S - 1, None) for g in (5, 6)
+                 for S in (32, 4096)]
+              + [(4, 8, 6, 128, 4096, 2047, 256)])
     for dt in dtypes:
         for B, KV, G, hd, S, pos, win in dcases:
             q = randn((B, 1, KV * G, hd), dt)
@@ -357,8 +423,13 @@ def kernel_phase(torch, K, dev, ptxas):
              dev).multi_processor_count),
          ptxas=ptxas_of(ptxas, "decode_attention"))
 
+    decode_family = [decode_time(torch, K, dev, randn, ptxas, *shape)
+                     for shape in DECODE_FAMILY_SHAPES]
+
     r_times = [rmsnorm_time(torch, K, dev, randn, ptxas, rows, d)
                for rows, d in RMSNORM_TIME_SHAPES]
+    r_family = [rmsnorm_time(torch, K, dev, randn, ptxas, rows, d)
+                for rows, d in RMSNORM_FAMILY_SHAPES]
 
     flash = flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas)
     ssm = ssm_kernel_phase(torch, K, dev, record, worst, ptxas)
@@ -378,6 +449,7 @@ def kernel_phase(torch, K, dev, ptxas):
          "bound_ms": d_bound,
          "bound_by": d_by, "library_ms": d_lib,
          "timed_shape": f"B{B} KV{KV} G{G} hd{hd} S{S} pos{pos} bf16",
+         "dense_family_shapes": decode_family,
          "ptxas": ptxas_of(ptxas, "decode_attention")},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
@@ -388,9 +460,72 @@ def kernel_phase(torch, K, dev, ptxas):
          "plain_ms": rt["plain_ms"], "bound_ms": rt["bound_ms"],
          "bound_by": rt["bound_by"], "library_ms": rt["library_ms"],
          "timed_shape": rt["shape"], "plan": rt["plan"],
-         "prefill_shapes": prefill_rms, "ptxas": rt["ptxas"]},
+         "prefill_shapes": prefill_rms,
+         "dense_family_shapes": [
+             {k: t[k] for k in ("shape", "kernel_ms", "kernel_cold_ms",
+                                "plain_ms", "library_ms", "bound_ms",
+                                "bound_share", "plan")} for t in r_family],
+         "ptxas": rt["ptxas"]},
         flash, ssm,
     ]
+
+
+#: decode_attention timed at the dense family's new instances, bf16:
+#: (label, B, KV, G, hd, S, pos, window)
+DECODE_FAMILY_SHAPES = (
+    ("gemma3-1b serve", 4, 1, 4, 256, 632, 631, None),
+    ("gemma3-1b serve local", 4, 1, 4, 256, 632, 631, 512),
+    ("gemma3-1b long global", 8, 1, 4, 256, 32768, 32760, None),
+    ("gemma3-1b long local", 8, 1, 4, 256, 32768, 32760, 512),
+    ("qwen2.5-14b", 4, 8, 5, 128, 4096, 4095, None),
+    ("nemotron-4-15b", 4, 8, 6, 128, 4096, 4095, None),
+)
+
+
+def decode_time(torch, K, dev, randn, ptxas, label, B, KV, G, hd, S, pos,
+                window) -> dict:
+    """decode_attention at one bf16 shape, timed beside its plain version,
+    SDPA (``enable_gqa``, the window as a boolean mask) and its bound (the
+    visible keys' K and V read once, q read and out written once); emitted
+    as a ``kernel_time`` line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import blocks_per_sm
+
+    H, e = KV * G, 2
+    q = randn((B, 1, H, hd), "bfloat16")
+    k, v = randn((B, S, KV, hd), "bfloat16"), randn((B, S, KV, hd), "bfloat16")
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    lo = max(0, pos - window + 1) if window else 0
+    keys = pos + 1 - lo
+    ms, eager = cuda_time_ms(
+        torch, lambda: K.decode_attention(q, k, v, p, window=window), 50)
+    plain, _ = cuda_time_ms(
+        torch, lambda: K.decode_attention_plain(q, k, v, p, window=window), 5)
+    lib = None          # torch < 2.5 has no GQA in scaled_dot_product_attention
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        qs = q.transpose(1, 2)
+        ks, vs = k[:, lo:pos + 1].transpose(1, 2), v[:, lo:pos + 1].transpose(
+            1, 2)
+        lib, _ = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, enable_gqa=True), 50)
+    nbytes = 2 * B * H * hd * e + 2 * B * KV * keys * hd * e
+    bnd, by = bound_ms(nbytes, 4.0 * B * H * keys * hd, "bfloat16")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = dict(path=label, shape=f"B{B} KV{KV} G{G} hd{hd} S{S} pos{pos} "
+                                 f"window{window} bf16",
+               ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+               library="F.scaled_dot_product_attention(enable_gqa=True) over "
+                       "the visible keys",
+               bound_ms=bnd, bound_by=by, bytes=nbytes, keys_read=keys,
+               n_split=K.plan_splits(S, B * KV, sms, hd=hd, itemsize=e),
+               blocks_per_sm=blocks_per_sm(hd, e),
+               ptxas=[ln for ln in ptxas_of(ptxas, "decode_attention")
+                      if f"Li{hd}E" in ln and "bfloat16" in ln])
+    emit("kernel_time", kernel="decode_attention", **out)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def rmsnorm_ptxas(ptxas, plan, dtype) -> list:
@@ -486,7 +621,17 @@ FLASH_CASES = (
        (1, 300, 300, 4, 2, 112, True, None, None),
        (1, 190, 333, 4, 1, 64, False, 100, None),
        (4, 2048, 2048, 16, 8, 128, True, None, None),
-       (1, 4096, 4096, 32, 32, 112, True, None, None)])
+       (1, 4096, 4096, 32, 32, 112, True, None, None)]
+    # hd 256 (gemma3-1b: H 4, KV 1): causal with and without its window
+    # of 512, a window edge on a query-tile edge, ragged Sq and Sk,
+    # non-causal GQA 2, and the prefill's own shape with and without the
+    # window (a local and a global layer)
+    + [(1, 1024, 1024, 4, 1, 256, True, w, None) for w in (None, 512)]
+    + [(1, 700, 700, 4, 1, 256, True, 128, None),
+       (2, 300, 333, 4, 2, 256, False, None, None),
+       (1, 190, 190, 4, 1, 256, True, None, None),
+       (1, 8192, 8192, 4, 1, 256, True, 512, None),
+       (1, 8192, 8192, 4, 1, 256, True, None, None)])
 
 #: (B, S, H, P, N, chunk[, dt scale]): the JAX sweep
 #: (tests/test_kernels_decode_ssm.py: chunks, head shapes, ragged S, state
@@ -505,12 +650,16 @@ SSM_CASES = ([(2, 256, 8, 32, 16, c) for c in (32, 64, 128)]
 SSM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
-def flash_bound(B, S, H, KV, hd, e=2):
+def flash_bound(B, S, H, KV, hd, e=2, window=None):
     """Causal self-attention at Sq = Sk = S: each of q, k, v, o crosses
-    device memory once; QK^T and PV over the S(S+1)/2 visible pairs are
-    2 flops per multiply-add each."""
+    device memory once; QK^T and PV over the visible pairs (S(S+1)/2, or
+    sum_i min(i + 1, window) under a sliding window) are 2 flops per
+    multiply-add each."""
     nbytes = (2 * B * S * H + 2 * B * S * KV) * hd * e
-    flops = 4.0 * B * H * hd * S * (S + 1) / 2
+    pairs = S * (S + 1) / 2
+    if window is not None and window < S:
+        pairs = window * (window + 1) / 2 + (S - window) * window
+    flops = 4.0 * B * H * hd * pairs
     return nbytes, flops
 
 
@@ -557,31 +706,47 @@ def flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas):
             del q, k, v, out, ref
 
     times = {}
-    for label, (B, S, H, KV, hd) in (("qwen3-1.7b", (4, 2048, 16, 8, 128)),
-                                     ("zamba2-7b", (1, 4096, 32, 32, 112))):
+    for label, (B, S, H, KV, hd, win) in (
+            ("qwen3-1.7b", (4, 2048, 16, 8, 128, None)),
+            ("zamba2-7b", (1, 4096, 32, 32, 112, None)),
+            ("gemma3-1b global", (1, 8192, 4, 1, 256, None)),
+            ("gemma3-1b local", (1, 8192, 4, 1, 256, 512)),
+            ("qwen2.5-14b", (1, 4096, 40, 8, 128, None)),
+            ("nemotron-4-15b", (1, 4096, 48, 8, 128, None))):
         q = randn((B, S, H, hd), "bfloat16")
         k, v = randn((B, S, KV, hd), "bfloat16"), randn((B, S, KV, hd),
                                                         "bfloat16")
-        ms, eager = cuda_time_ms(torch, lambda: K.flash_attention(q, k, v),
-                                 10)
+        ms, eager = cuda_time_ms(
+            torch, lambda: K.flash_attention(q, k, v, window=win), 10)
         plain, _ = cuda_time_ms(
-            torch, lambda: K.flash_attention_plain(q, k, v), 2)
+            torch, lambda: K.flash_attention_plain(q, k, v, window=win), 2)
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         lib = None      # torch < 2.5 has no GQA in scaled_dot_product_attention
         if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+            if win is None:
+                kw = dict(is_causal=True)
+            else:           # the sliding window as a boolean mask
+                i = torch.arange(S, device=dev)
+                kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                          & (i[None, :] > i[:, None] - win))
             lib, _ = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True, enable_gqa=True), 10)
-        nbytes, flops = flash_bound(B, S, H, KV, hd)
+                qs, ks, vs, enable_gqa=True, **kw), 10)
+            del kw
+        nbytes, flops = flash_bound(B, S, H, KV, hd, window=win)
         bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        shape = f"B{B} S{S} H{H} KV{KV} hd{hd} causal bf16"
+        shape = (f"B{B} S{S} H{H} KV{KV} hd{hd} causal"
+                 f"{'' if win is None else f' window{win}'} bf16")
         times[label] = dict(shape=shape, ms=ms, eager_ms=eager,
                             plain_ms=plain, library_ms=lib, bound_ms=bnd,
                             bound_by=by, bytes=nbytes, flops=flops,
                             tflop_s=flops / ms / 1e9)
         emit("kernel_time", kernel="flash_attention", path=label,
-             library="F.scaled_dot_product_attention(is_causal=True, "
-                     "enable_gqa=True)", **times[label],
-             ptxas=ptxas_of(ptxas, "flash_attention"))
+             library="F.scaled_dot_product_attention(enable_gqa=True; "
+                     "is_causal, or the window as a boolean mask)",
+             **times[label],
+             ptxas=[ln for ln in ptxas_of(ptxas, "flash_attention")
+                    if ln.split(":")[0].endswith(f"Li{hd}")
+                    or ln.split(":")[0].endswith(f"Li{max(hd, 128)}")])
         del q, k, v, qs, ks, vs
         torch.cuda.empty_cache()
     main = times["qwen3-1.7b"]
@@ -595,7 +760,9 @@ def flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas):
             "bf16_row_rel_tol": FLASH_BF16_ROW_REL_TOL, "ms": main["ms"], "eager_ms": main["eager_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "timed_shape": main["shape"], "zamba2-7b": times["zamba2-7b"],
+            "timed_shape": main["shape"],
+            "other_paths": {k: t for k, t in times.items()
+                            if k != "qwen3-1.7b"},
             "ptxas": ptxas_of(ptxas, "flash_attention")}
 
 
@@ -1454,70 +1621,224 @@ def restore_options_phase(torch, cfg, dev, root, d, want, total, tree):
 # ------------------------------------------------------------------ serve
 
 def serve_phase(torch, K, cfg, dev, params):
-    from repro_torch.launch.serve import generate
-    from repro_torch.models.transformer import Decoder, decode_step, init_cache
+    """qwen3-1.7b's ``generate`` on the restored weights, every step a
+    replay of the captured step; then the kernel path against the plain
+    path, teacher-forced, and the captured step against the eager one."""
+    from repro_torch.models.transformer import Decoder
 
     model = Decoder(cfg, params, device=dev)
     B, S0, gen = 4, 16, 32
     prompt = torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
-    generate(cfg, model, prompt[:, :2], 2, device=dev)        # warm-up
-    torch.cuda.synchronize()
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(K)
-    t0 = time.perf_counter()
-    toks = generate(cfg, model, prompt, gen, device=dev)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = counts(K)
-    peak = torch.cuda.max_memory_allocated()
-
-    steps = S0 + gen
     per_step = {"decode_attention": cfg.n_layers,
                 "rmsnorm": 4 * cfg.n_layers + 1,   # ln1, ln2, q/k-norm; final
                 "flash_attention": 0, "ssm_scan": 0}
-    for name, n in per_step.items():
-        check(launches[name] == n * steps,
-              f"{name}: {launches[name]} launches, expected {n} x {steps}")
-    check(tuple(toks.shape) == (B, S0 + gen), f"tokens {tuple(toks.shape)}")
-    check(torch.equal(toks[:, :S0], prompt), "prompt not preserved")
-    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token range")
-
-    # the kernel path against the plain path on the card, teacher-forced
-    n_cmp, atol, rtol = 4, 0.08, 0.05
+    torch.cuda.reset_peak_memory_stats()
+    toks, elapsed, step, launches = captured_generate(
+        torch, K, cfg, model, prompt, gen, dev, per_step, "serve")
+    peak = torch.cuda.max_memory_allocated()
+    steps = S0 + gen
     params = model.tree()
-    ck, cp = init_cache(cfg, B, n_cmp, dev), init_cache(cfg, B, n_cmp, dev)
-    errs, coss = [], []
-    with torch.inference_mode():
-        for t in range(n_cmp):
-            pos = torch.tensor(t, dtype=torch.int32, device=dev)
-            lk, ck = decode_step(params, cfg, ck, toks[:, t:t + 1], pos)
-            lp, cp = decode_step(params, cfg, cp, toks[:, t:t + 1], pos,
-                                 plain=True)
-            lk, lp = lk.float(), lp.float()
-            check(bool(torch.isfinite(lk).all()), f"non-finite logits, step {t}")
-            errs.append((lk - lp).abs().max().item())
-            coss.append(torch.nn.functional.cosine_similarity(
-                lk.flatten(), lp.flatten(), dim=0).item())
-            check(torch.allclose(lk, lp, atol=atol, rtol=rtol),
-                  f"step {t}: kernel vs plain logits differ by {errs[-1]}")
-    check(min(coss) > 0.999, f"cosine similarity {min(coss)}")
+    hold = hold_decode_steps(torch, cfg, params, toks, 4, dev, "qwen3 serve")
     emit("serve", batch=B, prompt_len=S0, gen=gen, steps=steps,
          seconds=elapsed, ms_per_step=elapsed / steps * 1e3,
          tokens_per_s=B * steps / elapsed,
          generated_tokens_per_s=B * gen / elapsed,
          max_memory_allocated=peak, launches=launches,
-         launches_per_step={k: v / steps for k, v in launches.items()},
-         plain_vs_kernel_max_abs_err=max(errs),
-         plain_vs_kernel_tol={"atol": atol, "rtol": rtol},
-         cosine_similarity_min=min(coss), teacher_forced_steps=n_cmp)
-    return launches, params, toks, elapsed / steps * 1e3
+         launches_per_step=step.launches, replays=step.replays, **hold)
+    eager_ms = graph_vs_eager(torch, K, cfg, model, prompt, gen, toks, step,
+                              elapsed, dev)
+    return launches, params, toks, eager_ms
+
+
+def captured_generate(torch, K, cfg, model, prompt, gen, dev, per_step,
+                      what):
+    """``generate`` on the card (every step a replay of one captured step)
+    after a short warm-up: the tokens, host seconds, the captured step and
+    the launches of the run, ``launches[name] * replays``.  The wrappers
+    count while the step is warmed up and captured, not at replays: each
+    must have counted ``per_step`` launches twice, and the graph must
+    replay once per position."""
+    from repro_torch.launch.serve import generate
+
+    B, S0 = prompt.shape
+    generate(cfg, model, prompt[:, :2], 2, device=dev)        # warm-up
+    torch.cuda.synchronize()
+    reset_counts(K)
+    log = []
+    t0 = time.perf_counter()
+    toks = generate(cfg, model, prompt, gen, device=dev, step_log=log)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    wrapper = counts(K)
+    check(len(log) == 1, f"{what}: {len(log)} captured steps")
+    step = log[0]
+    check(step.replays == S0 + gen, f"{what}: {step.replays} replays for "
+          f"{S0 + gen} positions")
+    for name, n in per_step.items():
+        check(step.launches[name] == n, f"{what} {name}: {step.launches[name]}"
+              f" launches captured per step, expected {n}")
+        check(wrapper[name] == 2 * n, f"{what} {name}: the wrapper counted "
+              f"{wrapper[name]}, expected {n} warming up and {n} capturing")
+    check(tuple(toks.shape) == (B, S0 + gen), f"tokens {tuple(toks.shape)}")
+    check(torch.equal(toks[:, :S0], prompt), "prompt not preserved")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token range")
+    launches = {name: step.launches[name] * step.replays for name in KERNELS}
+    return toks, elapsed, step, launches
+
+
+def zero_cache(step) -> None:
+    """A captured step's cache back to zeros, for a new sequence."""
+    from repro_torch.models.common import tree_leaves
+
+    for _, leaf in tree_leaves(step.cache):
+        leaf.zero_()
+
+
+#: the port's kernels by their names in a profile (one entry per launch of
+#: the wrapper: the split-K merge and the SSD scan's phases are left out)
+KERNEL_NAME_RE = {"decode_attention": r"decode_attention_kernel<",
+                  "rmsnorm": r"rmsnorm_(rows|loop|scalar)_kernel<",
+                  "flash_attention": r"flash_attention(_wgmma)?_kernel<"}
+
+
+def graph_profile(torch, step, toks, n: int, what: str) -> dict:
+    """The port's kernels counted by name over ``n`` replays of a captured
+    step (``torch.profiler``, after one replay of warm-up inside the
+    profile, so that the tracer is running when the window opens), held to
+    the launches captured (decode uses no ssm_scan launch); then the host
+    time per replay, ``n`` replays back to back.  The traced device time
+    is reported as traced: under graph replay it exceeds the replay's own
+    time (the eager profile gives the kernels' device time)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    dev = toks.device
+    positions = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
+        for t in range(n + 1):
+            step(toks[:, t:t + 1], positions[t])
+            torch.cuda.synchronize()
+            prof.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for t in range(n):
+            step(toks[:, t:t + 1], positions[t])
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) / n * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev_us(e) > 0]
+    by_name = {name: sum(e.count for e in kernels if re.search(rx, e.key))
+               / n for name, rx in KERNEL_NAME_RE.items()}
+    for name, per in by_name.items():
+        check(per == step.launches[name], f"{what}: the profile shows {per} "
+              f"{name} launches per replay, the capture {step.launches[name]}")
+    check(step.launches["ssm_scan"] == 0, f"{what}: ssm_scan in a decode step")
+    return {"replay_ms_per_step": replay_ms,
+            "profiled_launches_per_replay": by_name,
+            "graph_traced_busy_ms_per_step": sum(dev_us(e) for e in kernels)
+            / n / 1e3}
+
+
+def graph_vs_eager(torch, K, cfg, model, prompt, gen, toks, step, captured_s,
+                   dev) -> float:
+    """``dense_graph``: the same ``generate`` with the step run eagerly
+    (``capture=False``): tokens identical; then the captured step,
+    teacher-forced over the run's tokens, against the eager step (logits
+    within ``GRAPH_ATOL``); ms per step of both paths and each one's
+    device idle share.  Returns the eager ms per step."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import decode_step, init_cache
+
+    B, S0 = prompt.shape
+    steps = S0 + gen
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = generate(cfg, model, prompt, gen, device=dev, capture=False)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    check(torch.equal(eager, toks), f"{cfg.name}: captured and eager "
+          f"generate disagree on tokens")
+    params = model.tree()
+    zero_cache(step)
+    cache = init_cache(cfg, B, steps, dev)
+    diffs, equal = [], 0
+    with torch.inference_mode():
+        for t in range(steps):
+            pos = torch.tensor(t, dtype=torch.int32, device=dev)
+            le, cache = decode_step(params, cfg, cache, toks[:, t:t + 1], pos)
+            _, lc = step(toks[:, t:t + 1], pos)
+            le = le.float()
+            diffs.append((lc - le).abs().max().item())
+            equal += int(torch.equal(lc, le))
+    del cache
+    check(max(diffs) <= GRAPH_ATOL, f"{cfg.name}: captured vs eager logits "
+          f"differ by {max(diffs)} (atol {GRAPH_ATOL})")
+    zero_cache(step)
+    prof = graph_profile(torch, step, toks, 4, f"{cfg.name} graph")
+    cap_ms, eager_ms = captured_s / steps * 1e3, eager_s / steps * 1e3
+    busy = profile_phase(torch, cfg, dev, params, toks, eager_ms)
+    emit("dense_graph", arch=cfg.name, batch=B, prompt_len=S0, gen=gen,
+         tokens_identical=True, generate_ms_per_step=cap_ms,
+         eager_ms_per_step=eager_ms, device_busy_ms_per_step=busy,
+         eager_device_idle_share=1.0 - busy / eager_ms,
+         captured_device_idle_share=1.0 - busy / prof["replay_ms_per_step"],
+         teacher_forced_steps=steps, logits_max_abs_diff=max(diffs),
+         logits_atol=GRAPH_ATOL, bit_equal_steps=equal,
+         launches_per_replay=step.launches, **prof)
+    return eager_ms
+
+
+def hold_decode_steps(torch, cfg, params, toks, n_cmp, dev, what, *,
+                      start=0, caches=None) -> dict:
+    """The kernel path against the plain path on the card, ``n_cmp``
+    teacher-forced eager steps from position ``start`` (from a copy of the
+    given cache each, else from zeros): within atol 0.08 / rtol 0.05 and
+    cosine > 0.999."""
+    from repro_torch.models.transformer import decode_step, init_cache
+
+    atol, rtol = 0.08, 0.05
+    B = toks.shape[0]
+    if caches is None:
+        ck, cp = (init_cache(cfg, B, start + n_cmp, dev) for _ in range(2))
+    else:
+        ck, cp = caches
+    errs, coss = [], []
+    with torch.inference_mode():
+        for t in range(start, start + n_cmp):
+            pos = torch.tensor(t, dtype=torch.int32, device=dev)
+            lk, ck = decode_step(params, cfg, ck, toks[:, t:t + 1], pos)
+            lp, cp = decode_step(params, cfg, cp, toks[:, t:t + 1], pos,
+                                 plain=True)
+            lk, lp = lk.float(), lp.float()
+            check(bool(torch.isfinite(lk).all()),
+                  f"{what}: non-finite logits, step {t}")
+            errs.append((lk - lp).abs().max().item())
+            coss.append(torch.nn.functional.cosine_similarity(
+                lk.flatten(), lp.flatten(), dim=0).item())
+            check(torch.allclose(lk, lp, atol=atol, rtol=rtol),
+                  f"{what} step {t}: kernel vs plain logits differ by "
+                  f"{errs[-1]}")
+    check(min(coss) > 0.999, f"{what}: cosine similarity {min(coss)}")
+    return {"plain_vs_kernel_max_abs_err": max(errs),
+            "plain_vs_kernel_tol": {"atol": atol, "rtol": rtol,
+                                    "cosine_min": 0.999},
+            "cosine_similarity_min": min(coss), "teacher_forced_steps": n_cmp,
+            "teacher_forced_from": start}
 
 
 def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float):
-    """Where a decode step's time goes: device time by kernel over a few
-    steps under ``torch.profiler``, set against the unprofiled step time."""
+    """Where an eager decode step's time goes: device time by kernel over a
+    few steps under ``torch.profiler``, set against the unprofiled step
+    time.  Returns the device busy ms per step: a captured step replays
+    the same kernels, so its idle share is measured against this too
+    (under graph replay the tracer's own per-kernel times come out
+    inflated)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.transformer import decode_step, init_cache
@@ -1550,6 +1871,7 @@ def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float):
                         "calls_per_step": e.count / n,
                         "us_per_call": dev_us(e) / max(e.count, 1)}
                        for e in ours])
+    return busy_ms
 
 
 # ------------------------------------------------------------------ prefill
@@ -1642,23 +1964,6 @@ def hold_kernel_path(torch, lk, lp, k32, l32, what: str) -> dict:
             .mean().item()}
 
 
-def compare_prefills(torch, cfg, params, batch, what: str) -> dict:
-    """The prefill's last-position logits on both paths, at bf16 and f32."""
-    from repro_torch.serve.step import make_prefill_step
-
-    lk = make_prefill_step(cfg)(params, batch)
-    lp = make_prefill_step(cfg, plain=True)(params, batch)
-    cfg32, p32 = f32_model(cfg, params)
-    k32 = make_prefill_step(cfg32)(p32, batch)
-    l32 = make_prefill_step(cfg32, plain=True)(p32, batch)
-    del p32
-    torch.cuda.empty_cache()
-    check(tuple(lk.shape) == (batch["tokens"].shape[0], cfg.vocab_size)
-          and lk.dtype == torch.float32,
-          f"{what}: logits {tuple(lk.shape)} {lk.dtype}")
-    return hold_kernel_path(torch, lk, lp, k32, l32, what)
-
-
 def timed_prefill(torch, step, params, batch, reps: int) -> list:
     """Host-clock seconds per prefill, each ended by a synchronize."""
     out = []
@@ -1672,46 +1977,9 @@ def timed_prefill(torch, step, params, batch, reps: int) -> list:
 
 
 def prefill_phase(torch, K, cfg, dev, params):
-    """qwen3-1.7b's full-sequence prefill (``make_prefill_step``) on the
-    restored weights at B 4, S 2048: launches per forward held exact, the
-    kernel path held against the plain path, time per prefill."""
-    from repro_torch.serve.step import make_prefill_step
-
-    B, S = PREFILL_SHAPE
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(2))
-    batch = {"tokens": tokens}
-    step, plain_step = make_prefill_step(cfg), make_prefill_step(cfg,
-                                                                 plain=True)
-    with torch.inference_mode():
-        step(params, batch)                                   # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reps = 3
-        reset_counts(K)
-        secs = timed_prefill(torch, step, params, batch, reps)
-        launches = counts(K)
-        peak = torch.cuda.max_memory_allocated()
-        per_fwd = {"flash_attention": cfg.n_layers,
-                   "rmsnorm": 4 * cfg.n_layers + 1,   # ln1, ln2, q/k-norm; final
-                   "ssm_scan": 0, "decode_attention": 0}
-        for name, n in per_fwd.items():
-            check(launches[name] == n * reps,
-                  f"prefill {name}: {launches[name]} launches, expected "
-                  f"{n} x {reps}")
-        cmp = compare_prefills(torch, cfg, params, batch, "qwen3 prefill")
-        plain_s = timed_prefill(torch, plain_step, params, batch, 1)[0]
-        prof = device_profile(torch, lambda: step(params, batch), KERNELS)
-    ms = sorted(secs)[len(secs) // 2] * 1e3
-    emit("prefill", arch=cfg.name, batch=B, seq=S, reps=reps,
-         ms_per_prefill=ms, ms_all=[t * 1e3 for t in secs],
-         prompt_tokens_per_s=B * S / (ms / 1e3), plain_ms=plain_s * 1e3,
-         max_memory_allocated=peak, launches=launches,
-         launches_per_forward={k: v / reps for k, v in launches.items()},
-         plain_vs_kernel=cmp, device_busy_ms=prof["device_busy_ms"],
-         device_idle_share=1.0 - prof["device_busy_ms"] / ms,
-         port_kernels_ms=prof["port_kernels"], top_kernels=prof["top_kernels"])
-    return launches
+    """qwen3-1.7b's full-sequence prefill on the restored weights at B 4,
+    S 2048 (``run_prefill``)."""
+    return run_prefill(torch, K, cfg, params, PREFILL_SHAPE, "prefill", 2)
 
 
 # ------------------------------------------------------------------ hybrid
@@ -1720,93 +1988,35 @@ def hybrid_phase(torch, K, dev):
     """zamba2-7b at full width and depth, random weights from a seeded
     ``torch.Generator`` on the card: prefill at B 1, S 4096 (launches per
     forward held exact, kernel path against plain path), then ``generate``
-    at B 2, 16 + 16 tokens (13 decode_attention launches per step) with
-    four teacher-forced steps held against the plain path."""
+    at B 2, 16 + 16 tokens (13 decode_attention launches per replay of
+    the captured step) with four teacher-forced steps held against the
+    plain path, and the captured step against the eager one."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import generate
-    from repro_torch.models.common import tree_leaves
-    from repro_torch.models.transformer import (Decoder, decode_step,
-                                                forward, init_cache,
-                                                num_params)
-    from repro_torch.serve.step import make_prefill_step
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_cache)
 
     cfg = get_config("zamba2-7b")
-    t0 = time.perf_counter()
-    model = Decoder(cfg, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(0))
-    params = model.tree()
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    n_params = sum(t.numel() for _, t in tree_leaves(params))
-    check(n_params == num_params(cfg), f"{cfg.name}: {n_params} parameters")
-
+    model, params, n_params, t_init = random_model(torch, cfg, dev)
     n_groups = cfg.n_layers // cfg.hybrid_period
     per_fwd = {"flash_attention": n_groups, "ssm_scan": cfg.n_layers,
                # ln1 of every mamba block, ln1 + ln2 of each shared
                # application, the final norm (zamba2 has no qk-norm)
                "rmsnorm": cfg.n_layers + 2 * n_groups + 1,
                "decode_attention": 0}
-    B, S = HYBRID_SHAPE
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(3))
-    batch = {"tokens": tokens}
-    step, plain_step = make_prefill_step(cfg), make_prefill_step(cfg,
-                                                                 plain=True)
-    with torch.inference_mode():
-        step(params, batch)                                   # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reps = 3
-        reset_counts(K)
-        secs = timed_prefill(torch, step, params, batch, reps)
-        launches = counts(K)
-        peak = torch.cuda.max_memory_allocated()
-        for name, n in per_fwd.items():
-            check(launches[name] == n * reps,
-                  f"hybrid prefill {name}: {launches[name]} launches, "
-                  f"expected {n} x {reps}")
-        torch.cuda.reset_peak_memory_stats()
-        plain_s = timed_prefill(torch, plain_step, params, batch, 1)[0]
-        plain_peak = torch.cuda.max_memory_allocated()
-        cmp = compare_prefills(torch, cfg, params, batch, "zamba2 prefill")
-        prof = device_profile(torch, lambda: step(params, batch), KERNELS)
-    ms = sorted(secs)[len(secs) // 2] * 1e3
-    emit("hybrid_prefill", arch=cfg.name, params=n_params, init_s=t_init,
-         batch=B, seq=S, reps=reps, ms_per_prefill=ms,
-         ms_all=[t * 1e3 for t in secs], prompt_tokens_per_s=B * S / (ms / 1e3),
-         plain_ms=plain_s * 1e3, max_memory_allocated=peak,
-         plain_max_memory_allocated=plain_peak, launches=launches,
-         launches_per_forward={k: v / reps for k, v in launches.items()},
-         plain_vs_kernel=cmp, device_busy_ms=prof["device_busy_ms"],
-         device_idle_share=1.0 - prof["device_busy_ms"] / ms,
-         port_kernels_ms=prof["port_kernels"],
-         ssm_scan_ms_per_call=prof["port_kernels"]["ssm_scan"]
-         / per_fwd["ssm_scan"],
-         top_kernels=prof["top_kernels"])
-    torch.cuda.empty_cache()
+    launches = run_prefill(torch, K, cfg, params, HYBRID_SHAPE,
+                           "hybrid_prefill", 3, per_fwd=per_fwd,
+                           n_params=n_params, init_s=t_init)
 
-    # generate: greedy decode through the ported kernels only
+    # generate: greedy decode through the ported kernels only, every step
+    # a replay of the captured step
     B, S0, gen = 2, 16, 16
     prompt = torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(4))
-    generate(cfg, model, prompt[:, :2], 2, device=dev)        # warm-up
-    torch.cuda.synchronize()
-    reset_counts(K)
-    t0 = time.perf_counter()
-    toks = generate(cfg, model, prompt, gen, device=dev)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    gen_launches = counts(K)
-    steps = S0 + gen
     per_step = {"decode_attention": n_groups, "rmsnorm": per_fwd["rmsnorm"],
                 "flash_attention": 0, "ssm_scan": 0}
-    for name, n in per_step.items():
-        check(gen_launches[name] == n * steps,
-              f"hybrid generate {name}: {gen_launches[name]} launches, "
-              f"expected {n} x {steps}")
-    check(tuple(toks.shape) == (B, S0 + gen), f"tokens {tuple(toks.shape)}")
-    check(torch.equal(toks[:, :S0], prompt), "prompt not preserved")
-    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token range")
+    toks, elapsed, graph_step, gen_launches = captured_generate(
+        torch, K, cfg, model, prompt, gen, dev, per_step, "hybrid generate")
+    steps = S0 + gen
 
     n_cmp = 4
     cfg32, p32 = f32_model(cfg, params)
@@ -1835,15 +2045,312 @@ def hybrid_phase(torch, K, dev):
     emit("hybrid_generate", arch=cfg.name, batch=B, prompt_len=S0, gen=gen,
          steps=steps, seconds=elapsed, ms_per_step=elapsed / steps * 1e3,
          tokens_per_s=B * steps / elapsed, launches=gen_launches,
-         launches_per_step={k: v / steps for k, v in gen_launches.items()},
+         launches_per_step=graph_step.launches, replays=graph_step.replays,
          plain_vs_kernel=errs, teacher_forced_steps=n_cmp,
          decode_vs_forward_max_abs_diff=(dec - full).abs().max().item(),
          decode_vs_forward_cosine=torch.nn.functional.cosine_similarity(
              dec.flatten(), full.flatten(), dim=0).item())
-    profile_phase(torch, cfg, dev, params, toks, elapsed / steps * 1e3)
-    del model, params
+    graph_vs_eager(torch, K, cfg, model, prompt, gen, toks, graph_step,
+                   elapsed, dev)
+    del model, params, graph_step
     torch.cuda.empty_cache()
     return launches, gen_launches
+
+
+# ------------------------------------------------------------ dense family
+
+def random_model(torch, cfg, dev):
+    """A decoder of ``cfg`` at full width and depth, random weights drawn
+    on the card from seed 0: (model, params, parameter count, seconds)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import Decoder, num_params
+
+    t0 = time.perf_counter()
+    model = Decoder(cfg, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    params = model.tree()
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    check(n_params == num_params(cfg), f"{cfg.name}: {n_params} parameters")
+    return model, params, n_params, time.perf_counter() - t0
+
+
+class _UpcastLayers:
+    """A stacked ``[L, ...]`` parameter leaf whose per-layer slices come out
+    in f32: an f32 forward of a model whose whole f32 copy would not fit
+    on the card beside its bf16 one holds one layer in f32 at a time."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def __getitem__(self, layer):
+        return self.t[layer].float()
+
+
+def f32_streamed(cfg, params):
+    """``f32_model`` with the stacked blocks upcast layer by layer."""
+    from repro_torch.models.common import tree_map
+
+    tree = {k: tree_map(_UpcastLayers if k == "blocks" else
+                        (lambda t: t.float()), v) for k, v in params.items()}
+    return cfg.replace(dtype="float32"), tree
+
+
+def run_prefill(torch, K, cfg, params, shape, phase, seed, *,
+                per_fwd=None, streamed=False, **extra) -> dict:
+    """A full-sequence prefill (``make_prefill_step``) at ``shape``:
+    launches per forward held exact (``per_fwd``; a dense model's L
+    flash_attention and (4 or 2) L + 1 rmsnorm by default), the kernel
+    path held against the plain path at bf16 and f32
+    (``hold_kernel_path``; ``streamed``: the f32 weights upcast one layer at
+    a time), time per prefill, prompt tokens/s, idle share, top kernels.
+    Returns the launches of the timed prefills."""
+    from repro_torch.serve.step import make_prefill_step
+
+    dev = params["embed"].device
+    B, S = shape
+    L = cfg.n_layers
+    per_fwd = per_fwd or {"flash_attention": L,
+                          "rmsnorm": (4 if cfg.qk_norm else 2) * L + 1,
+                          "decode_attention": 0, "ssm_scan": 0}
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed))
+    batch = {"tokens": tokens}
+    step, plain_step = make_prefill_step(cfg), make_prefill_step(cfg,
+                                                                 plain=True)
+    with torch.inference_mode():
+        step(params, batch)                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reps = 3
+        reset_counts(K)
+        secs = timed_prefill(torch, step, params, batch, reps)
+        launches = counts(K)
+        peak = torch.cuda.max_memory_allocated()
+        for name, n in per_fwd.items():
+            check(launches[name] == n * reps,
+                  f"{phase} {cfg.name} {name}: {launches[name]} launches, "
+                  f"expected {n} x {reps}")
+        plain_s = timed_prefill(torch, plain_step, params, batch, 1)[0]
+        lk = step(params, batch)
+        lp = plain_step(params, batch)
+        cfg32, p32 = (f32_streamed if streamed else f32_model)(cfg, params)
+        k32 = make_prefill_step(cfg32)(p32, batch)
+        l32 = make_prefill_step(cfg32, plain=True)(p32, batch)
+        del p32
+        torch.cuda.empty_cache()
+        check(tuple(lk.shape) == (B, cfg.vocab_size)
+              and lk.dtype == torch.float32,
+              f"{phase}: logits {tuple(lk.shape)} {lk.dtype}")
+        cmp = hold_kernel_path(torch, lk, lp, k32, l32,
+                               f"{cfg.name} prefill")
+        del lk, lp, k32, l32
+        prof = device_profile(torch, lambda: step(params, batch), KERNELS)
+    ms = sorted(secs)[len(secs) // 2] * 1e3
+    emit(phase, arch=cfg.name, batch=B, seq=S, reps=reps, ms_per_prefill=ms,
+         ms_all=[t * 1e3 for t in secs], prompt_tokens_per_s=B * S / (ms / 1e3),
+         plain_ms=plain_s * 1e3, max_memory_allocated=peak,
+         max_memory_allocated_with_holds=torch.cuda.max_memory_allocated(),
+         launches=launches,
+         launches_per_forward={k: v / reps for k, v in launches.items()},
+         plain_vs_kernel=cmp, f32_hold="per-layer upcast, full depth"
+         if streamed else "whole model in f32",
+         device_busy_ms=prof["device_busy_ms"],
+         device_idle_share=1.0 - prof["device_busy_ms"] / ms,
+         port_kernels_ms=prof["port_kernels"], top_kernels=prof["top_kernels"],
+         **extra)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_generate(torch, K, cfg, model, shape, phase, seed, **extra):
+    """The captured ``generate`` at ``shape`` (B, prompt, generated): L
+    decode_attention and the model's rmsnorm launches per replay, one
+    replay per position, the replays' kernels counted by name in a
+    profile, ms per step and idle share.  Returns (launches, tokens, the
+    captured step, ms per step)."""
+    B, S0, gen = shape
+    L = cfg.n_layers
+    dev = model.tree()["embed"].device
+    per_step = {"decode_attention": L,
+                "rmsnorm": (4 if cfg.qk_norm else 2) * L + 1,
+                "flash_attention": 0, "ssm_scan": 0}
+    prompt = torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed))
+    torch.cuda.reset_peak_memory_stats()
+    toks, elapsed, step, launches = captured_generate(
+        torch, K, cfg, model, prompt, gen, dev, per_step, f"{phase} {cfg.name}")
+    peak = torch.cuda.max_memory_allocated()
+    steps = S0 + gen
+    ms = elapsed / steps * 1e3
+    zero_cache(step)
+    prof = graph_profile(torch, step, toks, 4, f"{phase} {cfg.name}")
+    busy = profile_phase(torch, cfg, dev, model.tree(), toks,
+                         prof["replay_ms_per_step"])
+    emit(phase, arch=cfg.name, batch=B, prompt_len=S0, gen=gen, steps=steps,
+         seconds=elapsed, generate_ms_per_step=ms,
+         tokens_per_s=B * steps / elapsed,
+         generated_tokens_per_s=B * gen / elapsed, max_memory_allocated=peak,
+         launches=launches, launches_per_step=step.launches,
+         replays=step.replays, device_busy_ms_per_step=busy,
+         device_idle_share=1.0 - busy / prof["replay_ms_per_step"],
+         **prof, **extra)
+    return launches, toks, step, ms
+
+
+def hold_decode_kernel_path(torch, cfg, params, toks, n_cmp, what) -> list:
+    """``hold_kernel_path`` over ``n_cmp`` teacher-forced decode steps from
+    zero caches: at bf16, and with the weights upcast to f32 one layer at a
+    time (``f32_streamed``).  A deep random model amplifies bf16 rounding
+    past the serve phase's fixed 0.08, so the bf16 limit is measured, as
+    for the prefills."""
+    from repro_torch.models.transformer import decode_step, init_cache
+
+    dev = toks.device
+    B = toks.shape[0]
+    cfg32, p32 = f32_streamed(cfg, params)
+    runs = [(params, cfg, False), (params, cfg, True), (p32, cfg32, False),
+            (p32, cfg32, True)]
+    caches = [init_cache(c, B, n_cmp, dev) for _, c, _ in runs]
+    out = []
+    with torch.inference_mode():
+        for t in range(n_cmp):
+            pos = torch.tensor(t, dtype=torch.int32, device=dev)
+            logits = [decode_step(p, c, cache, toks[:, t:t + 1], pos,
+                                  plain=plain)[0]
+                      for (p, c, plain), cache in zip(runs, caches)]
+            out.append(hold_kernel_path(torch, *logits, f"{what} step {t}"))
+    return out
+
+
+def gemma3_phase(torch, K, dev) -> dict:
+    """gemma3-1b at full width and depth (26 layers in the 5:1 local /
+    global program, hd 256, KV 1, window 512), random weights on the card:
+    ``gemma3_prefill`` at B 1 x S 8192; ``gemma3_generate`` (B 4, 600 +
+    32: the local layers' windows cut the last ~120 steps), then four
+    teacher-forced kernel-vs-plain steps from position 600; and
+    ``gemma3_long_decode``: one captured step against a 32768-key cache of
+    random K / V at pos 32760, timed, its logits held against the plain
+    path.  Returns the launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import decode_step
+    from repro_torch.serve.step import CapturedServeStep
+
+    cfg = get_config("gemma3-1b")
+    torch.cuda.reset_peak_memory_stats()
+    model, params, n_params, t_init = random_model(torch, cfg, dev)
+    by_path = {"gemma3_prefill": run_prefill(
+        torch, K, cfg, params, GEMMA3_PREFILL_SHAPE, "gemma3_prefill", 5,
+        n_params=n_params, init_s=t_init,
+        cut="S 8192 of the reference's prefill_32k: the forward "
+            "materialises [B, S, 262144] logits, the f32 hold twice")}
+
+    launches, toks, step, _ = dense_generate(
+        torch, K, cfg, model, GEMMA3_GENERATE, "gemma3_generate", 6)
+    by_path["gemma3_generate"] = launches
+    # the kernel path against the plain path past the window: the captured
+    # step rebuilds the prompt's cache teacher-forced, each path then steps
+    # from a copy of it
+    B, S0, _ = GEMMA3_GENERATE
+    zero_cache(step)
+    positions = torch.arange(S0, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        for t in range(S0):
+            step(toks[:, t:t + 1], positions[t])
+    caches = [tree_map(lambda t: t.clone(), step.cache) for _ in range(2)]
+    hold = hold_decode_steps(torch, cfg, params, toks, 4, dev,
+                             "gemma3 generate", start=S0, caches=caches)
+    emit("gemma3_generate_hold", arch=cfg.name, **hold)
+    del step, caches
+    torch.cuda.empty_cache()
+
+    # one long step: 22 local layers read <= 512 keys, 4 global all of them
+    B, S, pos = GEMMA3_LONG
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K)
+    long_step = CapturedServeStep(cfg, params, B, S, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    for _, leaf in tree_leaves(long_step.cache):
+        leaf.normal_(generator=g)
+    plain_cache = tree_map(lambda t: t.clone(), long_step.cache)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, generator=g)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        _, lk = long_step(tok, p)
+        lk = lk.clone()
+        lp, _ = decode_step(params, cfg, plain_cache, tok, p, plain=True)
+        lp = lp.float()
+        # the same step's kernels, eagerly (the replay runs these)
+        prof = device_profile(
+            torch, lambda: decode_step(params, cfg, plain_cache, tok, p),
+            KERNELS)
+    del plain_cache
+    err = (lk - lp).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(lk.flatten(), lp.flatten(),
+                                                dim=0).item()
+    check(bool(torch.isfinite(lk).all()), "gemma3 long step: non-finite")
+    check(torch.allclose(lk, lp, atol=0.08, rtol=0.05) and cos > 0.999,
+          f"gemma3 long step: kernel vs plain logits differ by {err} "
+          f"(cosine {cos})")
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(reps):
+            long_step(tok, p)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    check(long_step.launches["decode_attention"] == cfg.n_layers
+          and long_step.launches["rmsnorm"] == 4 * cfg.n_layers + 1,
+          f"gemma3 long step launches {long_step.launches}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_path["gemma3_long_decode"] = {
+        k: n * (long_step.replays) for k, n in long_step.launches.items()}
+    emit("gemma3_long_decode", arch=cfg.name, batch=B, cache_len=S, pos=pos,
+         cut="batch 8 of the reference's decode_32k (128)",
+         replay_ms_per_step=ms, reps=reps,
+         device_busy_ms=prof["device_busy_ms"],
+         device_idle_share=1.0 - prof["device_busy_ms"] / ms,
+         port_kernels_ms=prof["port_kernels"], top_kernels=prof["top_kernels"],
+         launches_per_step=long_step.launches, replays=long_step.replays,
+         n_split=K.plan_splits(S, B * cfg.n_kv_heads, sms, hd=cfg.hd),
+         plain_vs_kernel_max_abs_err=err, cosine=cos,
+         plain_vs_kernel_tol={"atol": 0.08, "rtol": 0.05, "cosine_min": 0.999},
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del long_step, model, params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def dense_large_phase(torch, K, dev, arch) -> dict:
+    """qwen2.5-14b or nemotron-4-15b at full width and depth (29.54 / 31.26
+    GB of bf16 weights drawn on the card): ``dense_large_prefill`` at B 1 x
+    S 4096 (the f32 hold at full depth, its weights upcast one layer at a
+    time), then ``dense_large_generate`` (B 4, 16 + 16) with four
+    teacher-forced kernel-vs-plain steps.  Returns the launches by path."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    model, params, n_params, t_init = random_model(torch, cfg, dev)
+    weights_peak = torch.cuda.max_memory_allocated()
+    by_path = {f"{arch} prefill": run_prefill(
+        torch, K, cfg, params, LARGE_PREFILL_SHAPE, "dense_large_prefill", 8,
+        streamed=True, n_params=n_params, init_s=t_init,
+        init_max_memory_allocated=weights_peak)}
+    launches, toks, step, _ = dense_generate(
+        torch, K, cfg, model, LARGE_GENERATE, "dense_large_generate", 9)
+    by_path[f"{arch} generate"] = launches
+    del step
+    emit("dense_large_generate_hold", arch=cfg.name,
+         plain_vs_kernel=hold_decode_kernel_path(torch, cfg, params, toks, 4,
+                                                 f"{arch} decode"))
+    del model, params
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def rmsnorm_only(torch, K, dev, build_) -> int:
@@ -1911,15 +2418,17 @@ def main() -> int:
 
         cfg = get_config("qwen3-1.7b")
         params = restore_phase(torch, cfg, dev)
-        serve_launches, params, toks, step_ms = serve_phase(torch, K, cfg,
-                                                            dev, params)
-        profile_phase(torch, cfg, dev, params, toks, step_ms)
+        serve_launches, params, toks, _ = serve_phase(torch, K, cfg, dev,
+                                                      params)
         by_path = {"serve": serve_launches,
                    "prefill": prefill_phase(torch, K, cfg, dev, params)}
         del params
         torch.cuda.empty_cache()
         by_path["hybrid_prefill"], by_path["hybrid_generate"] = \
             hybrid_phase(torch, K, dev)
+        by_path.update(gemma3_phase(torch, K, dev))
+        for arch in ("qwen2.5-14b", "nemotron-4-15b"):
+            by_path.update(dense_large_phase(torch, K, dev, arch))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -3,7 +3,10 @@
 ``get_config(name)`` returns the full (paper-table) config; every module
 also exposes ``reduced()``, a family-preserving miniature for CPU tests.
 Architectures join as their slice is ported; the reference registry is
-``repro.configs``.
+``repro.configs``.  Ported: the dense family (qwen2.5-14b, qwen3-1.7b,
+nemotron-4-15b, gemma3-1b with its 5:1 local/global program) and the
+hybrid zamba2-7b.  Still to come: olmoe and kimi-k2 (moe), xlstm (ssm),
+whisper (encdec) and llama-3.2-vision (vlm).
 """
 
 from __future__ import annotations
@@ -12,10 +15,13 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-ARCH_IDS = ["qwen3_1_7b", "zamba2_7b"]
+ARCH_IDS = ["qwen2_5_14b", "qwen3_1_7b", "nemotron_4_15b", "gemma3_1b",
+            "zamba2_7b"]
 
 #: CLI names (--arch) -> module names
-ALIASES = {"qwen3-1.7b": "qwen3_1_7b", "zamba2-7b": "zamba2_7b"}
+ALIASES = {"qwen2.5-14b": "qwen2_5_14b", "qwen3-1.7b": "qwen3_1_7b",
+           "nemotron-4-15b": "nemotron_4_15b", "gemma3-1b": "gemma3_1b",
+           "zamba2-7b": "zamba2_7b"}
 
 
 def _module(name: str):

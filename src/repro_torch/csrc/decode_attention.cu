@@ -27,13 +27,15 @@
 // or before the window is read, which is how the TPU kernel's block
 // skipping translates; a slice wholly outside that range is empty.
 // Tiles of K and V stream into a ring of shared-memory stages by 16-byte
-// cp.async (48 KB a block at bf16, hd 128, so four blocks share an SM).  Per
+// cp.async (48 KB a block at bf16, hd 128, so four blocks share an SM; 96
+// KB at hd 256, two; the wrapper's plan_splits sizes the split to the
+// blocks an SM holds).  Per
 // tile each warp computes the G scores of its keys (each lane reads one
 // contiguous 4- to 16-byte slice of a key row; all of a warp's partial
 // dots are formed before their shuffle reductions, so those overlap),
 // one warp per query row updates the online-softmax m / l, and each
 // thread keeps the accumulators of one output dimension for half of the
-// G rows.  With n_split 1 the block writes the output itself (no
+// G rows (all of them at hd 256, where every thread owns a dimension).  With n_split 1 the block writes the output itself (no
 // scratch, one launch); otherwise it writes its m, l and unnormalised f32
 // accumulator to scratch the wrapper allocates, and a second launch from
 // the same entry point merges the slices.  An empty slice writes
@@ -50,7 +52,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileKeys = 32;
 
-// K+V ring: 3 stages of bf16 (or 2 of f32) tiles, 48 KB (64 KB) at hd 128
+// K+V ring: 3 stages of bf16 (or 2 of f32) tiles, 48 KB (64 KB) at hd 128,
+// 96 KB (128 KB) at hd 256
 template <typename T>
 __host__ __device__ constexpr int stages() { return sizeof(T) == 2 ? 3 : 2; }
 
@@ -80,24 +83,26 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// CPL consecutive elements of a shared-memory row as floats, in one load
-// of 4 to 16 bytes (no type-punned pointer: the words come from ld.shared)
+// CPL consecutive elements of a shared-memory row as floats, in loads of
+// 4, 8 or 16 bytes (no type-punned pointer: the words come from ld.shared)
 template <typename T, int CPL>
 __device__ __forceinline__ void load_slice(const T* p, float (&x)[CPL]) {
   constexpr int W = CPL * (int)sizeof(T) / 4;  // 32-bit words
-  static_assert(W == 1 || W == 2 || W == 4, "4, 8 or 16 bytes");
+  static_assert(W == 1 || W == 2 || W % 4 == 0, "4, 8 or a multiple of 16 bytes");
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  uint32_t w[4];
+  uint32_t w[W];
   if constexpr (W == 1) {
     asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(w[0]) : "r"(a) : "memory");
   } else if constexpr (W == 2) {
     asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(w[0]), "=r"(w[1]) : "r"(a)
                  : "memory");
   } else {
-    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
-                 : "r"(a)
-                 : "memory");
+#pragma unroll
+    for (int i = 0; i < W; i += 4)
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(w[i]), "=r"(w[i + 1]), "=r"(w[i + 2]), "=r"(w[i + 3])
+                   : "r"(a + 4 * i)
+                   : "memory");
   }
 #pragma unroll
   for (int i = 0; i < W; ++i) {
@@ -153,11 +158,14 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   constexpr int NS = stages<T>();
   constexpr int EPV = 16 / (int)sizeof(T);       // elements per 16-byte vector
   constexpr int VPR = HD / EPV;                  // 16-byte vectors per key row
-  constexpr int CPL = HD >= 96 ? 4 : 2;          // contiguous dims per lane (scores)
+  constexpr int CPL = HD >= 192 ? 8 : HD >= 96 ? 4 : 2;  // contiguous dims per lane (scores)
   constexpr int LANES = HD / CPL;                // lanes that hold a slice of a row
-  constexpr int GPT = GMAX / 2;                  // query rows per thread in P @ V
+  // threads per output dimension in P @ V (two up to hd 128, one at hd 256),
+  // each keeping the accumulators of every RS-th query row
+  constexpr int RS = HD <= kThreads / 2 ? 2 : 1;
+  constexpr int GPT = GMAX / RS;                 // query rows per thread in P @ V
   static_assert(HD % EPV == 0, "rows must split into 16-byte vectors");
-  static_assert(HD <= kThreads / 2, "two threads per output dimension");
+  static_assert(HD <= kThreads && LANES <= 32, "a thread per output dimension, a lane per slice");
   static_assert(TK % kWarps == 0 && TK <= 32, "whole keys per warp, a key per lane");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -208,8 +216,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     for (int c = 0; c < CPL; ++c)
       qr[g][c] = (g < G && lane < LANES) ? to_f(qb[g * HD + lane * CPL + c]) : 0.f;
   }
-  // P @ V ownership: output dimension d, rows g0, g0 + 2, ...
-  const int d = tid % (kThreads / 2), g0 = tid / (kThreads / 2);
+  // P @ V ownership: output dimension d, rows g0, g0 + RS, ...
+  const int d = tid % (kThreads / RS), g0 = tid / (kThreads / RS);
   float acc[GPT];
 #pragma unroll
   for (int i = 0; i < GPT; ++i) acc[i] = 0.f;
@@ -283,14 +291,14 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     if (d < HD) {
 #pragma unroll
       for (int i = 0; i < GPT; ++i)
-        if (g0 + 2 * i < G) acc[i] *= alpha_s[g0 + 2 * i];
+        if (g0 + RS * i < G) acc[i] *= alpha_s[g0 + RS * i];
 #pragma unroll 8
       for (int j = 0; j < TK; ++j) {
         if (j < n) {
           const float vv = to_f(vs[j * HD + d]);
 #pragma unroll
           for (int i = 0; i < GPT; ++i)
-            if (g0 + 2 * i < G) acc[i] += p_s[g0 + 2 * i][j] * vv;
+            if (g0 + RS * i < G) acc[i] += p_s[g0 + RS * i][j] * vv;
         }
       }
     }
@@ -303,7 +311,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       T* ob = out + ((size_t)b * H + (size_t)h * G) * HD;
 #pragma unroll
       for (int i = 0; i < GPT; ++i) {
-        const int g = g0 + 2 * i;
+        const int g = g0 + RS * i;
         if (g < G) ob[g * HD + d] = from_f<T>(acc[i] / fmaxf(l_s[g], 1e-30f));
       }
     }
@@ -317,7 +325,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     if (d < HD) {
 #pragma unroll
       for (int i = 0; i < GPT; ++i) {
-        const int g = g0 + 2 * i;
+        const int g = g0 + RS * i;
         if (g < G) part.acc[(row0 + g) * HD + d] = acc[i];
       }
     }
@@ -351,51 +359,55 @@ __global__ void __launch_bounds__(kThreads) decode_attention_merge_kernel(
   }
 }
 
-template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, const void* pos,
-              void* out, void* scratch, int B, int S, int KV, int G,
-              float scale, int window, int n_split, cudaStream_t stream) {
+template <typename T, int HD, int GMAX>
+int launch_g(const void* q, const void* k, const void* v, const void* pos,
+             void* out, void* scratch, int B, int S, int KV, int G,
+             float scale, int window, int n_split, cudaStream_t stream) {
   const dim3 grid((unsigned)(B * KV), (unsigned)n_split);
   constexpr int smem = smem_bytes<T, HD>();
   // keys per slice: whole tiles, from the cache length (never from pos)
   const int per = ((S + n_split - 1) / n_split + kTileKeys - 1) / kTileKeys * kTileKeys;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const int* pp = static_cast<const int*>(pos);
-  T* op = static_cast<T*>(out);
   float* sp = static_cast<float*>(scratch);
-  // above 48 KB of dynamic shared memory a kernel must opt in, once
+  T* op = static_cast<T*>(out);
+  // above 48 KB of dynamic shared memory an instance must opt in, once,
+  // before its first launch (a CUDA graph's warm-up reaches it before the
+  // capture)
   static bool opted_in = false;
   if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, HD, 2>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(decode_attention_kernel<T, HD, 4>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(decode_attention_kernel<T, HD, 16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, HD, GMAX>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
-  if (G <= 2) {
-    decode_attention_kernel<T, HD, 2><<<grid, kThreads, smem, stream>>>(
-        qp, kp, vp, pp, op, sp, S, KV, G, scale, window, n_split, per);
-  } else if (G <= 4) {
-    decode_attention_kernel<T, HD, 4><<<grid, kThreads, smem, stream>>>(
-        qp, kp, vp, pp, op, sp, S, KV, G, scale, window, n_split, per);
-  } else if (G <= 16) {
-    decode_attention_kernel<T, HD, 16><<<grid, kThreads, smem, stream>>>(
-        qp, kp, vp, pp, op, sp, S, KV, G, scale, window, n_split, per);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  decode_attention_kernel<T, HD, GMAX><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(pos), op, sp, S, KV, G, scale, window, n_split, per);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return (int)e;
   decode_attention_merge_kernel<T><<<B * KV, kThreads, 0, stream>>>(
       sp, op, B * KV, n_split, G, HD);
   return (int)cudaGetLastError();
+}
+
+// The GQA groups each head dim is built for: up to 16 query rows a block
+// at hd <= 128, up to 4 at hd 256 (gemma3's G 4), where a lane holds 8
+// dims of every row and 16 rows would not fit in registers.
+template <typename T, int HD>
+int launch_hd(const void* q, const void* k, const void* v, const void* pos,
+              void* out, void* scratch, int B, int S, int KV, int G,
+              float scale, int window, int n_split, cudaStream_t stream) {
+  if (G <= 2)
+    return launch_g<T, HD, 2>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split,
+                              stream);
+  if (G <= 4)
+    return launch_g<T, HD, 4>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split,
+                              stream);
+  if constexpr (HD <= 128) {
+    if (G <= 16)
+      return launch_g<T, HD, 16>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window,
+                                 n_split, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -406,6 +418,7 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
     case 64: return launch_hd<T, 64>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
     case 112: return launch_hd<T, 112>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
     case 128: return launch_hd<T, 128>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
+    case 256: return launch_hd<T, 256>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,7 +21,7 @@
 //
 // bf16: a tensor-core kernel (namespace tc).  One block per (b * H + h,
 // 128-query tile), the tiles with the most keys launched first, walks its
-// reachable 128-key tiles in a loop (how the TPU kernel's sequential k
+// reachable key tiles (128 keys; 64 at hd 256) in a loop (how the TPU kernel's sequential k
 // axis translates: Hopper blocks run in no order); tiles wholly above the
 // diagonal or wholly left of the window are never loaded.  A producer
 // warpgroup (one lane of it) issues TMA loads (cp.async.bulk.tensor) of the Q tile and of a
@@ -39,6 +39,10 @@
 // registers (four lanes share a row; exp2 with the scale folded in), P
 // rounded to bf16 in registers and O += P V by wgmma with A from registers
 // and V read N-major through the transpose flag (no transposing copy).
+// hd 256 halves the key tile so that Q (64 KB) and two stages of K and V
+// (2 x 64 KB) fit in 227 KB: S is then m64n64, and P V two m64n128 per
+// 16 keys, one per 128 output columns (an f32 accumulator of 128 registers
+// a thread, inside the consumers' 232).
 // Rounding P to bf16 before P V is the one numeric change from the TPU
 // kernel, which keeps it f32; the reference model's own XLA path rounds it
 // too.
@@ -46,7 +50,8 @@
 // f32: wgmma takes no f32 inputs, only TF32, whose 10-bit mantissa would
 // break the 2e-5 tolerance the f32 checks rest on, so f32 keeps a scalar
 // kernel (namespace scalar): one 256-thread block per (b * H + h, 64-query
-// tile), K and V staged through a two-stage 4-byte cp.async ring in rows
+// tile), K and V staged through a two-stage 4-byte cp.async ring of 64-key
+// tiles (32 at hd 256, so that the ring fits in shared memory) in rows
 // padded by one word, thread (ty, tx) owning query rows 4ty .. 4ty+3, f32
 // FMAs, each row's statistics in the registers of one half-warp.  Serving
 // and prefill run bf16.
@@ -61,19 +66,20 @@ namespace scalar {
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;   // queries per block
-constexpr int kBK = 64;   // keys per tile
 constexpr int kRows = 4;  // query rows per thread (kBQ / 16)
-constexpr int kCols = 4;  // keys per thread per tile (kBK / 16)
 
 template <typename T, int HD>
 struct Layout {
+  static constexpr int BK = HD > 128 ? 32 : 64;      // keys per tile
+  static constexpr int COLS = BK / 16;               // keys per thread per tile
   static constexpr int W = HD * (int)sizeof(T) / 4;  // 32-bit words per row
   static constexpr int RS = W + 1;                   // padded row stride
   static constexpr int q_words = kBQ * RS;
-  static constexpr int kv_words = kBK * RS;          // one K or V tile
-  static constexpr int p_stride = kBK + 1;
+  static constexpr int kv_words = BK * RS;           // one K or V tile
+  static constexpr int p_stride = BK + 1;
   static constexpr int bytes =
       (q_words + 4 * kv_words + kBQ * p_stride) * 4;  // Q, 2 x (K, V), P
+  static_assert(bytes <= 232448, "the block's shared memory must fit an SM");
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -96,21 +102,21 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // q . k over one row pair, both in padded rows of 32-bit floats
-template <typename T, int W>
+template <typename T, int W, int COLS>
 __device__ __forceinline__ void dot_rows(const uint32_t* __restrict__ q_rows,
                                          const uint32_t* __restrict__ k_rows,
-                                         int RS, float (&s)[kRows][kCols]) {
+                                         int RS, float (&s)[kRows][COLS]) {
 #pragma unroll 4
   for (int w = 0; w < W; ++w) {
-    float qv[kRows], kv[kCols];
+    float qv[kRows], kv[COLS];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) qv[i] = __uint_as_float(q_rows[i * RS + w]);
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) kv[j] = __uint_as_float(k_rows[j * 16 * RS + w]);
+    for (int j = 0; j < COLS; ++j) kv[j] = __uint_as_float(k_rows[j * 16 * RS + w]);
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < COLS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
   }
 }
 
@@ -120,7 +126,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     T* __restrict__ out, int Sq, int Sk, int H, int KV, float scale,
     int causal, int window) {
   using L = Layout<T, HD>;
-  constexpr int W = L::W, RS = L::RS;
+  constexpr int W = L::W, RS = L::RS, kBK = L::BK, kCols = L::COLS;
   constexpr int DJ = HD / 16;  // output dims per thread
   static_assert(HD % 16 == 0, "16 threads split hd");
 
@@ -203,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-    dot_rows<T, W>(q_s + (ty * kRows) * RS, ks + tx * RS, RS, s);
+    dot_rows<T, W, kCols>(q_s + (ty * kRows) * RS, ks + tx * RS, RS, s);
 
     // mask, online softmax over this tile; a row's 16 owners share a half-warp
 #pragma unroll
@@ -298,6 +304,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     case 64: return launch_hd<64>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal, window, stream);
     case 112: return launch_hd<112>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal, window, stream);
     case 128: return launch_hd<128>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal, window, stream);
+    case 256: return launch_hd<256>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -307,7 +314,6 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 namespace tc {
 
 constexpr int kBQ = 128;                   // query rows per block
-constexpr int kBK = 128;                   // keys per tile
 constexpr int kStages = 2;                 // depth of the K / V ring
 constexpr int kConsumers = 256;             // two warpgroups of 64 query rows
 constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
@@ -324,15 +330,18 @@ constexpr int kEncodeError = 20000;
 // Shared memory of one block: the Q tile, then kStages (K, V) tile pairs,
 // each tile HDP / 64 halves of [rows][64] bf16 in the 128-byte swizzle,
 // then the mbarriers; 1024 bytes of slack align the tiles to the swizzle
-// atom.
+// atom.  Keys per tile: 128, or 64 at hd 256 (Q 64 KB + 2 x 128 KB of
+// 128-key stages would not fit in 227 KB; 64-key stages take 2 x 64 KB).
 template <int HDP>
 struct Smem {
+  static constexpr int BK = HDP > 128 ? 64 : 128;
   static constexpr int halves = HDP / 64;
   static constexpr int q_bytes = halves * kBQ * kRowBytes;
-  static constexpr int kv_bytes = halves * kBK * kRowBytes;  // one K or V tile
+  static constexpr int kv_bytes = halves * BK * kRowBytes;  // one K or V tile
   static constexpr int stage_bytes = 2 * kv_bytes;
   static constexpr int bar_off = q_bytes + kStages * stage_bytes;
   static constexpr int bytes = bar_off + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(bytes <= 232448, "the block's shared memory must fit an SM");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -436,6 +445,22 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (+)= A B, m64n64k16, A and B from shared memory (both K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D += A B, m64n128k16, A (bf16 pairs) from registers, B from shared
 // memory N-major (the transpose flag)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -482,6 +507,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Sq,
     int Sk, int H, int KV, int hd, float scale_log2, int causal, int window) {
   using L = Smem<HDP>;
+  constexpr int kBK = L::BK;   // keys per tile
   constexpr int NO = HDP / 2;  // output accumulator floats per thread
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -552,15 +578,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     const uint32_t ks = kv_s + s * L::stage_bytes, vs = ks + L::kv_bytes;
 
     // S = Q K^T: both K-major in shared memory, 16 columns of hd a step
-    float sc[64];
+    float sc[kBK / 2];
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
     for (int hf = 0; hf < L::halves; ++hf)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n128(sc, desc(q_wg + hf * kBQ * kRowBytes + kk * 32, 16, 1024),
-                      desc(ks + hf * kBK * kRowBytes + kk * 32, 16, 1024), hf + kk > 0);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc(q_wg + hf * kBQ * kRowBytes + kk * 32, 16, 1024);
+        const uint64_t db = desc(ks + hf * kBK * kRowBytes + kk * 32, 16, 1024);
+        if constexpr (kBK == 128)
+          wgmma_ss_n128(sc, da, db, hf + kk > 0);
+        else
+          wgmma_ss_n64(sc, da, db, hf + kk > 0);
+      }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -625,17 +656,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     }
 
     // O += P V: V N-major in shared memory (8-key groups 1024 bytes apart,
-    // the two 64-column halves a whole tile apart)
+    // the 64-column halves a whole tile apart); at hd 256 one n128 product
+    // per pair of halves, into the accumulator's two 64-float halves
     fence_regs(pa);  // P and O are final before the wgmma stage starts
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kb = 0; kb < kBK / 16; ++kb) {
-      const uint64_t dv = desc(vs + kb * 16 * kRowBytes, kBK * kRowBytes, 1024);
-      if constexpr (HDP == 128)
-        wgmma_rs_n128(o, pa[kb], dv);
-      else
-        wgmma_rs_n64(o, pa[kb], dv);
+      const uint32_t vk = vs + kb * 16 * kRowBytes;
+      if constexpr (HDP == 256) {
+        wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), pa[kb],
+                      desc(vk, kBK * kRowBytes, 1024));
+        wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), pa[kb],
+                      desc(vk + 2 * kBK * kRowBytes, kBK * kRowBytes, 1024));
+      } else if constexpr (HDP == 128) {
+        wgmma_rs_n128(o, pa[kb], desc(vk, kBK * kRowBytes, 1024));
+      } else {
+        wgmma_rs_n64(o, pa[kb], desc(vk, kBK * kRowBytes, 1024));
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -722,8 +760,8 @@ int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, in
   }
   CUtensorMap tq, tk, tv;
   int e = encode(&tq, q, hd, H, Sq, B, kBQ);
-  if (!e) e = encode(&tk, k, hd, KV, Sk, B, kBK);
-  if (!e) e = encode(&tv, v, hd, KV, Sk, B, kBK);
+  if (!e) e = encode(&tk, k, hd, KV, Sk, B, Smem<HDP>::BK);
+  if (!e) e = encode(&tv, v, hd, KV, Sk, B, Smem<HDP>::BK);
   if (e) return e;
   const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)(B * H));
   flash_attention_wgmma_kernel<HDP><<<grid, kThreads, smem, stream>>>(
@@ -738,6 +776,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
     case 64: return launch_hdp<64>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, stream);
     case 112:
     case 128: return launch_hdp<128>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, stream);
+    case 256: return launch_hdp<256>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

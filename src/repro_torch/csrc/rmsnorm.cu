@@ -386,7 +386,8 @@ bool try_rows(const Args& a, int lpr, int vpl) {
 }
 
 // The rows path's instances: (LPR, VPL) of the widths 64-7168 that the
-// models and the JAX tests use (ops.py:ROW_INSTANCES), each where it fits.
+// models and the JAX tests use (ops.py:ROW_INSTANCES), each where it fits;
+// (16, 9) and (32, 9) are gemma3's d 1152 at bf16 and f32.
 template <typename T, typename S, bool RES>
 bool launch_rows(const Args& a, int lpr, int vpl) {
   return try_rows<T, S, 16, 1, RES>(a, lpr, vpl) ||
@@ -394,6 +395,8 @@ bool launch_rows(const Args& a, int lpr, int vpl) {
          try_rows<T, S, 32, 2, RES>(a, lpr, vpl) ||
          try_rows<T, S, 32, 4, RES>(a, lpr, vpl) ||
          try_rows<T, S, 32, 8, RES>(a, lpr, vpl) ||
+         try_rows<T, S, 16, 9, RES>(a, lpr, vpl) ||
+         try_rows<T, S, 32, 9, RES>(a, lpr, vpl) ||
          try_rows<T, S, 32, 14, RES>(a, lpr, vpl) ||
          try_rows<T, S, 32, 16, RES>(a, lpr, vpl) ||
          try_rows<T, S, 32, 28, RES>(a, lpr, vpl);

@@ -31,30 +31,53 @@ from .._build import library
 from .._common import (check_cuda, check_status, dtype_code, sm_count,
                        stream_handle)
 
-__all__ = ["decode_attention", "decode_attention_plain",
+__all__ = ["blocks_per_sm", "decode_attention", "decode_attention_plain",
            "decode_attention_splitk_plain", "plan_splits", "split_bounds"]
 
 #: masked-score constant of the reference oracle (``ref.py``)
 _NEG_INF = -1e30
-#: head dims the kernel is instantiated for, and the largest GQA group
-HEAD_DIMS = (64, 112, 128)
-MAX_GROUP = 16
+#: head dims the kernel is instantiated for, and the largest GQA group of
+#: each (hd 256 holds 8 dims of every row in a lane's registers: up to 4)
+HEAD_DIMS = (64, 112, 128, 256)
+MAX_GROUP = {64: 16, 112: 16, 128: 16, 256: 4}
 #: keys per tile of the kernel, and the fewest keys a slice of the key
 #: range is given before it pays to split further
 TILE_KEYS = 32
 MIN_SPLIT_KEYS = 256
-#: blocks per SM the split aims for (four 48 KB bf16 blocks share an SM)
+#: the most blocks per SM the split aims for (four 48 KB bf16 blocks at hd
+#: 128 share an SM), the shared memory of an SM, and what each block needs
+#: beside its ring (its static p / m / l / alpha arrays, the runtime's 1 KB)
 BLOCKS_PER_SM = 4
+SMEM_PER_SM = 228 * 1024
+SMEM_BESIDE_RING = 3 * 1024
 
 
-def plan_splits(s_max: int, bkv: int, sms: int) -> int:
+def ring_bytes(hd: int, itemsize: int) -> int:
+    """The kernel's K + V ring (``smem_bytes`` in the source): 3 stages of
+    32-key tiles at bf16, 2 at f32."""
+    stages = 3 if itemsize == 2 else 2
+    return stages * 2 * TILE_KEYS * hd * itemsize
+
+
+def blocks_per_sm(hd: int, itemsize: int) -> int:
+    """Blocks of the instance for ``hd`` and ``itemsize`` that one SM holds
+    at once: as many rings as its shared memory takes, at most
+    ``BLOCKS_PER_SM`` (4 at bf16 hd 128, 2 at bf16 hd 256, 1 at f32 hd
+    256)."""
+    per = ring_bytes(hd, itemsize) + SMEM_BESIDE_RING
+    return max(1, min(BLOCKS_PER_SM, SMEM_PER_SM // per))
+
+
+def plan_splits(s_max: int, bkv: int, sms: int, *, hd: int = 128,
+                itemsize: int = 2) -> int:
     """Slices of the key range for a cache of ``s_max`` keys, ``bkv``
     (batch x kv head) rows and a card of ``sms`` SMs: as many as fit in one
-    wave of ``BLOCKS_PER_SM`` blocks on every SM (a second, partial wave
-    would double the time), each slice at least ``MIN_SPLIT_KEYS`` keys
-    long.  1 for a short serving cache, where the kernel writes the
-    output itself with no merge launch."""
-    want = BLOCKS_PER_SM * sms // max(bkv, 1)
+    wave of the :func:`blocks_per_sm` blocks of the ``hd`` / ``itemsize``
+    instance on every SM (a second, partial wave would double the time),
+    each slice at least ``MIN_SPLIT_KEYS`` keys long.  1 for a short
+    serving cache, where the kernel writes the output itself with no merge
+    launch."""
+    want = blocks_per_sm(hd, itemsize) * sms // max(bkv, 1)
     return max(1, min(want, -(-s_max // MIN_SPLIT_KEYS)))
 
 
@@ -160,11 +183,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
-    if H % KV or not 1 <= H // KV <= MAX_GROUP:
-        raise ValueError(f"decode_attention: H={H}, KV={KV} (group must "
-                         f"divide and be <= {MAX_GROUP})")
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention: hd={hd} not in {HEAD_DIMS}")
+    if H % KV or not 1 <= H // KV <= MAX_GROUP[hd]:
+        raise ValueError(f"decode_attention: H={H}, KV={KV} (group must "
+                         f"divide and be <= {MAX_GROUP[hd]} at hd {hd})")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError("decode_attention: q and caches must share a dtype")
     if pos.dtype != torch.int32 or pos.numel() != 1:
@@ -179,7 +202,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
-    n_split = plan_splits(S, B * KV, sm_count(dev.index or 0))
+    n_split = plan_splits(S, B * KV, sm_count(dev.index or 0), hd=hd,
+                          itemsize=q.element_size())
     scratch = None
     if n_split > 1:     # m, l and the f32 accumulator of every slice
         scratch = torch.empty(B * KV * n_split * (H // KV) * (hd + 2),

@@ -6,7 +6,8 @@ Replaces the TPU kernel
 (wrapper ``ops.py:flash_attention``).  The kernel is
 ``repro_torch/csrc/flash_attention.cu``.  At bf16 it runs on the tensor
 cores: one block per (batch, query head, 128-query tile) walks its
-reachable 128-key tiles, a producer warp loads Q, K and V tiles by TMA
+reachable 128-key tiles (64-key at hd 256, so that Q and two stages of K
+and V fit in shared memory), a producer warp loads Q, K and V tiles by TMA
 into a ring of shared-memory stages, and two warpgroups run ``wgmma`` for
 S = QK^T and O += PV with the f32 online softmax in registers; P is
 rounded to bf16 before PV.  At f32 (``wgmma`` has no f32 inputs) it runs a
@@ -34,7 +35,7 @@ from .._common import check_cuda, check_status, dtype_code, stream_handle
 __all__ = ["flash_attention", "flash_attention_plain"]
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 112, 128, 256)
 #: the C entry point's code for a TMA tensor map it could not encode
 #: (plus the driver's CUresult)
 ENCODE_ERROR = 20000

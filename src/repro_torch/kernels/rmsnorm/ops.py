@@ -32,10 +32,12 @@ __all__ = ["RowPlan", "plan_rows", "rmsnorm", "rmsnorm_lanes_plain",
 
 #: warps per block on every path (``rmsnorm.cu``: ``BLOCK`` / 32)
 WARPS_PER_BLOCK = 4
-#: (lanes per row, 16-byte vectors per lane) the rows path is built for: the widths 64-7168 (bf16: 128 takes (16, 1), 2048 (32, 8), 3584
-#: (32, 14); f32: 128 takes (32, 1), 2048 (32, 16), 3584 (32, 28))
+#: (lanes per row, 16-byte vectors per lane) the rows path is built for: the widths 64-7168 (bf16: 128 takes (16, 1), 1152 (16, 9), 2048
+#: (32, 8), 3584 (32, 14); f32: 128 takes (32, 1), 1152 (32, 9), 2048
+#: (32, 16), 3584 (32, 28)).  5120 and 6144 ((32, 20) and (32, 24) at
+#: bf16) hold more than ``REG_WORDS`` and take the loop path.
 ROW_INSTANCES = frozenset({(16, 1), (32, 1), (32, 2), (32, 4), (32, 8),
-                           (32, 14), (32, 16), (32, 28)})
+                           (16, 9), (32, 9), (32, 14), (32, 16), (32, 28)})
 #: registers a lane may spend on its rows' x (and residual) and its columns
 #: of the scale (``REG_WORDS``); those planned beside them for addresses,
 #: counters and values in flight to the store

@@ -5,6 +5,12 @@ decode step, then batched greedy (or sampled) decode, on the card.
       --prompt-len 16 --gen 16 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --prompt-len 16 --gen 16 --batch 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch nemotron-4-15b
+
+On the card every step replays one CUDA graph of the decode step and its
+sampling (``serve.step.CapturedServeStep``).
 
 The hybrid's cache holds, per mamba block, its f32 SSD state and conv
 window, and one KV cache per application of the shared attention block.
@@ -24,20 +30,27 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.models.transformer import Decoder, init_cache
-from repro_torch.serve.step import make_serve_step
+from repro_torch.serve.step import CapturedServeStep, make_serve_step
 
 __all__ = ["main", "generate"]
 
 
 def generate(cfg, params: Union[dict, Decoder], prompt: torch.Tensor,
              gen: int, temperature: float = 0.0, seed: int = 0, *,
-             device: Optional[Union[str, torch.device]] = None
-             ) -> torch.Tensor:
+             device: Optional[Union[str, torch.device]] = None,
+             capture: bool = True,
+             step_log: Optional[list] = None) -> torch.Tensor:
     """prompt ``[B, S0]`` -> tokens ``[B, S0 + gen]`` (greedy, or sampled
     from a ``torch.Generator`` seeded with ``seed``).
 
     ``params`` is a parameter tree or a :class:`Decoder`, already on
-    ``device`` (default ``"cuda"``; raises without a card)."""
+    ``device`` (default ``"cuda"``; raises without a card).  On the card
+    every step, prompt and generated, replays one
+    :class:`CapturedServeStep`; a capture or replay that fails raises.
+    ``capture=False`` runs the step eagerly instead (the comparison the
+    captured step is held to); the CPU always runs it eagerly.  A
+    ``step_log`` list receives the captured step, whose ``launches`` and
+    ``replays`` give the kernel launches of the run."""
     dev = resolve_device(device)
     if isinstance(params, Decoder):
         params = params.tree()
@@ -46,22 +59,33 @@ def generate(cfg, params: Union[dict, Decoder], prompt: torch.Tensor,
                          f"generate was asked for {dev}")
     B, S0 = prompt.shape
     s_max = S0 + gen
-    cache = init_cache(cfg, B, s_max, dev)
-    serve_step = make_serve_step(cfg, temperature)
     rng = torch.Generator(device=dev).manual_seed(seed)
     # every position as a device scalar: the step reads pos on the device
     positions = torch.arange(s_max, dtype=torch.int32, device=dev)
     toks = prompt.to(dev, torch.long)
+    if capture and dev.type == "cuda":
+        captured = CapturedServeStep(cfg, params, B, s_max, temperature, rng,
+                                     device=dev)
+        if step_log is not None:
+            step_log.append(captured)
+
+        def step(t: int) -> torch.Tensor:
+            return captured(toks[:, t:t + 1], positions[t])[0]
+    else:
+        cache = init_cache(cfg, B, s_max, dev)
+        serve_step = make_serve_step(cfg, temperature)
+
+        def step(t: int) -> torch.Tensor:
+            return serve_step(params, cache, toks[:, t:t + 1], positions[t],
+                              rng)[0]
     nxt = None
     with torch.inference_mode():
         # teacher-forced prefill through the decode path (exact cache build)
         for t in range(S0):
-            nxt, _, cache = serve_step(params, cache, toks[:, t:t + 1],
-                                       positions[t], rng)
+            nxt = step(t)
         for t in range(S0, s_max):
             toks = torch.cat([toks, nxt], dim=1)
-            nxt, _, cache = serve_step(params, cache, toks[:, t:t + 1],
-                                       positions[t], rng)
+            nxt = step(t)
     return toks
 
 

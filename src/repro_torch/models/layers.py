@@ -113,7 +113,10 @@ def attention_specs(cfg: ModelConfig) -> dict:
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor,
          positions: torch.Tensor, kv_positions: torch.Tensor, use_rope: bool,
-         *, plain: bool = False):
+         *, rope=None, plain: bool = False):
+    """q, k, v projections, qk-norm and RoPE.  ``rope``: the (sin, cos) of
+    ``positions``, already computed by the caller for every layer of a
+    step, for self-attention (``kv_positions`` the same positions)."""
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
     k = torch.einsum("bsd,dnh->bsnh", kv_x, p["wk"])
     v = torch.einsum("bsd,dnh->bsnh", kv_x, p["wv"])
@@ -122,7 +125,10 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor,
     if "q_norm" in p:
         q = _rms_head(q, p["q_norm"], cfg.norm_eps, plain=plain)
         k = _rms_head(k, p["k_norm"], cfg.norm_eps, plain=plain)
-    if use_rope:
+    if use_rope and rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+    elif use_rope:
         sin_q, cos_q = rope_sin_cos(positions, cfg.hd, cfg.rope_theta)
         sin_k, cos_k = rope_sin_cos(kv_positions, cfg.hd, cfg.rope_theta)
         q = apply_rope(q, sin_q, cos_q)
@@ -165,6 +171,7 @@ def attention(
     window: Optional[int] = None,
     use_rope: bool = True,
     q_block: int = 1024,
+    rope=None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Full-sequence attention (prefill / forward): x ``[B, S, d]`` ->
@@ -177,7 +184,8 @@ def attention(
     exact query-blocked ``_sdpa`` (blocks of ``q_block`` queries over all
     keys, or over the ``window - 1 + q_block`` keys a sliding-window block
     can reach), which rounds the probabilities to the compute dtype first;
-    at bf16 the two agree within bf16 tolerance."""
+    at bf16 the two agree within bf16 tolerance.  ``rope``: the (sin, cos)
+    of positions 0..S-1 (``rope_sin_cos``), computed here when not given."""
     if kv_x is not None:
         raise NotImplementedError("cross-attention (kv_x) is not ported yet")
     if cfg.attn_probs_dtype != "float32":
@@ -188,7 +196,7 @@ def attention(
     kv_positions = positions
 
     q, k, v = _qkv(p, cfg, x, x, positions, kv_positions, use_rope,
-                   plain=plain)
+                   rope=rope, plain=plain)
     KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     scale = cfg.attn_scale or 1.0 / math.sqrt(hd)
 
@@ -237,6 +245,7 @@ def attention_from_cache(
     *,
     window: Optional[int] = None,
     use_rope: bool = True,
+    rope=None,
     plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode: x ``[B, 1, d]``; caches ``[B, S_max, KV, hd]``;
@@ -249,10 +258,11 @@ def attention_from_cache(
     returns the same tensors.  The softmax keeps f32 probabilities
     through the PV product, as the TPU kernel does; the reference's XLA
     path casts them to the compute dtype first, so bf16 results differ
-    within bf16 tolerance."""
+    within bf16 tolerance.  ``rope``: the (sin, cos) of ``pos``
+    (``rope_sin_cos``), computed here when not given."""
     positions = pos.reshape(1)
     q, k_new, v_new = _qkv(p, cfg, x, x, positions, positions, use_rope,
-                           plain=plain)
+                           rope=rope, plain=plain)
     idx = positions.to(torch.long)
     k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))

@@ -9,9 +9,13 @@ and, for the hybrid family, one ``shared_attn`` block outside the stack,
 so a checkpoint crosses between the packages by key.  The reference's
 ``lax.scan`` over the stack is a Python loop over the leading axis here.
 
-Ported programs: dense global attention (``("attn",) * L``, qwen3) and
-the hybrid (``("mamba",) * period + ("shared_attn",)`` per group plus a
-mamba tail, zamba2).  ``forward`` builds no cache, as the reference's
+Ported programs: dense global attention (``("attn",) * L``: qwen3,
+qwen2.5, nemotron), the dense local/global program (``("attn_local",) * N
++ ("attn_global",)`` per group plus a local tail, gemma3; the local layers
+attend within ``cfg.attn_window``) and the hybrid (``("mamba",) * period +
+("shared_attn",)`` per group plus a mamba tail, zamba2).  The RoPE sin /
+cos of the step's positions are computed once per forward or decode step
+and shared by every layer.  ``forward`` builds no cache, as the reference's
 does not; ``generate`` prefills through the decode step.  The training
 levers ``remat`` and ``seq_shard_norms`` are not ported.  The other
 families come with their slices.
@@ -31,7 +35,8 @@ from repro_torch.models.common import (ModelConfig, ParamSpec, init_params,
                                        spec_tree_num_params, tree_map)
 from repro_torch.models.layers import (apply_norm, attention,
                                        attention_from_cache, attention_specs,
-                                       mlp, mlp_specs, norm_spec)
+                                       mlp, mlp_specs, norm_spec,
+                                       rope_sin_cos)
 
 __all__ = ["program_for", "model_specs", "forward", "prefill", "cache_specs",
            "init_cache", "decode_step", "num_params", "Decoder"]
@@ -52,15 +57,27 @@ def program_for(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
         per = cfg.hybrid_period
         return ("mamba",) * per + ("shared_attn",), L // per, \
             ("mamba",) * (L % per)
-    if cfg.family != "dense" or cfg.local_global_pattern:
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense global-attention and hybrid "
-            f"programs are ported")
+            f"{cfg.name}: only the dense and hybrid programs are ported")
+    if cfg.local_global_pattern:
+        per = cfg.local_global_pattern + 1
+        grp = ("attn_local",) * cfg.local_global_pattern + ("attn_global",)
+        return grp, L // per, ("attn_local",) * (L % per)
     return ("attn",), L, ()
 
 
+#: block kinds made of attention + MLP (``shared_attn`` uses the shared
+#: parameters); ``attn_local`` attends within ``cfg.attn_window``
+_ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn")
+
+
+def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    return cfg.attn_window if kind == "attn_local" else None
+
+
 def _block_specs(cfg: ModelConfig, kind: str) -> dict:
-    if kind in ("attn", "shared_attn"):
+    if kind in _ATTN_KINDS:
         return {"ln1": norm_spec(cfg), "attn": attention_specs(cfg),
                 "ln2": norm_spec(cfg), "mlp": mlp_specs(cfg)}
     if kind == "mamba":
@@ -105,14 +122,16 @@ def num_params(cfg: ModelConfig) -> int:
 # ------------------------------------------------------------------ forward
 
 def _apply_block(cfg: ModelConfig, kind: str, p: Optional[dict],
-                 x: torch.Tensor, shared: Optional[dict], *,
+                 x: torch.Tensor, shared: Optional[dict], rope, *,
                  plain: bool) -> torch.Tensor:
-    """One block, full-sequence mode."""
+    """One block, full-sequence mode; ``rope`` is the (sin, cos) of the
+    sequence's positions."""
     eps, nk = cfg.norm_eps, cfg.norm
-    if kind in ("attn", "shared_attn"):
+    if kind in _ATTN_KINDS:
         pp = shared if kind == "shared_attn" else p
         h = apply_norm(pp["ln1"], x, eps, nk, plain=plain)
-        x = x + attention(pp["attn"], cfg, h, causal=True, plain=plain)
+        x = x + attention(pp["attn"], cfg, h, causal=True,
+                          window=_window(cfg, kind), rope=rope, plain=plain)
         h = apply_norm(pp["ln2"], x, eps, nk, plain=plain)
         return x + mlp(pp["mlp"], cfg, h)
     if kind == "mamba":
@@ -154,14 +173,16 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     x = _positions_embed(cfg, params, batch["tokens"])
     grp, n_groups, rem = program_for(cfg)
     shared = params.get("shared_attn")
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    rope = rope_sin_cos(positions, cfg.hd, cfg.rope_theta)
     for layer in range(n_groups):
         gp = _layer(params["blocks"], layer)
         for i, kind in enumerate(grp):
             p = None if kind == "shared_attn" else gp[f"b{i}_{kind}"]
-            x = _apply_block(cfg, kind, p, x, shared, plain=plain)
+            x = _apply_block(cfg, kind, p, x, shared, rope, plain=plain)
     for i, kind in enumerate(rem):
         x = _apply_block(cfg, kind, params["tail"][f"t{i}_{kind}"], x, shared,
-                         plain=plain)
+                         rope, plain=plain)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, cfg, x, plain=plain), aux
 
@@ -182,7 +203,7 @@ _CACHE_F32 = ("h", "C", "n", "m", "c")
 
 def _block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
                        s_max: int) -> dict:
-    if kind in ("attn", "shared_attn"):
+    if kind in _ATTN_KINDS:
         return {n: ParamSpec((batch, s_max, cfg.n_kv_heads, cfg.hd),
                              ("batch", "cache_seq", "kv_heads", "head_dim"),
                              "zeros") for n in ("k", "v")}
@@ -231,14 +252,18 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 def _decode_block(cfg: ModelConfig, kind: str, p: Optional[dict],
                   x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                  shared: Optional[dict], *, plain: bool) -> torch.Tensor:
-    """One block; writes this block's cache in place."""
+                  shared: Optional[dict], rope, *,
+                  plain: bool) -> torch.Tensor:
+    """One block; writes this block's cache in place.  ``rope`` is the
+    (sin, cos) of ``pos``."""
     eps, nk = cfg.norm_eps, cfg.norm
-    if kind in ("attn", "shared_attn"):
+    if kind in _ATTN_KINDS:
         pp = shared if kind == "shared_attn" else p
         h = apply_norm(pp["ln1"], x, eps, nk, plain=plain)
         y, _, _ = attention_from_cache(pp["attn"], cfg, h, cache["k"],
-                                       cache["v"], pos, plain=plain)
+                                       cache["v"], pos,
+                                       window=_window(cfg, kind), rope=rope,
+                                       plain=plain)
         x = x + y
         h = apply_norm(pp["ln2"], x, eps, nk, plain=plain)
         return x + mlp(pp["mlp"], cfg, h)
@@ -262,22 +287,24 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     x = _positions_embed(cfg, params, token)
     grp, n_groups, rem = program_for(cfg)
     shared = params.get("shared_attn")
+    # once per step, on the device: every attention layer rotates by pos
+    rope = rope_sin_cos(pos.reshape(1), cfg.hd, cfg.rope_theta)
     for layer in range(n_groups):
         gp = _layer(params["blocks"], layer)
         gc = _layer(cache["blocks"], layer)
         for i, kind in enumerate(grp):
             if kind == "shared_attn":
                 c = _layer(cache["shared"]["attn"], layer)
-                x = _decode_block(cfg, kind, None, x, c, pos, shared,
+                x = _decode_block(cfg, kind, None, x, c, pos, shared, rope,
                                   plain=plain)
             else:
                 key = f"b{i}_{kind}"
                 x = _decode_block(cfg, kind, gp[key], x, gc[key], pos, shared,
-                                  plain=plain)
+                                  rope, plain=plain)
     for i, kind in enumerate(rem):
         key = f"t{i}_{kind}"
         x = _decode_block(cfg, kind, params["tail"][key], x,
-                          cache["tail"][key], pos, shared, plain=plain)
+                          cache["tail"][key], pos, shared, rope, plain=plain)
     return _logits(params, cfg, x, plain=plain)[:, 0], cache
 
 

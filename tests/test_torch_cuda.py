@@ -63,6 +63,11 @@ def test_rmsnorm_kernel_matches_plain(card, shape, dtype, with_res):
     (4, 1, 2048), (4, 1, 16, 128), (4, 1, 8, 128),          # qwen3 decode
     (4, 2048, 2048), (4, 2048, 16, 128), (4, 2048, 8, 128),  # qwen3 prefill
     (1, 4096, 3584), (2, 1, 3584),                 # zamba2 prefill, decode
+    # gemma3-1b prefill (S 8192) and decode: d 1152 on the (16, 9) rows
+    # instance at bf16, (32, 9) at f32; its q/k-norm rows of 256
+    (1, 8192, 1152), (4, 1, 1152), (1, 8192, 4, 256), (4, 1, 1, 256),
+    # qwen2.5-14b and nemotron-4-15b: d 5120 and 6144 on the loop path
+    (1, 4096, 5120), (4, 1, 5120), (1, 4096, 6144), (4, 1, 6144),
 ], ids=str)
 def test_rmsnorm_kernel_matches_plain_at_path_shapes(card, shape, dtype):
     """The models' shapes, scale in x's dtype as the models hold it; d 3584
@@ -99,6 +104,15 @@ def test_rmsnorm_kernel_matches_plain_off_16_byte_alignment(card, dtype,
     (4, 8, 2, 128, 48, 47, None), (2, 2, 1, 64, 512, 0, None),
     (2, 2, 8, 64, 700, 600, None), (2, 2, 4, 128, 1024, 900, 32),
     (2, 2, 4, 64, 1024, 900, 1 << 20), (1, 1, 16, 128, 300, 299, 256),
+    # gemma3-1b: KV 1, G 4, hd 256, window 512 on its local layers; a
+    # serving cache (600 + 32 keys) and the 32768-key cache of one long
+    # step (split across blocks, the window inside the last slices)
+    (4, 1, 4, 256, 632, 631, None), (4, 1, 4, 256, 632, 631, 512),
+    (4, 1, 4, 256, 632, 100, 512), (2, 2, 2, 256, 512, 300, None),
+    (8, 1, 4, 256, 32768, 32760, None), (8, 1, 4, 256, 32768, 32760, 512),
+    # qwen2.5-14b (G 5) and nemotron-4-15b (G 6) on the G <= 16 instance
+    (4, 8, 5, 128, 32, 31, None), (4, 8, 6, 128, 32, 31, None),
+    (4, 8, 5, 128, 4096, 4095, None), (4, 8, 6, 128, 4096, 2047, 256),
     # zamba2-7b generate: B 2, KV 32, G 1, hd 112, S_max 32
     (2, 32, 1, 112, 32, 0, None), (2, 32, 1, 112, 32, 15, None),
     (2, 32, 1, 112, 32, 31, None),
@@ -144,7 +158,16 @@ FLASH_CASES = (
        (1, 300, 300, 4, 2, 112, True, None, None),
        (1, 190, 333, 4, 1, 64, False, 100, None),
        (4, 2048, 2048, 16, 8, 128, True, None, None),
-       (1, 4096, 4096, 32, 32, 112, True, None, None)])
+       (1, 4096, 4096, 32, 32, 112, True, None, None)]
+    # hd 256 (gemma3-1b: H 4, KV 1): causal with and without its window
+    # of 512, a window edge on a 128-query tile edge, ragged Sq and Sk,
+    # non-causal, GQA 2, and the prefill's own shape
+    + [(1, 1024, 1024, 4, 1, 256, True, w, None) for w in (None, 512)]
+    + [(1, 700, 700, 4, 1, 256, True, 128, None),
+       (2, 300, 333, 4, 2, 256, False, None, None),
+       (1, 190, 190, 4, 1, 256, True, None, None),
+       (1, 8192, 8192, 4, 1, 256, True, 512, None),
+       (1, 8192, 8192, 4, 1, 256, True, None, None)])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -407,3 +430,97 @@ def test_streaming_restore_pins_and_copies_off_the_loop(card, tmp_path,
     local, _ = restore_checkpoint(str(tmp_path), state, device=card)
     for k, t in state.items():
         assert torch.equal(local[k].cpu(), t), k
+
+
+def _card_config(arch, dtype="float32"):
+    """A reduced config at widths the kernels are built for: qwen3 at hd
+    128, gemma3 at hd 256 (KV 1, G 4, window 16), zamba2 at hd 64."""
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config(arch).replace(dtype=dtype, d_model=256, d_ff=512)
+    if arch == "qwen3-1.7b":
+        return cfg.replace(n_heads=4, n_kv_heads=2, head_dim=128)
+    if arch == "gemma3-1b":
+        return cfg.replace(head_dim=256)
+    return cfg.replace(n_heads=4, n_kv_heads=4)
+
+
+def _counts():
+    return {f.__name__: f.launches for f in (decode_attention, rmsnorm,
+                                             flash_attention, ssm_scan)}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b", "zamba2-7b"])
+def test_captured_generate_matches_the_eager_step(card, arch):
+    """Greedy tokens identical, captured against eager, at f32 (gemma3's
+    20 positions pass its window of 16); the graph holds exactly one eager
+    step's kernel launches and replays once per position; teacher-forced
+    logits of the captured step equal the eager step's within 1e-3."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import Decoder, decode_step, init_cache
+    from repro_torch.serve.step import CapturedServeStep
+
+    cfg = _card_config(arch)
+    model = Decoder(cfg, device=card)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), device=card,
+                           generator=torch.Generator(card).manual_seed(3))
+    log = []
+    captured = generate(cfg, model, prompt, 12, device=card, step_log=log)
+    eager = generate(cfg, model, prompt, 12, device=card, capture=False)
+    assert torch.equal(captured, eager)
+    step = log[0]
+    assert step.replays == 20
+    params = model.tree()
+    cache = init_cache(cfg, 2, 20, card)
+    fresh = CapturedServeStep(cfg, params, 2, 20, device=card)
+    with torch.inference_mode():
+        for t in range(20):
+            pos = torch.tensor(t, dtype=torch.int32, device=card)
+            before = _counts()
+            lk, cache = decode_step(params, cfg, cache, eager[:, t:t + 1], pos)
+            after = _counts()
+            assert step.launches == {k: after[k] - before[k] for k in after}
+            _, lg = fresh(eager[:, t:t + 1], pos)
+            torch.testing.assert_close(lg, lk.float(), atol=1e-3, rtol=0)
+
+
+def test_captured_sampling_draws_from_the_registered_generator(card):
+    """temperature > 0: the generator is registered with the graph, so
+    every replay draws afresh; the same seed gives the same tokens, and the
+    draws differ from greedy decoding."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import Decoder
+
+    cfg = _card_config("qwen3-1.7b")
+    model = Decoder(cfg, device=card)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 4), device=card,
+                           generator=torch.Generator(card).manual_seed(4))
+    a, b = (generate(cfg, model, prompt, 16, temperature=2.0, seed=7,
+                     device=card) for _ in range(2))
+    greedy = generate(cfg, model, prompt, 16, device=card)
+    assert torch.equal(a, b)
+    assert ((a >= 0) & (a < cfg.vocab_size)).all()
+    assert not torch.equal(a, greedy)
+
+
+def test_a_capture_that_fails_raises(card, monkeypatch):
+    """A host sync inside the step cannot be captured: generate raises and
+    never falls back to the eager step."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import Decoder
+
+    cfg = _card_config("qwen3-1.7b")
+    model = Decoder(cfg, device=card)
+    norm = layers.rmsnorm
+
+    def syncing_norm(x, scale, *a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            float(x.float().sum())          # a host read: not capturable
+        return norm(x, scale, *a, **kw)
+
+    monkeypatch.setattr(layers, "rmsnorm", syncing_norm)
+    prompt = torch.zeros((2, 4), dtype=torch.long, device=card)
+    with pytest.raises(RuntimeError):
+        generate(cfg, model, prompt, 4, device=card)
+    torch.cuda.synchronize()

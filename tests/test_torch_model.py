@@ -188,3 +188,16 @@ def test_program_for_refuses_unported_norm_options(field, value):
     TT.program_for(tcfg)
     with pytest.raises(NotImplementedError, match=field):
         TT.program_for(tcfg.replace(**{field: value}))
+
+
+def test_program_for_matches_reference_for_every_ported_arch():
+    """``program_for`` returns the reference's program for each config the
+    port registers, gemma3's 5:1 local/global program included."""
+    from repro.configs import get_config
+    from repro_torch.configs import get_config as t_get_config, list_archs
+
+    for arch in list_archs():
+        assert TT.program_for(t_get_config(arch)) == JT.program_for(
+            get_config(arch)), arch
+        assert TT.program_for(reduced_config(arch)) == JT.program_for(
+            jax_reduced(arch)), arch
