@@ -22,7 +22,12 @@ Phases (one JSON line each, ``"phase"`` names them):
    decode attention at hd 256 (gemma3-1b, with and without its window of
    512), decode at G 5 and G 6 (qwen2.5-14b, nemotron-4-15b), rmsnorm at d
    1152 (rows instance), 5120 and 6144 (loop path), each timed with its
-   ``ptxas`` lines.
+   ``ptxas`` lines.  And the serving families' (``serving_family_shapes``
+   in the summary): flash non-causal at Sq != Sk (whisper's encoder and
+   cross-attention, llama-3.2-vision's), causal at hd 112 G 8 (kimi-k2)
+   and olmoe's; decode at olmoe's, kimi's and whisper's instances and the
+   one-query cross-attention over 1500 and 1024 memory rows; rmsnorm at d
+   768, 7168 and olmoe's q/k-norm rows.
 4. ``geometry_*``: the chunk-geometry loop on the card
    (``repro_torch.core``).  ``geometry_sweep`` / ``geometry_winners``: the
    paper's sweep at its real size, ``sweep_scenarios`` over the six-replica
@@ -104,6 +109,45 @@ Phases (one JSON line each, ``"phase"`` names them):
    decode_attention launches per replay) and four teacher-forced
    kernel-vs-plain steps.  Each model is freed before the next; each line
    prints its peak device memory.
+12. ``xlstm_prefill`` / ``xlstm_generate``: xlstm-125m at full width and
+   depth (6 x (mLSTM, sLSTM), d 768), its zero-init ``b_if`` and ``b``
+   set nonzero: prefill at B 1 x S 2048 (13 rmsnorm launches per forward,
+   no other kernel: the cells' loops over time are host-bound), held at
+   bf16 and f32; the captured ``generate`` at B 4, 16 + 32; one captured
+   step at position 524,287 (the reference's ``long_500k``; the state has
+   no sequence axis), held against the plain path.
+13. ``moe_prefill`` / ``moe_generate``: olmoe-1b-7b at full width and
+   depth (16 layers, E 64, top 8, qk-norm): prefill at B 1 x S 4096 (16
+   flash_attention, 65 rmsnorm launches per forward), held at bf16 and
+   with the whole model in f32; the captured ``generate`` at B 4, 16 + 16
+   (16 decode_attention per replay; capacity 1 per expert); the dropped
+   (token, slot) pairs of every hold run printed, equal on the f32 kernel
+   and plain paths.
+14. ``moe_kimi_layer``: kimi-k2 at full width (d 7168, E 384, top 8, H 64
+   / KV 8, hd 112, vocab 163,840) with ``n_layers`` cut 61 -> 1 (36.4 GB
+   of the model's 2.08 TB): prefill at B 1 x S 2048, the captured step at
+   B 4, 16 + 16.  No f32 copy fits beside the bf16 one, so the holds are
+   bf16 at the decode-step tolerance with the kernel path routed as the
+   plain path chose (``MoEProbe``): a reordered near-tie between two
+   experts is not a kernel fault; the reordered choices are counted.
+15. ``encdec_prefill`` / ``encdec_generate``: whisper-large-v3 at full
+   size (32 + 32 layers, d 1280, H 20, hd 64, LayerNorm, GELU), its
+   LayerNorm biases set nonzero: prefill over B 1 x 1500 frames and 448
+   tokens (96 flash_attention launches: 32 bidirectional 1500 x 1500, 32
+   causal, 32 cross 448 x 1500).  The plain hold's attention takes each
+   sequence as one query block (``q_block`` 1500): the reference's blocked
+   form needs a length that is a multiple of its 1024-query block, which
+   1500 is not (the kernel path has no such limit).  Then the captured
+   ``generate`` at B 4, 16 + 32 against the model's own encoder output
+   over 4 x 1500 frames (64 decode_attention per replay: 32 self, 32
+   one-query cross).
+16. ``vlm_prefill`` / ``vlm_generate``: llama-3.2-vision-11b at full size
+   (8 x (4 attn + 1 gated cross-attention), d 4096, H 32 / KV 8), its
+   gates set to 0.5 (``tanh(0) = 0`` would add no cross-attention):
+   prefill over B 1 x 1024 patches and S 2048 (40 flash_attention: 32
+   causal, 8 cross at 2048 x 1024), the f32 hold upcast one group at a
+   time; the captured ``generate`` at B 4, 16 + 16 against the 1024
+   projected patches (40 decode_attention per replay).
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -162,7 +206,15 @@ RMSNORM_PATH_SHAPES = [(4, 1, 2048), (4, 1, 16, 128), (4, 1, 8, 128),
                        (1, 8192, 1152), (1, 8192, 4, 256), (1, 8192, 1, 256),
                        (4, 1, 1152), (4, 1, 4, 256), (8, 1, 1, 256),
                        (1, 4096, 5120), (4, 1, 5120), (1, 4096, 6144),
-                       (4, 1, 6144)]
+                       (4, 1, 6144),
+                       # xlstm-125m (d 768) prefill and decode; olmoe-1b-7b
+                       # (d 2048, q/k-norm of 16 heads of 128) at S 4096
+                       # and B 4; kimi-k2 (d 7168); llama-3.2-vision (d
+                       # 4096) at S 2048 and B 4
+                       (1, 2048, 768), (4, 1, 768), (1, 4096, 2048),
+                       (1, 4096, 16, 128), (4, 1, 16, 128),
+                       (1, 2048, 7168), (4, 1, 7168), (1, 2048, 4096),
+                       (4, 1, 4096)]
 
 #: rmsnorm's timing shapes, bf16: decode (qwen3 B 4 x d 2048, the heads'
 #: q/k-norm), then every call shape of the prefills, where its time is
@@ -178,6 +230,11 @@ RMSNORM_RAGGED_SHAPES = [(131071, 128), (4097, 3584), (1, 2048)]
 #: nemotron's 6144 on the loop path (prefill rows, decode rows)
 RMSNORM_FAMILY_SHAPES = ((8192, 1152), (4, 1152), (4096, 5120), (4, 5120),
                          (4096, 6144), (4, 6144))
+#: rmsnorm timed at the serving families' widths, bf16: xlstm-125m's d 768
+#: (prefill rows, decode rows), olmoe-1b-7b's q/k-norm (B 1 x S 4096 x 16
+#: heads of 128), kimi-k2's d 7168 (prefill rows, decode rows)
+RMSNORM_SERVING_SHAPES = ((2048, 768), (4, 768), (65536, 128), (2048, 7168),
+                          (4, 7168))
 #: the L2 cache of an H100 (50 MB): a cold timing rotates over enough
 #: distinct inputs and outputs that each call finds its x evicted
 L2_BYTES = 50 * 10**6
@@ -205,6 +262,34 @@ LARGE_PREFILL_SHAPE = (1, 4096)
 LARGE_GENERATE = (4, 16, 16)
 #: the captured step against the eager one, teacher-forced logits
 GRAPH_ATOL = 1e-3
+#: the serving families' paths: xlstm-125m prefill (B 1 x S 2048),
+#: generate (B 4, 16 + 32) and one step at the reference's long_500k
+#: position (B 1); olmoe-1b-7b prefill (B 1 x S 4096) and generate (B 4, 16
+#: + 16); one full-width kimi-k2 layer, prefill (B 1 x S 2048) and generate
+#: (B 4, 16 + 16); whisper-large-v3 over 1500 frames (its encoder's native
+#: 30 s grid) and 448 tokens (its decoder's limit), generate (B 4, 16 + 32)
+#: against its own encoder output; llama-3.2-vision-11b over 1024 patches
+#: and S 2048, generate (B 4, 16 + 16) against the projected patches
+XLSTM_PREFILL_SHAPE = (1, 2048)
+XLSTM_GENERATE = (4, 16, 32)
+XLSTM_LONG_POS = 524_287
+#: the xlstm prefill's device profile covers this many positions (its
+#: loops over time issue ~260 kernels a position; a trace of all 2048
+#: takes minutes to read), scaled to the whole prefill
+XLSTM_PROFILE_SEQ = 256
+MOE_PREFILL_SHAPE = (1, 4096)
+MOE_GENERATE = (4, 16, 16)
+KIMI_LAYERS = 1
+KIMI_PREFILL_SHAPE = (1, 2048)
+KIMI_GENERATE = (4, 16, 16)
+WHISPER_FRAMES = 1500
+WHISPER_TOKENS = 448
+ENCDEC_GENERATE = (4, 16, 32)
+VLM_PATCHES = 1024
+VLM_PREFILL_SHAPE = (1, 2048)
+VLM_GENERATE = (4, 16, 16)
+#: the value each zero-init cross-attention gate is set to (tanh 0.46)
+GATE_VALUE = 0.5
 
 
 class CheckFailed(Exception):
@@ -358,7 +443,17 @@ def kernel_phase(torch, K, dev, ptxas):
               + [(2, 2, 2, 256, 512, 300, None)]
               + [(4, 8, g, 128, S, S - 1, None) for g in (5, 6)
                  for S in (32, 4096)]
-              + [(4, 8, 6, 128, 4096, 2047, 256)])
+              + [(4, 8, 6, 128, 4096, 2047, 256)]
+              # the serving families' generate at B 4: olmoe (KV 16, G 1,
+              # hd 128), kimi-k2 (KV 8, G 8, hd 112), whisper's decoder
+              # (KV 20, G 1, hd 64), and the one-query cross-attention over
+              # whisper's 1500 encoder rows and llama-3.2-vision's 1024
+              # patches (pos = M - 1)
+              + [(4, 16, 1, 128, 32, p, None) for p in (0, 31)]
+              + [(4, 8, 8, 112, 32, p, None) for p in (0, 31)]
+              + [(4, 20, 1, 64, 48, p, None) for p in (0, 47)]
+              + [(4, 20, 1, 64, 1500, 1499, None),
+                 (4, 8, 4, 128, 1024, 1023, None)])
     for dt in dtypes:
         for B, KV, G, hd, S, pos, win in dcases:
             q = randn((B, 1, KV * G, hd), dt)
@@ -430,8 +525,15 @@ def kernel_phase(torch, K, dev, ptxas):
                for rows, d in RMSNORM_TIME_SHAPES]
     r_family = [rmsnorm_time(torch, K, dev, randn, ptxas, rows, d)
                 for rows, d in RMSNORM_FAMILY_SHAPES]
+    decode_serving = [decode_time(torch, K, dev, randn, ptxas, *shape)
+                      for shape in DECODE_SERVING_SHAPES]
+    r_serving = [rmsnorm_time(torch, K, dev, randn, ptxas, rows, d)
+                 for rows, d in RMSNORM_SERVING_SHAPES]
 
     flash = flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas)
+    flash["serving_family_shapes"] = [
+        flash_time(torch, K, dev, randn, ptxas, *shape)
+        for shape in FLASH_SERVING_SHAPES]
     ssm = ssm_kernel_phase(torch, K, dev, record, worst, ptxas)
 
     prefill_rms = [{k: t[k] for k in ("shape", "kernel_ms", "kernel_cold_ms",
@@ -450,6 +552,7 @@ def kernel_phase(torch, K, dev, ptxas):
          "bound_by": d_by, "library_ms": d_lib,
          "timed_shape": f"B{B} KV{KV} G{G} hd{hd} S{S} pos{pos} bf16",
          "dense_family_shapes": decode_family,
+         "serving_family_shapes": decode_serving,
          "ptxas": ptxas_of(ptxas, "decode_attention")},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
@@ -465,6 +568,10 @@ def kernel_phase(torch, K, dev, ptxas):
              {k: t[k] for k in ("shape", "kernel_ms", "kernel_cold_ms",
                                 "plain_ms", "library_ms", "bound_ms",
                                 "bound_share", "plan")} for t in r_family],
+         "serving_family_shapes": [
+             {k: t[k] for k in ("shape", "kernel_ms", "kernel_cold_ms",
+                                "plain_ms", "library_ms", "bound_ms",
+                                "bound_share", "plan")} for t in r_serving],
          "ptxas": rt["ptxas"]},
         flash, ssm,
     ]
@@ -479,6 +586,27 @@ DECODE_FAMILY_SHAPES = (
     ("gemma3-1b long local", 8, 1, 4, 256, 32768, 32760, 512),
     ("qwen2.5-14b", 4, 8, 5, 128, 4096, 4095, None),
     ("nemotron-4-15b", 4, 8, 6, 128, 4096, 4095, None),
+)
+#: decode_attention timed at the serving families' instances, bf16: the
+#: self-attention of a B 4, 16 + 16 (olmoe, kimi) or 16 + 32 (whisper)
+#: generate at its last position, and the one-query cross-attention of a
+#: decode step over whisper's 1500 encoder rows and llama-3.2-vision's 1024
+#: patches
+DECODE_SERVING_SHAPES = (
+    ("olmoe-1b-7b", 4, 16, 1, 128, 32, 31, None),
+    ("kimi-k2 layer", 4, 8, 8, 112, 32, 31, None),
+    ("whisper-large-v3 self", 4, 20, 1, 64, 48, 47, None),
+    ("whisper-large-v3 cross", 4, 20, 1, 64, 1500, 1499, None),
+    ("llama-3.2-vision-11b cross", 4, 8, 4, 128, 1024, 1023, None),
+)
+#: flash_attention timed at the serving families' prefills, bf16:
+#: (label, B, Sq, Sk, H, KV, hd, causal)
+FLASH_SERVING_SHAPES = (
+    ("whisper-large-v3 encoder", 1, 1500, 1500, 20, 20, 64, False),
+    ("whisper-large-v3 cross", 1, 448, 1500, 20, 20, 64, False),
+    ("llama-3.2-vision-11b cross", 1, 2048, 1024, 32, 8, 128, False),
+    ("kimi-k2 layer", 1, 2048, 2048, 64, 8, 112, True),
+    ("olmoe-1b-7b", 1, 4096, 4096, 16, 16, 128, True),
 )
 
 
@@ -631,7 +759,15 @@ FLASH_CASES = (
        (2, 300, 333, 4, 2, 256, False, None, None),
        (1, 190, 190, 4, 1, 256, True, None, None),
        (1, 8192, 8192, 4, 1, 256, True, 512, None),
-       (1, 8192, 8192, 4, 1, 256, True, None, None)])
+       (1, 8192, 8192, 4, 1, 256, True, None, None)]
+    # the serving families: whisper-large-v3's bidirectional encoder (1500
+    # frames, H 20, hd 64) and its decoder's cross-attention (448 queries,
+    # 1500 keys), llama-3.2-vision's cross-attention (2048 queries, 1024
+    # patches, GQA 4), kimi-k2's causal prefill (H 64, KV 8, hd 112)
+    + [(1, 1500, 1500, 20, 20, 64, False, None, None),
+       (1, 448, 1500, 20, 20, 64, False, None, None),
+       (1, 2048, 1024, 32, 8, 128, False, None, None),
+       (1, 2048, 2048, 64, 8, 112, True, None, None)])
 
 #: (B, S, H, P, N, chunk[, dt scale]): the JAX sweep
 #: (tests/test_kernels_decode_ssm.py: chunks, head shapes, ragged S, state
@@ -661,6 +797,53 @@ def flash_bound(B, S, H, KV, hd, e=2, window=None):
         pairs = window * (window + 1) / 2 + (S - window) * window
     flops = 4.0 * B * H * hd * pairs
     return nbytes, flops
+
+
+def attn_bound(B, Sq, Sk, H, KV, hd, causal, e=2):
+    """Attention at any Sq, Sk (queries and keys both from position 0):
+    q, k, v, o cross device memory once; QK^T and PV over the visible
+    pairs (all Sq x Sk, or the causal triangle's) are 2 flops per
+    multiply-add each."""
+    nbytes = (2 * B * Sq * H + 2 * B * Sk * KV) * hd * e
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    return nbytes, 4.0 * B * H * hd * pairs
+
+
+def flash_time(torch, K, dev, randn, ptxas, label, B, Sq, Sk, H, KV, hd,
+               causal) -> dict:
+    """flash_attention at one bf16 shape (Sq may differ from Sk), timed
+    beside its plain version, SDPA (``enable_gqa``; ``is_causal`` when
+    causal) and its bound; emitted as a ``kernel_time`` line."""
+    import torch.nn.functional as F
+
+    q = randn((B, Sq, H, hd), "bfloat16")
+    k, v = randn((B, Sk, KV, hd), "bfloat16"), randn((B, Sk, KV, hd),
+                                                     "bfloat16")
+    ms, eager = cuda_time_ms(
+        torch, lambda: K.flash_attention(q, k, v, causal=causal), 10)
+    plain, _ = cuda_time_ms(
+        torch, lambda: K.flash_attention_plain(q, k, v, causal=causal), 2)
+    lib = None          # torch < 2.5 has no GQA in scaled_dot_product_attention
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        lib, _ = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal, enable_gqa=True), 10)
+        del qs, ks, vs
+    nbytes, flops = attn_bound(B, Sq, Sk, H, KV, hd, causal)
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
+    out = dict(path=label, shape=f"B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} "
+                                 f"causal{causal} bf16",
+               ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+               library="F.scaled_dot_product_attention(enable_gqa=True)",
+               bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
+               tflop_s=flops / ms / 1e9)
+    emit("kernel_time", kernel="flash_attention", **out,
+         ptxas=[ln for ln in ptxas_of(ptxas, "flash_attention")
+                if ln.split(":")[0].endswith(f"Li{hd}")])
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def row_rel_err(out, ref) -> float:
@@ -1652,22 +1835,25 @@ def serve_phase(torch, K, cfg, dev, params):
 
 
 def captured_generate(torch, K, cfg, model, prompt, gen, dev, per_step,
-                      what):
+                      what, memory=None):
     """``generate`` on the card (every step a replay of one captured step)
     after a short warm-up: the tokens, host seconds, the captured step and
     the launches of the run, ``launches[name] * replays``.  The wrappers
     count while the step is warmed up and captured, not at replays: each
     must have counted ``per_step`` launches twice, and the graph must
-    replay once per position."""
+    replay once per position.  ``memory``: what encdec / vlm decode
+    against."""
     from repro_torch.launch.serve import generate
 
     B, S0 = prompt.shape
-    generate(cfg, model, prompt[:, :2], 2, device=dev)        # warm-up
+    generate(cfg, model, prompt[:, :2], 2, device=dev,
+             memory=memory)                                   # warm-up
     torch.cuda.synchronize()
     reset_counts(K)
     log = []
     t0 = time.perf_counter()
-    toks = generate(cfg, model, prompt, gen, device=dev, step_log=log)
+    toks = generate(cfg, model, prompt, gen, device=dev, step_log=log,
+                    memory=memory)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     wrapper = counts(K)
@@ -1702,27 +1888,54 @@ KERNEL_NAME_RE = {"decode_attention": r"decode_attention_kernel<",
                   "flash_attention": r"flash_attention(_wgmma)?_kernel<"}
 
 
+#: profiles of a captured step's replays taken before its launch counts
+#: are held to fail: a trace under graph replay can lose kernel records
+#: (whisper's step, ~1,500 kernels a replay, once showed 49 of its 64
+#: decode_attention launches per replay); a graph replays every kernel
+#: it holds, so a lower count is the tracer's, a higher one never is
+GRAPH_PROFILE_ATTEMPTS = 3
+
+
 def graph_profile(torch, step, toks, n: int, what: str) -> dict:
     """The port's kernels counted by name over ``n`` replays of a captured
     step (``torch.profiler``, after one replay of warm-up inside the
     profile, so that the tracer is running when the window opens), held to
-    the launches captured (decode uses no ssm_scan launch); then the host
-    time per replay, ``n`` replays back to back.  The traced device time
-    is reported as traced: under graph replay it exceeds the replay's own
-    time (the eager profile gives the kernels' device time)."""
+    the launches captured (decode uses no ssm_scan launch); a profile that
+    counts fewer, never more, is taken again, up to
+    ``GRAPH_PROFILE_ATTEMPTS`` in all, and every attempt's counts are
+    returned.  Then the host time per replay, ``n`` replays back to back.
+    The traced device time is reported as traced: under graph replay it
+    exceeds the replay's own time (the eager profile gives the kernels'
+    device time)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile, schedule
 
     dev = toks.device
     positions = torch.arange(n + 1, dtype=torch.int32, device=dev)
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-            schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
-        for t in range(n + 1):
-            step(toks[:, t:t + 1], positions[t])
-            torch.cuda.synchronize()
-            prof.step()
+    attempts = []
+    for _ in range(GRAPH_PROFILE_ATTEMPTS):
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=n,
+                                  repeat=1)) as prof:
+            for t in range(n + 1):
+                step(toks[:, t:t + 1], positions[t])
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and dev_us(e) > 0]
+        by_name = {name: sum(e.count for e in kernels if re.search(rx, e.key))
+                   / n for name, rx in KERNEL_NAME_RE.items()}
+        attempts.append(by_name)
+        if not any(per < step.launches[name] for name, per in by_name.items()):
+            break
+    for name, per in by_name.items():
+        check(per == step.launches[name], f"{what}: the profile shows {per} "
+              f"{name} launches per replay, the capture {step.launches[name]}"
+              f" (attempts {attempts})")
+    check(step.launches["ssm_scan"] == 0, f"{what}: ssm_scan in a decode step")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1730,17 +1943,9 @@ def graph_profile(torch, step, toks, n: int, what: str) -> dict:
             step(toks[:, t:t + 1], positions[t])
     torch.cuda.synchronize()
     replay_ms = (time.perf_counter() - t0) / n * 1e3
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and dev_us(e) > 0]
-    by_name = {name: sum(e.count for e in kernels if re.search(rx, e.key))
-               / n for name, rx in KERNEL_NAME_RE.items()}
-    for name, per in by_name.items():
-        check(per == step.launches[name], f"{what}: the profile shows {per} "
-              f"{name} launches per replay, the capture {step.launches[name]}")
-    check(step.launches["ssm_scan"] == 0, f"{what}: ssm_scan in a decode step")
     return {"replay_ms_per_step": replay_ms,
             "profiled_launches_per_replay": by_name,
+            "profile_attempts": attempts,
             "graph_traced_busy_ms_per_step": sum(dev_us(e) for e in kernels)
             / n / 1e3}
 
@@ -1832,7 +2037,8 @@ def hold_decode_steps(torch, cfg, params, toks, n_cmp, dev, what, *,
             "teacher_forced_from": start}
 
 
-def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float):
+def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float,
+                  memory=None):
     """Where an eager decode step's time goes: device time by kernel over a
     few steps under ``torch.profiler``, set against the unprofiled step
     time.  Returns the device busy ms per step: a captured step replays
@@ -1844,7 +2050,10 @@ def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float):
     from repro_torch.models.transformer import decode_step, init_cache
 
     n = 4
-    cache = init_cache(cfg, toks.shape[0], n, dev)
+    cache = init_cache(cfg, toks.shape[0], n, dev,
+                       mem_len=0 if memory is None else memory.shape[1])
+    if memory is not None:
+        cache["memory"].copy_(memory)
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for t in range(n):
@@ -1964,16 +2173,17 @@ def hold_kernel_path(torch, lk, lp, k32, l32, what: str) -> dict:
             .mean().item()}
 
 
-def timed_prefill(torch, step, params, batch, reps: int) -> list:
-    """Host-clock seconds per prefill, each ended by a synchronize."""
-    out = []
+def timed_prefill(torch, step, params, batch, reps: int) -> tuple:
+    """(host-clock seconds per prefill, each ended by a synchronize; the
+    last prefill's logits)."""
+    secs, out = [], None
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(params, batch)
+        out = step(params, batch)
         torch.cuda.synchronize()
-        out.append(time.perf_counter() - t0)
-    return out
+        secs.append(time.perf_counter() - t0)
+    return secs, out
 
 
 def prefill_phase(torch, K, cfg, dev, params):
@@ -2097,14 +2307,26 @@ def f32_streamed(cfg, params):
 
 
 def run_prefill(torch, K, cfg, params, shape, phase, seed, *,
-                per_fwd=None, streamed=False, **extra) -> dict:
+                per_fwd=None, streamed=False, reps=3, inputs=None,
+                plain_q_block=1024, probe=None, pinned=False,
+                profile_seq=None, **extra) -> dict:
     """A full-sequence prefill (``make_prefill_step``) at ``shape``:
     launches per forward held exact (``per_fwd``; a dense model's L
     flash_attention and (4 or 2) L + 1 rmsnorm by default), the kernel
     path held against the plain path at bf16 and f32
     (``hold_kernel_path``; ``streamed``: the f32 weights upcast one layer at
-    a time), time per prefill, prompt tokens/s, idle share, top kernels.
-    Returns the launches of the timed prefills."""
+    a time), time per prefill (median of ``reps``), prompt tokens/s, idle
+    share, top kernels.  ``inputs``: the batch's frames / patches;
+    ``plain_q_block``: the plain path's attention query block.  With a
+    ``MoEProbe``, each hold run's dropped (token, slot) pairs are counted,
+    equal on the f32 kernel and plain paths; ``pinned`` (a model whose f32
+    copy does not fit): the bf16 hold alone at the decode-step tolerance,
+    the kernel path routed as the plain path chose (``MoEProbe``).
+    ``profile_seq``: the device profile covers a forward over the first
+    ``profile_seq`` positions, its times scaled by S / ``profile_seq``
+    (for a forward linear in S whose full-length trace would hold
+    hundreds of thousands of kernels).  Returns the launches of the timed
+    prefills."""
     from repro_torch.serve.step import make_prefill_step
 
     dev = params["embed"].device
@@ -2116,37 +2338,74 @@ def run_prefill(torch, K, cfg, params, shape, phase, seed, *,
     tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
                            generator=torch.Generator(device=dev)
                            .manual_seed(seed))
-    batch = {"tokens": tokens}
-    step, plain_step = make_prefill_step(cfg), make_prefill_step(cfg,
-                                                                 plain=True)
+    batch = {"tokens": tokens, **(inputs or {})}
+    step = make_prefill_step(cfg)
+    plain_step = make_prefill_step(cfg, plain=True, q_block=plain_q_block)
     with torch.inference_mode():
         step(params, batch)                                   # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reps = 3
         reset_counts(K)
-        secs = timed_prefill(torch, step, params, batch, reps)
+        secs, lk = timed_prefill(torch, step, params, batch, reps)
         launches = counts(K)
         peak = torch.cuda.max_memory_allocated()
         for name, n in per_fwd.items():
             check(launches[name] == n * reps,
                   f"{phase} {cfg.name} {name}: {launches[name]} launches, "
                   f"expected {n} x {reps}")
-        plain_s = timed_prefill(torch, plain_step, params, batch, 1)[0]
-        lk = step(params, batch)
-        lp = plain_step(params, batch)
-        cfg32, p32 = (f32_streamed if streamed else f32_model)(cfg, params)
-        k32 = make_prefill_step(cfg32)(p32, batch)
-        l32 = make_prefill_step(cfg32, plain=True)(p32, batch)
-        del p32
-        torch.cuda.empty_cache()
-        check(tuple(lk.shape) == (B, cfg.vocab_size)
-              and lk.dtype == torch.float32,
-              f"{phase}: logits {tuple(lk.shape)} {lk.dtype}")
-        cmp = hold_kernel_path(torch, lk, lp, k32, l32,
-                               f"{cfg.name} prefill")
-        del lk, lp, k32, l32
-        prof = device_profile(torch, lambda: step(params, batch), KERNELS)
+        (plain_s,), lp = timed_prefill(torch, plain_step, params, batch, 1)
+
+        def hold_run(fn, *a, **kw):
+            if probe is None:
+                return fn(*a), None
+            return probe.run(lambda: fn(*a), **kw)
+
+        if pinned:
+            (lp, dp), rec = hold_run(plain_step, params, batch, record=True)
+            (lk, dk), flips = hold_run(step, params, batch, replay=rec)
+            check(tuple(lk.shape) == (B, cfg.vocab_size),
+                  f"{phase}: logits {tuple(lk.shape)}")
+            cmp = hold_fixed(torch, lk, lp, f"{cfg.name} prefill")
+            cmp.update(dropped_pairs={"bf16_kernel": dk, "bf16_plain": dp},
+                       routing_pinned_to_plain=True,
+                       routing_flips_pinned=flips)
+            check(dk == dp, f"{phase}: {dk} pairs dropped on the kernel "
+                  f"path, {dp} on the plain path")
+        else:
+            dk = dp = None              # the timed runs' logits, unprobed
+            if probe is not None:
+                lk, dk = hold_run(step, params, batch)
+                lp, dp = hold_run(plain_step, params, batch)
+            cfg32, p32 = (f32_streamed if streamed else f32_model)(cfg,
+                                                                   params)
+            k32, dk32 = hold_run(make_prefill_step(cfg32), p32, batch)
+            l32, dp32 = hold_run(make_prefill_step(
+                cfg32, plain=True, q_block=plain_q_block), p32, batch)
+            del p32
+            torch.cuda.empty_cache()
+            check(tuple(lk.shape) == (B, cfg.vocab_size)
+                  and lk.dtype == torch.float32,
+                  f"{phase}: logits {tuple(lk.shape)} {lk.dtype}")
+            cmp = hold_kernel_path(torch, lk, lp, k32, l32,
+                                   f"{cfg.name} prefill")
+            if probe is not None:
+                cmp["dropped_pairs"] = {"bf16_kernel": dk, "bf16_plain": dp,
+                                        "f32_kernel": dk32, "f32_plain": dp32}
+                check(dk32 == dp32, f"{phase}: {dk32} pairs dropped on the "
+                      f"f32 kernel path, {dp32} on the f32 plain path")
+            del k32, l32
+        del lk, lp
+        pbatch, scale = batch, 1
+        if profile_seq:
+            # a forward whose cost is linear in S (no attention), profiled
+            # over its first profile_seq positions and scaled to S
+            n = min(profile_seq, S)
+            pbatch = {k: v[:, :n] for k, v in batch.items()}
+            scale = S / n
+        prof = device_profile(torch, lambda: step(params, pbatch), KERNELS)
+        prof["device_busy_ms"] *= scale
+        prof["port_kernels"] = {k: v * scale
+                                for k, v in prof["port_kernels"].items()}
     ms = sorted(secs)[len(secs) // 2] * 1e3
     emit(phase, arch=cfg.name, batch=B, seq=S, reps=reps, ms_per_prefill=ms,
          ms_all=[t * 1e3 for t in secs], prompt_tokens_per_s=B * S / (ms / 1e3),
@@ -2154,41 +2413,55 @@ def run_prefill(torch, K, cfg, params, shape, phase, seed, *,
          max_memory_allocated_with_holds=torch.cuda.max_memory_allocated(),
          launches=launches,
          launches_per_forward={k: v / reps for k, v in launches.items()},
-         plain_vs_kernel=cmp, f32_hold="per-layer upcast, full depth"
-         if streamed else "whole model in f32",
+         plain_vs_kernel=cmp, f32_hold="none (bf16 only)" if pinned else
+         "per-layer upcast, full depth" if streamed else "whole model in f32",
          device_busy_ms=prof["device_busy_ms"],
          device_idle_share=1.0 - prof["device_busy_ms"] / ms,
+         device_busy_from=f"profile of the first {min(profile_seq, S)} "
+         f"positions x {scale}" if profile_seq else "profile of the prefill",
          port_kernels_ms=prof["port_kernels"], top_kernels=prof["top_kernels"],
          **extra)
     torch.cuda.empty_cache()
     return launches
 
 
-def dense_generate(torch, K, cfg, model, shape, phase, seed, **extra):
+def prompt_for(torch, cfg, shape, dev, seed):
+    """The ``[B, S0]`` prompt of a (B, S0, generated) ``shape``, from a
+    seeded generator on the card."""
+    B, S0, _ = shape
+    return torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(seed))
+
+
+def dense_generate(torch, K, cfg, model, shape, phase, seed, *,
+                   per_step=None, memory=None, **extra):
     """The captured ``generate`` at ``shape`` (B, prompt, generated): L
-    decode_attention and the model's rmsnorm launches per replay, one
-    replay per position, the replays' kernels counted by name in a
-    profile, ms per step and idle share.  Returns (launches, tokens, the
-    captured step, ms per step)."""
+    decode_attention and the model's rmsnorm launches per replay (or
+    ``per_step``), one replay per position, the replays' kernels counted
+    by name in a profile, ms per step and idle share.  ``memory``: what
+    encdec / vlm decode against.  Returns (launches, tokens, the captured
+    step, ms per step)."""
     B, S0, gen = shape
     L = cfg.n_layers
     dev = model.tree()["embed"].device
-    per_step = {"decode_attention": L,
-                "rmsnorm": (4 if cfg.qk_norm else 2) * L + 1,
-                "flash_attention": 0, "ssm_scan": 0}
-    prompt = torch.randint(0, cfg.vocab_size, (B, S0), device=dev,
-                           generator=torch.Generator(device=dev)
-                           .manual_seed(seed))
+    per_step = per_step or {"decode_attention": L,
+                            "rmsnorm": (4 if cfg.qk_norm else 2) * L + 1,
+                            "flash_attention": 0, "ssm_scan": 0}
+    prompt = prompt_for(torch, cfg, shape, dev, seed)
     torch.cuda.reset_peak_memory_stats()
     toks, elapsed, step, launches = captured_generate(
-        torch, K, cfg, model, prompt, gen, dev, per_step, f"{phase} {cfg.name}")
+        torch, K, cfg, model, prompt, gen, dev, per_step, f"{phase} {cfg.name}",
+        memory=memory)
     peak = torch.cuda.max_memory_allocated()
     steps = S0 + gen
     ms = elapsed / steps * 1e3
     zero_cache(step)
+    if memory is not None:
+        step.cache["memory"].copy_(memory)
     prof = graph_profile(torch, step, toks, 4, f"{phase} {cfg.name}")
     busy = profile_phase(torch, cfg, dev, model.tree(), toks,
-                         prof["replay_ms_per_step"])
+                         prof["replay_ms_per_step"], memory=memory)
     emit(phase, arch=cfg.name, batch=B, prompt_len=S0, gen=gen, steps=steps,
          seconds=elapsed, generate_ms_per_step=ms,
          tokens_per_s=B * steps / elapsed,
@@ -2200,12 +2473,15 @@ def dense_generate(torch, K, cfg, model, shape, phase, seed, **extra):
     return launches, toks, step, ms
 
 
-def hold_decode_kernel_path(torch, cfg, params, toks, n_cmp, what) -> list:
+def hold_decode_kernel_path(torch, cfg, params, toks, n_cmp, what, *,
+                            memory=None, probe=None) -> list:
     """``hold_kernel_path`` over ``n_cmp`` teacher-forced decode steps from
     zero caches: at bf16, and with the weights upcast to f32 one layer at a
     time (``f32_streamed``).  A deep random model amplifies bf16 rounding
     past the serve phase's fixed 0.08, so the bf16 limit is measured, as
-    for the prefills."""
+    for the prefills.  ``memory``: written into each cache (encdec, vlm).
+    With a ``MoEProbe`` each step's dropped (token, slot) pairs are
+    counted on the four runs, equal on the f32 kernel and plain paths."""
     from repro_torch.models.transformer import decode_step, init_cache
 
     dev = toks.device
@@ -2213,15 +2489,35 @@ def hold_decode_kernel_path(torch, cfg, params, toks, n_cmp, what) -> list:
     cfg32, p32 = f32_streamed(cfg, params)
     runs = [(params, cfg, False), (params, cfg, True), (p32, cfg32, False),
             (p32, cfg32, True)]
-    caches = [init_cache(c, B, n_cmp, dev) for _, c, _ in runs]
+    mem_len = 0 if memory is None else memory.shape[1]
+    caches = [init_cache(c, B, n_cmp, dev, mem_len=mem_len)
+              for _, c, _ in runs]
+    if memory is not None:
+        for cache in caches:
+            cache["memory"].copy_(memory)
     out = []
     with torch.inference_mode():
         for t in range(n_cmp):
             pos = torch.tensor(t, dtype=torch.int32, device=dev)
-            logits = [decode_step(p, c, cache, toks[:, t:t + 1], pos,
-                                  plain=plain)[0]
-                      for (p, c, plain), cache in zip(runs, caches)]
+            logits, drops = [], []
+            for (p, c, plain), cache in zip(runs, caches):
+                def run():
+                    return decode_step(p, c, cache, toks[:, t:t + 1], pos,
+                                       plain=plain)[0]
+                if probe is None:
+                    logits.append(run())
+                else:
+                    lg, d = probe.run(run)
+                    logits.append(lg)
+                    drops.append(d)
             out.append(hold_kernel_path(torch, *logits, f"{what} step {t}"))
+            if probe is not None:
+                out[-1]["dropped_pairs"] = dict(zip(
+                    ("bf16_kernel", "bf16_plain", "f32_kernel", "f32_plain"),
+                    drops))
+                check(drops[2] == drops[3], f"{what} step {t}: {drops[2]} "
+                      f"pairs dropped on the f32 kernel path, {drops[3]} on "
+                      f"the f32 plain path")
     return out
 
 
@@ -2353,6 +2649,347 @@ def dense_large_phase(torch, K, dev, arch) -> dict:
     return by_path
 
 
+# ------------------------------------------------------- serving families
+
+def set_nonzero_inits(torch, cfg, params, seed: int) -> list:
+    """Every parameter leaf whose init is ``zeros`` set to a fixed nonzero
+    value, so that the path it gates or shifts takes part: each VLM
+    cross-attention ``gate`` to ``GATE_VALUE`` (``tanh(0) = 0`` would make
+    every cross-attention layer add exactly nothing), the others (LayerNorm
+    ``bias``, the mLSTM's ``b_if``, the sLSTM's ``b``) to 0.2 x a standard
+    normal draw from a seeded generator.  Returns their keys."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import model_specs
+
+    flat = dict(tree_leaves(params))
+    keys = [k for k, spec in tree_leaves(model_specs(cfg))
+            if spec.init == "zeros"]
+    g = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    with torch.no_grad():
+        for k in keys:
+            t = flat[k]
+            if k.endswith("/gate"):
+                t.fill_(GATE_VALUE)
+            else:
+                t.copy_(torch.randn(t.shape, generator=g, device=t.device)
+                        * 0.2)
+    return keys
+
+
+class MoEProbe:
+    """Wraps the port's MoE router (``moe._gates``) and slot assignment
+    (``moe._slots``) for the length of one call.  ``run(fn)`` counts the
+    (token, slot)
+    pairs that ``fn``'s MoE blocks drop past capacity; ``run(fn,
+    record=True)`` also returns the expert choice of every router call,
+    and ``run(fn, replay=choices)`` makes ``fn``'s routers take those
+    choices (each weighted by its own renormalised probability there) and
+    counts the (token, slot) entries where its own choice differed.  The
+    smoke uses the replay to hold a kernel path that has no f32 copy to
+    measure a floor against: bf16 rounding in a different order reorders
+    near-tied experts, and one reordered expert moves a token by O(1)."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe = torch, moe
+        self.dropped, self.flips = [], []
+        self.recorded = self.replay = None
+
+    def _slots(self, gate_idx, n_experts, cap):
+        row, keep = self.slots(gate_idx, n_experts, cap)
+        self.dropped.append((~keep).sum())
+        return row, keep
+
+    def _gates(self, cfg, xt, router):
+        vals, idx, lb = self.gates(cfg, xt, router)
+        if self.recorded is not None:
+            self.recorded.append(idx)
+        if self.replay is not None:
+            pin = self.replay.pop(0)
+            self.flips.append((pin != idx).sum())
+            probs = self.torch.softmax(xt.float() @ router.float(), dim=-1)
+            vals = probs.gather(1, pin)
+            vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+            idx = pin
+        return vals, idx, lb
+
+    def run(self, fn, *, record=False, replay=None):
+        self.dropped, self.flips = [], []
+        self.recorded = [] if record else None
+        self.replay = None if replay is None else list(replay)
+        self.gates, self.slots = self.moe._gates, self.moe._slots
+        self.moe._gates, self.moe._slots = self._gates, self._slots
+        try:
+            out = fn()
+        finally:
+            self.moe._gates, self.moe._slots = self.gates, self.slots
+            recorded, self.recorded, self.replay = self.recorded, None, None
+        dropped = int(sum(int(d) for d in self.dropped))
+        if record:
+            return (out, dropped), recorded
+        if replay is not None:
+            return (out, dropped), int(sum(int(f) for f in self.flips))
+        return out, dropped
+
+
+def hold_fixed(torch, lk, lp, what: str) -> dict:
+    """Kernel-path logits against plain-path logits at the decode-step
+    tolerance: atol 0.08, rtol 0.05, cosine > 0.999."""
+    lk, lp = lk.float(), lp.float()
+    check(bool(torch.isfinite(lk).all()), f"{what}: non-finite logits")
+    err = (lk - lp).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(lk.flatten(), lp.flatten(),
+                                                dim=0).item()
+    check(torch.allclose(lk, lp, atol=0.08, rtol=0.05) and cos > 0.999,
+          f"{what}: kernel vs plain logits differ by {err} (cosine {cos})")
+    return {"bf16_max_abs_err": err, "bf16_cosine": cos,
+            "bf16_tol": {"atol": 0.08, "rtol": 0.05, "cosine_min": 0.999},
+            "bf16_argmax_agree": (lk.argmax(-1) == lp.argmax(-1)).float()
+            .mean().item()}
+
+
+def family_model(torch, cfg, dev):
+    """``random_model`` with the zero-init leaves set nonzero; the memory
+    still allocated before the draw (what earlier phases left, after a
+    collection) is reported with it."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, n_params, t_init = random_model(torch, cfg, dev)
+    nonzero = set_nonzero_inits(torch, cfg, params, 11)
+    return model, params, dict(n_params=n_params, init_s=t_init,
+                               nonzero_init_leaves=nonzero,
+                               memory_allocated_before_init=before,
+                               init_max_memory_allocated=torch.cuda
+                               .max_memory_allocated())
+
+
+def xlstm_phase(torch, K, dev) -> dict:
+    """xlstm-125m at full width and depth (6 x (mLSTM, sLSTM), d 768):
+    ``xlstm_prefill`` at B 1 x S 2048 (13 rmsnorm launches per forward: no
+    other kernel runs; the cells' loops over time are host-bound, timed
+    once, with a kernels-only profile), ``xlstm_generate`` (B 4, 16 + 32)
+    with four teacher-forced kernel-vs-plain steps, and one captured step
+    at position 524,287 (the reference's ``long_500k``: the state has no
+    sequence axis), held against the plain path.  Returns the launches by
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import decode_step
+    from repro_torch.serve.step import CapturedServeStep
+
+    cfg = get_config("xlstm-125m")
+    model, params, info = family_model(torch, cfg, dev)
+    per = {"rmsnorm": cfg.n_layers + 1, "flash_attention": 0,
+           "decode_attention": 0, "ssm_scan": 0}
+    by_path = {"xlstm_prefill": run_prefill(
+        torch, K, cfg, params, XLSTM_PREFILL_SHAPE, "xlstm_prefill", 21,
+        per_fwd=per, reps=1, profile_seq=XLSTM_PROFILE_SEQ, **info)}
+    launches, toks, step, _ = dense_generate(
+        torch, K, cfg, model, XLSTM_GENERATE, "xlstm_generate", 22,
+        per_step=per,
+        plain_vs_kernel=hold_decode_kernel_path(
+            torch, cfg, params, prompt_for(torch, cfg, XLSTM_GENERATE, dev,
+                                           22), 4, "xlstm decode"))
+    by_path["xlstm_generate"] = launches
+    del step
+
+    # one step at the long_500k position, from a state built over a prompt
+    reset_counts(K)
+    long_step = CapturedServeStep(cfg, params, 1, XLSTM_LONG_POS + 1,
+                                  device=dev)
+    S0 = XLSTM_GENERATE[1]
+    positions = torch.arange(S0, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        for t in range(S0):
+            long_step(toks[:1, t:t + 1], positions[t])
+    plain_cache = tree_map(lambda t: t.clone(), long_step.cache)
+    tok = toks[:1, S0:S0 + 1]
+    p = torch.tensor(XLSTM_LONG_POS, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        _, lk = long_step(tok, p)
+        lk = lk.clone()
+        lp, _ = decode_step(params, cfg, plain_cache, tok, p, plain=True)
+        hold = hold_fixed(torch, lk, lp, "xlstm long step")
+        reps = 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            long_step(tok, p)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        prof = device_profile(
+            torch, lambda: decode_step(params, cfg, plain_cache, tok, p),
+            KERNELS)
+    check(long_step.launches == per, f"xlstm long step {long_step.launches}")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_leaves(long_step.cache))
+    by_path["xlstm_long_decode"] = {k: n * long_step.replays
+                                    for k, n in long_step.launches.items()}
+    emit("xlstm_generate", part="long_500k step", arch=cfg.name, batch=1,
+         pos=XLSTM_LONG_POS, replay_ms_per_step=ms, reps=reps,
+         tokens_per_s=1e3 / ms, cache_state_bytes=state_bytes,
+         device_busy_ms=prof["device_busy_ms"],
+         device_idle_share=1.0 - prof["device_busy_ms"] / ms,
+         launches_per_step=long_step.launches, replays=long_step.replays,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         plain_vs_kernel=hold)
+    del long_step, model, params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def moe_phase(torch, K, dev) -> dict:
+    """olmoe-1b-7b at full width and depth (16 layers, E 64, top 8,
+    qk-norm): ``moe_prefill`` at B 1 x S 4096 (capacity 640 per expert),
+    held at bf16 and with the whole model in f32, the dropped (token, slot)
+    pairs of each hold run counted; ``moe_generate`` (B 4, 16 + 16;
+    capacity 1 per expert, so pairs of the batch that share an expert
+    drop), four teacher-forced kernel-vs-plain steps with their drops.
+    Returns the launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("olmoe-1b-7b")
+    model, params, info = family_model(torch, cfg, dev)
+    probe = MoEProbe(torch, moe)
+    by_path = {"moe_prefill": run_prefill(
+        torch, K, cfg, params, MOE_PREFILL_SHAPE, "moe_prefill", 31,
+        probe=probe, capacity=moe.capacity(cfg, math.prod(
+            MOE_PREFILL_SHAPE)), **info)}
+    B = MOE_GENERATE[0]
+    hold = hold_decode_kernel_path(
+        torch, cfg, params, prompt_for(torch, cfg, MOE_GENERATE, dev, 32), 4,
+        "olmoe decode", probe=probe)
+    launches, _, step, _ = dense_generate(
+        torch, K, cfg, model, MOE_GENERATE, "moe_generate", 32,
+        capacity=moe.capacity(cfg, B), plain_vs_kernel=hold)
+    by_path["moe_generate"] = launches
+    del step, model, params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def kimi_phase(torch, K, dev) -> dict:
+    """One kimi-k2 layer at full width (d 7168, E 384, top 8, H 64 / KV 8,
+    hd 112, vocab 163,840; ``n_layers`` cut 61 -> 1: 36.4 GB of the model's
+    2.08 TB): ``moe_kimi_layer`` prefill at B 1 x S 2048 and the captured
+    step (B 4, 16 + 16).  An f32 copy does not fit beside the bf16 one, so
+    the holds are bf16 at the decode-step tolerance, the kernel path routed
+    as the plain path chose (``MoEProbe``; the differing choices are
+    counted).  Returns the launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import decode_step, init_cache
+
+    cfg = get_config("kimi-k2-1t-a32b").replace(n_layers=KIMI_LAYERS)
+    model, params, info = family_model(torch, cfg, dev)
+    cut = (f"n_layers 61 -> {KIMI_LAYERS}: the model's 2.08 TB of bf16 "
+           f"weights do not fit one card")
+    probe = MoEProbe(torch, moe)
+    by_path = {"kimi prefill": run_prefill(
+        torch, K, cfg, params, KIMI_PREFILL_SHAPE, "moe_kimi_layer", 41,
+        probe=probe, pinned=True, part="prefill", cut=cut,
+        capacity=moe.capacity(cfg, math.prod(KIMI_PREFILL_SHAPE)), **info)}
+    B = KIMI_GENERATE[0]
+    prompt = prompt_for(torch, cfg, KIMI_GENERATE, dev, 42)
+    ck, cp = (init_cache(cfg, B, 4, dev) for _ in range(2))
+    hold = []
+    with torch.inference_mode():
+        for t in range(4):
+            pos = torch.tensor(t, dtype=torch.int32, device=dev)
+            tok = prompt[:, t:t + 1]
+            (lp, dp), rec = probe.run(lambda: decode_step(
+                params, cfg, cp, tok, pos, plain=True)[0], record=True)
+            (lk, dk), flips = probe.run(lambda: decode_step(
+                params, cfg, ck, tok, pos)[0], replay=rec)
+            check(dk == dp, f"kimi decode step {t}: {dk} pairs dropped on "
+                  f"the kernel path, {dp} on the plain path")
+            hold.append({**hold_fixed(torch, lk, lp, f"kimi decode step {t}"),
+                         "dropped_pairs": {"bf16_kernel": dk,
+                                           "bf16_plain": dp},
+                         "routing_flips_pinned": flips})
+    del ck, cp
+    launches, _, step, _ = dense_generate(
+        torch, K, cfg, model, KIMI_GENERATE, "moe_kimi_layer", 42,
+        part="generate", cut=cut, capacity=moe.capacity(cfg, B),
+        plain_vs_kernel=hold, routing_pinned_to_plain=True)
+    by_path["kimi generate"] = launches
+    del step, model, params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def stub_inputs(torch, cfg, B, n, dev, seed):
+    """The stub frontend's input: ``[B, n, frontend_dim]`` frames (encdec)
+    or patches (vlm), standard normal from a seeded generator."""
+    key = "frames" if cfg.family == "encdec" else "patches"
+    return {key: torch.randn((B, n, cfg.frontend_dim), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(seed))}
+
+
+def cross_family_phase(torch, K, dev, arch) -> dict:
+    """whisper-large-v3 (``encdec_*``: 32 encoder + 32 decoder layers,
+    LayerNorm, GELU, no RoPE) or llama-3.2-vision-11b (``vlm_*``: 8 x (4
+    attn + 1 gated cross-attention), gates at ``GATE_VALUE``) at full
+    width and depth.  Prefill: whisper over B 1 x 1500 frames and 448
+    tokens (flash: 32 bidirectional at 1500 x 1500, 32 causal, 32 cross
+    at 448 x 1500; the plain hold's attention takes the whole 1500-frame
+    encoder sequence as one query block: the reference's blocked form
+    needs a multiple of its 1024), llama-vision over B 1 x 1024 patches
+    and S 2048 (its f32 hold upcast one group at a time).  Generate: B 4
+    against the model's own memory (whisper: its encoder's output over 4 x
+    1500 frames; llama-vision: 4 x 1024 projected patches), every cross-
+    attention's one query through decode_attention at pos M - 1; four
+    teacher-forced kernel-vs-plain steps against that memory.  Returns the
+    launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import encode
+
+    cfg = get_config(arch)
+    model, params, info = family_model(torch, cfg, dev)
+    L = cfg.n_layers
+    if cfg.family == "encdec":
+        name, (B1, S), n_mem = "encdec", (1, WHISPER_TOKENS), WHISPER_FRAMES
+        gen_shape, streamed = ENCDEC_GENERATE, False
+        per_fwd = {"flash_attention": cfg.n_encoder_layers + 2 * L,
+                   "rmsnorm": 0, "decode_attention": 0, "ssm_scan": 0}
+        per_step = {"decode_attention": 2 * L, "rmsnorm": 0,
+                    "flash_attention": 0, "ssm_scan": 0}
+        q_block = WHISPER_FRAMES
+    else:
+        name, (B1, S), n_mem = "vlm", VLM_PREFILL_SHAPE, VLM_PATCHES
+        gen_shape, streamed = VLM_GENERATE, True
+        per_fwd = per_step = None          # L flash / decode, 2 L + 1 norms
+        q_block = 1024
+    by_path = {f"{name}_prefill": run_prefill(
+        torch, K, cfg, params, (B1, S), f"{name}_prefill", 51,
+        inputs=stub_inputs(torch, cfg, B1, n_mem, dev, 52), per_fwd=per_fwd,
+        streamed=streamed, plain_q_block=q_block, memory_rows=n_mem, **info)}
+    B = gen_shape[0]
+    with torch.inference_mode():
+        memory = encode(params, cfg, stub_inputs(torch, cfg, B, n_mem, dev,
+                                                 53))
+    check(tuple(memory.shape) == (B, n_mem, cfg.d_model)
+          and bool(torch.isfinite(memory.float()).all()),
+          f"{arch}: memory {tuple(memory.shape)}")
+    hold = hold_decode_kernel_path(
+        torch, cfg, params, prompt_for(torch, cfg, gen_shape, dev, 54), 4,
+        f"{arch} decode", memory=memory)
+    launches, _, step, _ = dense_generate(
+        torch, K, cfg, model, gen_shape, f"{name}_generate", 54,
+        per_step=per_step, memory=memory, memory_rows=n_mem,
+        memory_from="the encoder over 1500 frames" if name == "encdec"
+        else "1024 projected patches", plain_vs_kernel=hold)
+    by_path[f"{name}_generate"] = launches
+    del step, model, params, memory
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def rmsnorm_only(torch, K, dev, build_) -> int:
     """``--rmsnorm-only``: build, then only rmsnorm's ``kernel_time`` lines
     at RMSNORM_TIME_SHAPES, for the checkout whose ``src`` was given; run
@@ -2429,6 +3066,11 @@ def main() -> int:
         by_path.update(gemma3_phase(torch, K, dev))
         for arch in ("qwen2.5-14b", "nemotron-4-15b"):
             by_path.update(dense_large_phase(torch, K, dev, arch))
+        by_path.update(xlstm_phase(torch, K, dev))
+        by_path.update(moe_phase(torch, K, dev))
+        by_path.update(kimi_phase(torch, K, dev))
+        for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
+            by_path.update(cross_family_phase(torch, K, dev, arch))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -8,12 +8,21 @@ decode step, then batched greedy (or sampled) decode, on the card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch nemotron-4-15b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-11b
 
 On the card every step replays one CUDA graph of the decode step and its
 sampling (``serve.step.CapturedServeStep``).
 
 The hybrid's cache holds, per mamba block, its f32 SSD state and conv
-window, and one KV cache per application of the shared attention block.
+window, and one KV cache per application of the shared attention block;
+the xLSTM's, per block, its f32 recurrent state (no sequence axis).
+encdec (whisper-large-v3) and vlm (llama-3.2-vision-11b) decode against a
+memory held in the cache: by default the reference's stub of 8 zero rows,
+or the encoder output / projected patches passed as ``memory``.
 
 ``--device cpu`` runs the plain PyTorch path on the CPU (use with
 ``--reduced``).
@@ -39,7 +48,8 @@ def generate(cfg, params: Union[dict, Decoder], prompt: torch.Tensor,
              gen: int, temperature: float = 0.0, seed: int = 0, *,
              device: Optional[Union[str, torch.device]] = None,
              capture: bool = True,
-             step_log: Optional[list] = None) -> torch.Tensor:
+             step_log: Optional[list] = None,
+             memory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """prompt ``[B, S0]`` -> tokens ``[B, S0 + gen]`` (greedy, or sampled
     from a ``torch.Generator`` seeded with ``seed``).
 
@@ -50,7 +60,11 @@ def generate(cfg, params: Union[dict, Decoder], prompt: torch.Tensor,
     ``capture=False`` runs the step eagerly instead (the comparison the
     captured step is held to); the CPU always runs it eagerly.  A
     ``step_log`` list receives the captured step, whose ``launches`` and
-    ``replays`` give the kernel launches of the run."""
+    ``replays`` give the kernel launches of the run.
+
+    encdec and vlm read ``memory`` ``[B, M, d]`` (the encoder's output or
+    the projected patches), written into the cache before the first step;
+    without it, the reference's stub: 8 rows of zeros."""
     dev = resolve_device(device)
     if isinstance(params, Decoder):
         params = params.tree()
@@ -59,25 +73,31 @@ def generate(cfg, params: Union[dict, Decoder], prompt: torch.Tensor,
                          f"generate was asked for {dev}")
     B, S0 = prompt.shape
     s_max = S0 + gen
+    mem_len = 0
+    if cfg.family in ("encdec", "vlm"):
+        mem_len = 8 if memory is None else memory.shape[1]
     rng = torch.Generator(device=dev).manual_seed(seed)
     # every position as a device scalar: the step reads pos on the device
     positions = torch.arange(s_max, dtype=torch.int32, device=dev)
     toks = prompt.to(dev, torch.long)
     if capture and dev.type == "cuda":
         captured = CapturedServeStep(cfg, params, B, s_max, temperature, rng,
-                                     device=dev)
+                                     device=dev, mem_len=mem_len)
+        cache = captured.cache
         if step_log is not None:
             step_log.append(captured)
 
         def step(t: int) -> torch.Tensor:
             return captured(toks[:, t:t + 1], positions[t])[0]
     else:
-        cache = init_cache(cfg, B, s_max, dev)
+        cache = init_cache(cfg, B, s_max, dev, mem_len=mem_len)
         serve_step = make_serve_step(cfg, temperature)
 
         def step(t: int) -> torch.Tensor:
             return serve_step(params, cache, toks[:, t:t + 1], positions[t],
                               rng)[0]
+    if mem_len and memory is not None:
+        cache["memory"].copy_(memory)
     nxt = None
     with torch.inference_mode():
         # teacher-forced prefill through the decode path (exact cache build)

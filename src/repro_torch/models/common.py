@@ -149,7 +149,9 @@ def _init_leaf(spec: ParamSpec, dtype: torch.dtype, device: torch.device,
         std = spec.scale
     x = torch.randn(spec.shape, dtype=torch.float32, device=device,
                     generator=generator)
-    return (x * std).to(dtype)
+    # scaled in place: a leaf of billions of elements (one kimi-k2 expert
+    # stack, 5.6 G) holds a single f32 draw at a time
+    return x.mul_(std).to(dtype)
 
 
 def init_params(specs: Any, generator: torch.Generator,

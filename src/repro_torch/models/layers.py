@@ -4,16 +4,20 @@ attention against the KV cache, and the MLP (port of
 
 Every function is plain PyTorch over explicit parameter dicts with the
 reference's key names and shapes, so the JAX package's parameter trees
-load unchanged.  The norms call the ``rmsnorm`` kernel wrapper, the
-full-sequence attention the ``flash_attention`` wrapper and the cache
-attention the ``decode_attention`` wrapper; ``plain=True`` routes all
-three to plain PyTorch on any device (the on-card reference for the
-kernels): for the full-sequence attention that is the reference's own
-query-blocked ``_sdpa``.
+load unchanged.  The RMS norms call the ``rmsnorm`` kernel wrapper, the
+full-sequence attention (self and cross) the ``flash_attention`` wrapper,
+the cache attention and the one-query cross-attention of a decode step
+the ``decode_attention`` wrapper; ``plain=True`` routes all of them to
+plain PyTorch on any device (the on-card reference for the kernels): for
+the full-sequence attention that is the reference's own query-blocked
+``_sdpa``.  LayerNorm has no TPU kernel and stays plain PyTorch.
 
-Left for later slices: cross-attention (``kv_x``), the layernorm branch,
-the ``attn_probs_dtype="compute"`` lever and the reference's sharding
-hints.
+The out-projections multiply ``[B, S, H*hd]`` by ``wo`` viewed as
+``[H*hd, d]``: the einsum ``bsnh,nhd->bsd`` would copy the whole weight
+into a permuted layout on every call.
+
+Not ported: the ``attn_probs_dtype="compute"`` lever and the reference's
+sharding hints.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from repro_torch.models.common import ModelConfig, ParamSpec
 __all__ = [
     "norm_spec", "apply_norm", "rope_sin_cos", "apply_rope",
     "attention_specs", "attention", "attention_from_cache", "mlp_specs",
-    "mlp",
+    "mlp", "out_proj",
 ]
 
 #: masked-score constant of the reference model (``layers.py:_NEG_INF``)
@@ -41,17 +45,26 @@ _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 # ---------------------------------------------------------------- norms
 
 def norm_spec(cfg: ModelConfig) -> dict:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return {"scale": ParamSpec((cfg.d_model,), ("embed",), init="ones")}
+    d = {"scale": ParamSpec((cfg.d_model,), ("embed",), init="ones")}
+    if cfg.norm == "layernorm":
+        d["bias"] = ParamSpec((cfg.d_model,), ("embed",), init="zeros")
+    return d
 
 
 def apply_norm(p: dict, x: torch.Tensor, eps: float, kind: str = "rmsnorm",
                *, plain: bool = False) -> torch.Tensor:
-    """RMSNorm with f32 statistics and multiply (the reference's default
-    ``f32_mult=True`` branch), through the rmsnorm kernel."""
+    """Normalization with f32 statistics and multiply (the reference's
+    default ``f32_mult=True`` branch).  RMSNorm goes through the rmsnorm
+    kernel; LayerNorm (f32 mean and variance, then scale and bias in f32,
+    cast back) is plain PyTorch on both paths."""
+    if kind == "layernorm":
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+        raise ValueError(f"norm {kind!r}")
     return (rmsnorm_plain if plain else rmsnorm)(x, p["scale"], eps=eps)
 
 
@@ -91,7 +104,7 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 
 # ---------------------------------------------------------------- attention
 
-def attention_specs(cfg: ModelConfig) -> dict:
+def attention_specs(cfg: ModelConfig, cross: bool = False) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = 1.0 / math.sqrt(d)
     specs = {
@@ -101,7 +114,7 @@ def attention_specs(cfg: ModelConfig) -> dict:
         "wo": ParamSpec((H, hd, d), ("qheads", "head_dim", "attn_out_d"), "normal",
                         1.0 / math.sqrt(H * hd)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         specs["bq"] = ParamSpec((H, hd), ("qheads", "head_dim"), "zeros")
         specs["bk"] = ParamSpec((KV, hd), ("kv_heads", "head_dim"), "zeros")
         specs["bv"] = ParamSpec((KV, hd), ("kv_heads", "head_dim"), "zeros")
@@ -161,6 +174,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
 
 
+def out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``[B, S, H, hd]`` heads times ``wo [H, hd, d]`` -> ``[B, S, d]``, as
+    one product of the views ``[B, S, H*hd]`` and ``[H*hd, d]`` (both
+    tensors contiguous, so neither is copied)."""
+    B, S, H, hd = out.shape
+    return torch.matmul(out.reshape(B, S, H * hd), wo.reshape(H * hd, -1))
+
+
 def attention(
     p: dict,
     cfg: ModelConfig,
@@ -174,33 +195,45 @@ def attention(
     rope=None,
     plain: bool = False,
 ) -> torch.Tensor:
-    """Full-sequence attention (prefill / forward): x ``[B, S, d]`` ->
-    ``[B, S, d]``, at positions 0..S-1 on both paths.
+    """Full-sequence attention (prefill / forward): x ``[B, Sq, d]`` ->
+    ``[B, Sq, d]``, queries at positions 0..Sq-1 and keys at 0..Sk-1 on
+    both paths.  ``kv_x`` ``[B, Sk, d]`` switches to cross-attention: keys
+    and values from the encoder or vision stream (the callers pass
+    ``causal=False, use_rope=False``).
 
     The kernel path calls ``flash_attention``: an f32 online softmax
     whose probabilities are rounded to bf16 before the PV product at bf16
     (as the reference's XLA path rounds them; the TPU kernel keeps them in
-    f32), and kept in f32 at f32.  ``plain=True`` runs the reference's
-    exact query-blocked ``_sdpa`` (blocks of ``q_block`` queries over all
-    keys, or over the ``window - 1 + q_block`` keys a sliding-window block
-    can reach), which rounds the probabilities to the compute dtype first;
-    at bf16 the two agree within bf16 tolerance.  ``rope``: the (sin, cos)
-    of positions 0..S-1 (``rope_sin_cos``), computed here when not given."""
-    if kv_x is not None:
-        raise NotImplementedError("cross-attention (kv_x) is not ported yet")
+    f32), and kept in f32 at f32.  One query against ``kv_x`` with no mask
+    (a decode step's cross-attention) calls ``decode_attention`` at
+    ``pos = Sk - 1`` instead, the same function.  ``plain=True`` runs the
+    reference's exact query-blocked ``_sdpa`` (blocks of ``q_block``
+    queries over all keys, or over the ``window - 1 + q_block`` keys a
+    sliding-window block can reach; above ``q_block`` queries Sq must be a
+    multiple of it, as in the reference), which rounds the probabilities
+    to the compute dtype first; at bf16 the two agree within bf16
+    tolerance.  ``rope``: the (sin, cos) of positions 0..Sq-1
+    (``rope_sin_cos``) for self-attention, computed here when not
+    given."""
     if cfg.attn_probs_dtype != "float32":
         raise NotImplementedError("attn_probs_dtype='compute' is not ported")
     B, Sq, _ = x.shape
-    Sk = Sq
+    cross = kv_x is not None
+    kv_x = x if kv_x is None else kv_x
+    Sk = kv_x.shape[1]
     positions = torch.arange(Sq, dtype=torch.int32, device=x.device)
-    kv_positions = positions
+    kv_positions = torch.arange(Sk, dtype=torch.int32, device=x.device)
 
-    q, k, v = _qkv(p, cfg, x, x, positions, kv_positions, use_rope,
-                   rope=rope, plain=plain)
+    q, k, v = _qkv(p, cfg, x, kv_x, positions, kv_positions, use_rope,
+                   rope=None if cross else rope, plain=plain)
     KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     scale = cfg.attn_scale or 1.0 / math.sqrt(hd)
 
-    if not plain:
+    if not plain and cross and Sq == 1 and not causal and window is None:
+        last = torch.full((), Sk - 1, dtype=torch.int32, device=x.device)
+        out = decode_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), last, scale=scale)
+    elif not plain:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=causal, window=window, scale=scale)
     else:
@@ -214,7 +247,7 @@ def attention(
             if Sq % q_block:
                 raise ValueError(f"Sq={Sq} is not a multiple of "
                                  f"q_block={q_block}")
-            windowed = (window is not None and causal
+            windowed = (window is not None and causal and not cross
                         and window + q_block < Sk)
             outs = []
             for q0 in range(0, Sq, q_block):
@@ -231,8 +264,7 @@ def attention(
                     bias = _mask_bias(pi, kv_positions, causal, window)
                 outs.append(_sdpa(qi, kb, vb, bias, scale))
             out = torch.cat(outs, dim=1)
-    out = out.reshape(B, Sq, cfg.n_heads, hd)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+    return out_proj(out.reshape(B, Sq, cfg.n_heads, hd), p["wo"])
 
 
 def attention_from_cache(
@@ -269,8 +301,7 @@ def attention_from_cache(
     scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.hd)
     attend = decode_attention_plain if plain else decode_attention
     out = attend(q, k_cache, v_cache, pos, scale=scale, window=window)
-    y = torch.einsum("bsnh,nhd->bsd", out, p["wo"])
-    return y, k_cache, v_cache
+    return out_proj(out, p["wo"]), k_cache, v_cache
 
 
 # ---------------------------------------------------------------- MLP

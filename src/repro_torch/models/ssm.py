@@ -1,4 +1,5 @@
-"""Mamba2 (SSD) blocks (port of the Mamba2 half of ``repro.models.ssm``).
+"""State-space / recurrent blocks: Mamba2 (SSD) and xLSTM (mLSTM + sLSTM)
+(port of ``repro.models.ssm``).
 
 The full-sequence block runs the chunked SSD scan through the ``ssm_scan``
 kernel wrapper, asking it for an f32 ``y``: the reference's
@@ -7,7 +8,12 @@ that follow are f32 too, so the kernel path rounds nowhere the reference
 does not.  ``plain=True`` runs the chunked form itself (``_ssd_chunked``).
 Decode is the O(1) recurrent update on a cached state, written in place.
 
-Left for a later slice: xLSTM (mLSTM, sLSTM).
+xLSTM: the full-sequence mLSTM and sLSTM are loops over time with f32
+states.  The reference nests its ``lax.scan`` over time in checkpointed
+chunks (``_chunked_time_scan``), which only changes what its backward
+pass stores: the forward is the same flat recurrence.  No TPU kernel
+computes either cell, so both stay plain PyTorch; the prefill's time loop
+is bound by the host's launches.
 """
 
 from __future__ import annotations
@@ -22,9 +28,14 @@ from repro_torch._device import resolve_device
 from repro_torch.kernels import ssm_scan
 from repro_torch.kernels.ssm_scan import ssd_chunked as _ssd_chunked
 from repro_torch.models.common import ModelConfig, ParamSpec
+from repro_torch.models.layers import out_proj
 
 __all__ = ["mamba2_specs", "mamba2_forward", "mamba2_decode",
-           "mamba2_init_state", "MambaState"]
+           "mamba2_init_state", "MambaState",
+           "mlstm_specs", "mlstm_forward", "mlstm_decode", "mlstm_init_state",
+           "MLSTMState",
+           "slstm_specs", "slstm_forward", "slstm_decode", "slstm_init_state",
+           "SLSTMState"]
 
 
 def _mamba_dims(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -158,3 +169,235 @@ def mamba2_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     state.h.copy_(h)
     state.conv.copy_(conv_state)
     return out, state
+
+
+# ================================================================== mLSTM
+
+def _mlstm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(heads, head_dim, d_in): the cell runs at d_in = proj_factor *
+    d_model; with proj_factor 0 the cell runs at d_model."""
+    H = cfg.n_heads
+    d_in = int(cfg.mlstm_proj_factor * cfg.d_model) or cfg.d_model
+    return H, d_in // H, d_in
+
+
+def _slstm_dims(cfg: ModelConfig) -> tuple[int, int]:
+    """sLSTM always runs at d_model (no up-projection)."""
+    H = cfg.n_heads
+    return H, cfg.d_model // H
+
+
+def mlstm_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    H, hd, d_in = _mlstm_dims(cfg)
+    s = 1.0 / math.sqrt(d)
+    si = 1.0 / math.sqrt(d_in)
+    specs = {
+        "wq": ParamSpec((d_in, H, hd), ("mlp", "qheads", "head_dim"), "normal", si),
+        "wk": ParamSpec((d_in, H, hd), ("mlp", "qheads", "head_dim"), "normal", si),
+        "wv": ParamSpec((d_in, H, hd), ("mlp", "qheads", "head_dim"), "normal", si),
+        "w_if": ParamSpec((d_in, 2 * H), ("mlp", None), "normal", si),
+        "b_if": ParamSpec((2 * H,), (None,), "zeros"),
+        "o_norm": ParamSpec((H, hd), ("qheads", "head_dim"), "ones"),
+        "wo": ParamSpec((H, hd, d), ("qheads", "head_dim", "embed"), "normal",
+                        si),
+    }
+    if cfg.mlstm_proj_factor:
+        # pre-up-projection + swish output gate
+        specs["w_up"] = ParamSpec((d, d_in), ("embed", "mlp"), "normal", s)
+        specs["w_gate"] = ParamSpec((d, d_in), ("embed", "mlp"), "normal", s)
+    return specs
+
+
+def _mlstm_in(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """Block input -> (cell input u, output gate z or None)."""
+    if cfg.mlstm_proj_factor:
+        u = torch.einsum("bsd,de->bse", x, p["w_up"])
+        z = torch.einsum("bsd,de->bse", x, p["w_gate"])
+        return u, z
+    return x, None
+
+
+def _mlstm_gates(p: dict, x: torch.Tensor):
+    """(input gate, log forget gate), both f32 ``[B, S, H]``."""
+    gates = torch.einsum("bsd,dg->bsg", x, p["w_if"]) + p["b_if"]
+    H = gates.shape[-1] // 2
+    i_g = gates[..., :H].float()                        # input (log-space)
+    logf = F.logsigmoid(gates[..., H:].float())         # forget
+    return i_g, logf
+
+
+def _mlstm_qkv(p: dict, cfg: ModelConfig, u: torch.Tensor):
+    hd = _mlstm_dims(cfg)[1]
+    q = torch.einsum("bsd,dnh->bsnh", u, p["wq"]) / math.sqrt(hd)
+    k = torch.einsum("bsd,dnh->bsnh", u, p["wk"]) / math.sqrt(hd)
+    v = torch.einsum("bsd,dnh->bsnh", u, p["wv"])
+    return q, k, v
+
+
+def _mlstm_cell(C, n, m, qf, kf, vf, it, lft):
+    """One stabilised step, all f32.  C ``[B, H, hd, hd]``, n / q / k / v
+    ``[B, H, hd]``, m / gates ``[B, H]`` -> (C, n, m, y ``[B, H, hd]``)."""
+    m_new = torch.maximum(lft + m, it)                  # stabilizer
+    i_s = torch.exp(it - m_new)
+    f_s = torch.exp(lft + m - m_new)
+    C = C * f_s[..., None, None] + i_s[..., None, None] * (
+        kf[..., :, None] * vf[..., None, :])
+    n = n * f_s[..., None] + i_s[..., None] * kf
+    num = torch.einsum("bhk,bhkv->bhv", qf, C)
+    den = torch.maximum(torch.einsum("bhk,bhk->bh", qf, n).abs(),
+                        torch.exp(-m_new))[..., None]
+    return C, n, m_new, num / den
+
+
+def _mlstm_out(p: dict, cfg: ModelConfig, y: torch.Tensor,
+               z_gate: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """y ``[B, S, H, hd]`` f32 -> the block's output ``[B, S, d]``."""
+    B, S, H, hd = y.shape
+    y = y * p["o_norm"].float()[None, None]
+    if z_gate is not None:
+        y = y * F.silu(z_gate.float()).reshape(B, S, H, hd)
+    return out_proj(y.to(dtype), p["wo"])
+
+
+def mlstm_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Stabilized mLSTM over the sequence, a loop over time with f32
+    states from zero.  x ``[B, S, d]``."""
+    B, S, _ = x.shape
+    H, hd, _ = _mlstm_dims(cfg)
+    u, z_gate = _mlstm_in(p, cfg, x)
+    q, k, v = (t.float() for t in _mlstm_qkv(p, cfg, u))
+    i_g, logf = _mlstm_gates(p, u)
+    C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    n = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+    m = torch.zeros((B, H), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        C, n, m, y = _mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t],
+                                 i_g[:, t], logf[:, t])
+        ys.append(y)
+    return _mlstm_out(p, cfg, torch.stack(ys, dim=1), z_gate, x.dtype)
+
+
+class MLSTMState(NamedTuple):
+    C: torch.Tensor       # [B, H, hd, hd] f32
+    n: torch.Tensor       # [B, H, hd] f32
+    m: torch.Tensor       # [B, H] f32
+
+
+def mlstm_init_state(cfg: ModelConfig, batch: int,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> MLSTMState:
+    """Zero f32 mLSTM state on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
+    H, hd, _ = _mlstm_dims(cfg)
+    return MLSTMState(
+        C=torch.zeros((batch, H, hd, hd), dtype=torch.float32, device=device),
+        n=torch.zeros((batch, H, hd), dtype=torch.float32, device=device),
+        m=torch.zeros((batch, H), dtype=torch.float32, device=device))
+
+
+def mlstm_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 state: MLSTMState) -> tuple[torch.Tensor, MLSTMState]:
+    """x ``[B, 1, d]``, one step of :func:`mlstm_forward`'s loop.  Writes
+    the new ``C``, ``n`` and ``m`` into ``state``'s tensors IN PLACE (the
+    reference returns a new state) and returns the same ``state``."""
+    u, z_gate = _mlstm_in(p, cfg, x)
+    q, k, v = (t[:, 0].float() for t in _mlstm_qkv(p, cfg, u))
+    i_g, logf = _mlstm_gates(p, u)
+    C, n, m, y = _mlstm_cell(state.C, state.n, state.m, q, k, v,
+                             i_g[:, 0], logf[:, 0])
+    out = _mlstm_out(p, cfg, y[:, None], z_gate, x.dtype)
+    state.C.copy_(C)
+    state.n.copy_(n)
+    state.m.copy_(m)
+    return out, state
+
+
+# ================================================================== sLSTM
+
+def slstm_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    H, hd = _slstm_dims(cfg)
+    s = 1.0 / math.sqrt(d)
+    return {
+        # 4 gates (i, f, z, o) input + block-diag recurrent weights
+        "w_x": ParamSpec((d, 4, H, hd), ("embed", None, "qheads", "head_dim"),
+                         "normal", s),
+        "w_r": ParamSpec((4, H, hd, hd), (None, "qheads", "head_dim", None),
+                         "normal", 1.0 / math.sqrt(hd)),
+        "b": ParamSpec((4, H, hd), (None, "qheads", "head_dim"), "zeros"),
+        "wo": ParamSpec((H, hd, d), ("qheads", "head_dim", "embed"), "normal",
+                        1.0 / math.sqrt(d)),
+    }
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor       # [B, H, hd] f32
+    n: torch.Tensor
+    h: torch.Tensor
+    m: torch.Tensor
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> SLSTMState:
+    """Zero f32 sLSTM state on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
+    H, hd = _slstm_dims(cfg)
+    return SLSTMState(*(torch.zeros((batch, H, hd), dtype=torch.float32,
+                                    device=device) for _ in range(4)))
+
+
+def _slstm_step(p: dict, state: SLSTMState,
+                xg: torch.Tensor) -> tuple[SLSTMState, torch.Tensor]:
+    """xg ``[B, 4, H, hd]`` pre-activations from the input; the recurrence
+    is added here, in f32."""
+    c, n, h, m = state
+    # [1, H, B, k] x [4, H, k, v] -> [4, H, B, v], batched over (gate,
+    # head) on w_r's own layout (an einsum would copy it permuted)
+    rec = torch.matmul(h.transpose(0, 1)[None], p["w_r"].float()).permute(
+        2, 0, 1, 3)
+    g = xg.float() + rec + p["b"].float()[None]
+    i_t, f_t, z_t, o_t = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
+    logf = F.logsigmoid(f_t)
+    m_new = torch.maximum(logf + m, i_t)
+    i_s = torch.exp(i_t - m_new)
+    f_s = torch.exp(logf + m - m_new)
+    c = f_s * c + i_s * torch.tanh(z_t)
+    n = f_s * n + i_s
+    h = torch.sigmoid(o_t) * c / torch.clamp_min(n, 1e-6)
+    return SLSTMState(c=c, n=n, h=h, m=m_new), h
+
+
+def _slstm_in(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x ``[B, S, d]`` -> gate pre-activations ``[B, S, 4, H, hd]``."""
+    d, g, H, hd = p["w_x"].shape
+    return torch.matmul(x, p["w_x"].reshape(d, g * H * hd)).reshape(
+        *x.shape[:2], g, H, hd)
+
+
+def slstm_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """sLSTM over the sequence, a loop over time with f32 states from
+    zero.  x ``[B, S, d]``."""
+    B, S, _ = x.shape
+    xg = _slstm_in(p, x).float()
+    # the f32 casts of the step, made once for the whole loop
+    pf = {"w_r": p["w_r"].float(), "b": p["b"].float()}
+    st = slstm_init_state(cfg, B, x.device)
+    hs = []
+    for t in range(S):
+        st, h = _slstm_step(pf, st, xg[:, t])
+        hs.append(h)
+    return out_proj(torch.stack(hs, dim=1).to(x.dtype), p["wo"])
+
+
+def slstm_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 state: SLSTMState) -> tuple[torch.Tensor, SLSTMState]:
+    """x ``[B, 1, d]``, one step.  Writes the new ``c``, ``n``, ``h`` and
+    ``m`` into ``state``'s tensors IN PLACE and returns the same
+    ``state``."""
+    new, h = _slstm_step(p, state, _slstm_in(p, x)[:, 0])
+    for old, t in zip(state, new):
+        old.copy_(t)
+    return out_proj(h.to(x.dtype)[:, None], p["wo"]), state

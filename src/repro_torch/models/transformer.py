@@ -1,24 +1,33 @@
-"""Decoder assembly: the full-sequence forward and prefill, and the
-one-token decode step (port of the dense and hybrid paths of
+"""Model assembly: the full-sequence forward and prefill, and the
+one-token decode step, for every family of the reference (port of
 ``repro.models.transformer``).
 
 The parameter tree keeps the reference's layout: each group of the
 program stacked on a leading axis under ``blocks/b<i>_<kind>`` (so a
-dense ``wq`` is ``[L, d, H, hd]``), a ``tail`` for the remainder layers
-and, for the hybrid family, one ``shared_attn`` block outside the stack,
-so a checkpoint crosses between the packages by key.  The reference's
-``lax.scan`` over the stack is a Python loop over the leading axis here.
+dense ``wq`` is ``[L, d, H, hd]``), a ``tail`` for the remainder layers,
+for the hybrid family one ``shared_attn`` block outside the stack, and for
+the encoder-decoder an ``encoder`` stack; a ``frontend_proj`` maps the
+stub frame / patch embeddings into the model, so a checkpoint crosses
+between the packages by key.  The reference's ``lax.scan`` over the stack
+is a Python loop over the leading axis here.
 
-Ported programs: dense global attention (``("attn",) * L``: qwen3,
-qwen2.5, nemotron), the dense local/global program (``("attn_local",) * N
-+ ("attn_global",)`` per group plus a local tail, gemma3; the local layers
-attend within ``cfg.attn_window``) and the hybrid (``("mamba",) * period +
-("shared_attn",)`` per group plus a mamba tail, zamba2).  The RoPE sin /
-cos of the step's positions are computed once per forward or decode step
-and shared by every layer.  ``forward`` builds no cache, as the reference's
-does not; ``generate`` prefills through the decode step.  The training
-levers ``remat`` and ``seq_shard_norms`` are not ported.  The other
-families come with their slices.
+Programs (``program_for``): dense global attention (qwen3, qwen2.5,
+nemotron), the dense local/global program (gemma3; local layers attend
+within ``cfg.attn_window``), the hybrid (``("mamba",) * period +
+("shared_attn",)`` per group, zamba2), MoE (``("moe",) * L``: attention
+plus the expert FFN, olmoe, kimi-k2), xLSTM (``("mlstm",) * (N - 1) +
+("slstm",)`` per group, xlstm), the VLM (``("attn",) * (N - 1) +
+("xattn",)`` per group: a ``tanh(gate)``-scaled cross-attention to the
+projected patches, llama-3.2-vision) and the encoder-decoder
+(``("dec_attn",) * L``: self, cross and MLP, over a bidirectional
+encoder's output, whisper).  The memory (encoder output or projected
+patches) is computed by ``forward`` and, for decode, held in the cache's
+``memory`` leaf, which the caller writes.  The RoPE sin / cos of the
+step's positions are computed once per forward or decode step and shared
+by every rotary layer; the encoder-decoder and every cross-attention use
+no RoPE, as in the reference.  ``forward`` builds no cache, as the
+reference's does not; ``generate`` prefills through the decode step.  The
+training levers ``remat`` and ``seq_shard_norms`` are not ported.
 """
 
 from __future__ import annotations
@@ -33,13 +42,15 @@ from repro_torch._device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.common import (ModelConfig, ParamSpec, init_params,
                                        spec_tree_num_params, tree_map)
+from repro_torch.models.moe import moe_block, moe_specs
 from repro_torch.models.layers import (apply_norm, attention,
                                        attention_from_cache, attention_specs,
                                        mlp, mlp_specs, norm_spec,
                                        rope_sin_cos)
 
-__all__ = ["program_for", "model_specs", "forward", "prefill", "cache_specs",
-           "init_cache", "decode_step", "num_params", "Decoder"]
+__all__ = ["program_for", "model_specs", "encode", "forward", "prefill",
+           "cache_specs", "init_cache", "decode_step", "num_params",
+           "active_params", "Decoder"]
 
 
 # ------------------------------------------------------------------ programs
@@ -53,13 +64,24 @@ def program_for(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
         # compute dtype; it arrives with training
         raise NotImplementedError("norm_custom_bwd is not ported")
     L = cfg.n_layers
+    if cfg.family == "moe":
+        return ("moe",), L, ()
     if cfg.family == "hybrid":
         per = cfg.hybrid_period
         return ("mamba",) * per + ("shared_attn",), L // per, \
             ("mamba",) * (L % per)
+    if cfg.family == "ssm":
+        per = cfg.slstm_every
+        return ("mlstm",) * (per - 1) + ("slstm",), L // per, \
+            ("mlstm",) * (L % per)
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_period
+        return ("attn",) * (per - 1) + ("xattn",), L // per, \
+            ("attn",) * (L % per)
+    if cfg.family == "encdec":
+        return ("dec_attn",), L, ()
     if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense and hybrid programs are ported")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.local_global_pattern:
         per = cfg.local_global_pattern + 1
         grp = ("attn_local",) * cfg.local_global_pattern + ("attn_global",)
@@ -67,22 +89,51 @@ def program_for(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
     return ("attn",), L, ()
 
 
-#: block kinds made of attention + MLP (``shared_attn`` uses the shared
-#: parameters); ``attn_local`` attends within ``cfg.attn_window``
-_ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn")
+#: block kinds made of self-attention + MLP (``shared_attn`` uses the
+#: shared parameters; ``attn_local`` attends within ``cfg.attn_window``;
+#: ``attn_bidir`` is the encoder's, with no causal mask)
+_ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir",
+               "shared_attn")
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.attn_window if kind == "attn_local" else None
 
 
+def _rotary(cfg: ModelConfig) -> bool:
+    """Whether the decoder's self-attention rotates q and k (the
+    reference's ``use_rope = cfg.family != "encdec"``)."""
+    return cfg.family != "encdec"
+
+
 def _block_specs(cfg: ModelConfig, kind: str) -> dict:
     if kind in _ATTN_KINDS:
         return {"ln1": norm_spec(cfg), "attn": attention_specs(cfg),
                 "ln2": norm_spec(cfg), "mlp": mlp_specs(cfg)}
+    if kind == "moe":
+        return {"ln1": norm_spec(cfg), "attn": attention_specs(cfg),
+                "ln2": norm_spec(cfg), "moe": moe_specs(cfg)}
+    if kind == "xattn":
+        return {"ln1": norm_spec(cfg),
+                "xattn": attention_specs(cfg, cross=True),
+                "gate": ParamSpec((1,), (None,), "zeros"),
+                "ln2": norm_spec(cfg), "mlp": mlp_specs(cfg)}
+    if kind == "dec_attn":
+        return {"ln1": norm_spec(cfg), "attn": attention_specs(cfg),
+                "ln_x": norm_spec(cfg),
+                "xattn": attention_specs(cfg, cross=True),
+                "ln2": norm_spec(cfg), "mlp": mlp_specs(cfg)}
     if kind == "mamba":
         return {"ln1": norm_spec(cfg), "mamba": ssm.mamba2_specs(cfg)}
-    raise NotImplementedError(kind)
+    if kind == "mlstm":
+        return {"ln1": norm_spec(cfg), "mlstm": ssm.mlstm_specs(cfg)}
+    if kind == "slstm":
+        specs = {"ln1": norm_spec(cfg), "slstm": ssm.slstm_specs(cfg)}
+        if cfg.d_ff > 0:
+            specs["ln2"] = norm_spec(cfg)
+            specs["mlp"] = mlp_specs(cfg)
+        return specs
+    raise ValueError(kind)
 
 
 def _stack(specs: Any, n: int) -> Any:
@@ -112,6 +163,16 @@ def model_specs(cfg: ModelConfig) -> dict:
                                      "normal", 1.0 / math.sqrt(d))
     if "shared_attn" in grp:
         specs["shared_attn"] = _block_specs(cfg, "attn")
+    if cfg.family == "encdec":
+        specs["encoder"] = {
+            "blocks": _stack(_group_specs(cfg, ("attn_bidir",)),
+                             cfg.n_encoder_layers),
+            "final_norm": norm_spec(cfg),
+        }
+    if cfg.frontend_dim:
+        specs["frontend_proj"] = ParamSpec(
+            (cfg.frontend_dim, d), ("frames", "embed"), "normal",
+            1.0 / math.sqrt(cfg.frontend_dim))
     return specs
 
 
@@ -119,25 +180,74 @@ def num_params(cfg: ModelConfig) -> int:
     return spec_tree_num_params(model_specs(cfg))
 
 
+def active_params(cfg: ModelConfig) -> int:
+    """MoE: parameters touched per token (all of them elsewhere)."""
+    total = num_params(cfg)
+    if cfg.family != "moe":
+        return total
+    _, n_groups, _ = program_for(cfg)
+    moe = model_specs(cfg)["blocks"]["b0_moe"]["moe"]
+    e_params = per_expert_per_layer = 0
+    for name in ("wi", "wg", "wo"):
+        if name in moe:
+            # stacked shape = (n_groups, E, ...)
+            n = math.prod(moe[name].shape)
+            e_params += n
+            per_expert_per_layer += n // (cfg.n_experts * n_groups)
+    return total - e_params + n_groups * cfg.top_k * per_expert_per_layer
+
+
 # ------------------------------------------------------------------ forward
 
 def _apply_block(cfg: ModelConfig, kind: str, p: Optional[dict],
-                 x: torch.Tensor, shared: Optional[dict], rope, *,
-                 plain: bool) -> torch.Tensor:
-    """One block, full-sequence mode; ``rope`` is the (sin, cos) of the
-    sequence's positions."""
+                 x: torch.Tensor, memory: Optional[torch.Tensor],
+                 shared: Optional[dict], rope, *, plain: bool,
+                 q_block: int) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block, full-sequence mode -> (x, the block's load-balance loss
+    or ``None``).  ``memory``: the encoder / vision stream; ``rope``: the
+    (sin, cos) of the sequence's positions (``None`` for the encdec
+    family, which rotates nothing)."""
     eps, nk = cfg.norm_eps, cfg.norm
+
+    def norm(pn, t):
+        return apply_norm(pn, t, eps, nk, plain=plain)
+
+    def attend(pa, t, **kw):
+        return attention(pa, cfg, t, rope=rope, plain=plain,
+                         q_block=q_block, **kw)
+
     if kind in _ATTN_KINDS:
         pp = shared if kind == "shared_attn" else p
-        h = apply_norm(pp["ln1"], x, eps, nk, plain=plain)
-        x = x + attention(pp["attn"], cfg, h, causal=True,
-                          window=_window(cfg, kind), rope=rope, plain=plain)
-        h = apply_norm(pp["ln2"], x, eps, nk, plain=plain)
-        return x + mlp(pp["mlp"], cfg, h)
+        x = x + attend(pp["attn"], norm(pp["ln1"], x),
+                       causal=kind != "attn_bidir", window=_window(cfg, kind),
+                       use_rope=_rotary(cfg))
+        return x + mlp(pp["mlp"], cfg, norm(pp["ln2"], x)), None
+    if kind == "moe":
+        x = x + attend(p["attn"], norm(p["ln1"], x), causal=True)
+        y, lb = moe_block(p["moe"], cfg, norm(p["ln2"], x))
+        return x + y, lb
+    if kind == "xattn":
+        y = attend(p["xattn"], norm(p["ln1"], x), kv_x=memory, causal=False,
+                   use_rope=False)
+        x = x + torch.tanh(p["gate"].float()).to(x.dtype) * y
+        return x + mlp(p["mlp"], cfg, norm(p["ln2"], x)), None
+    if kind == "dec_attn":
+        x = x + attend(p["attn"], norm(p["ln1"], x), causal=True,
+                       use_rope=False)
+        x = x + attend(p["xattn"], norm(p["ln_x"], x), kv_x=memory,
+                       causal=False, use_rope=False)
+        return x + mlp(p["mlp"], cfg, norm(p["ln2"], x)), None
     if kind == "mamba":
-        h = apply_norm(p["ln1"], x, eps, nk, plain=plain)
-        return x + ssm.mamba2_forward(p["mamba"], cfg, h, plain=plain)
-    raise NotImplementedError(kind)
+        return x + ssm.mamba2_forward(p["mamba"], cfg, norm(p["ln1"], x),
+                                      plain=plain), None
+    if kind == "mlstm":
+        return x + ssm.mlstm_forward(p["mlstm"], cfg, norm(p["ln1"], x)), None
+    if kind == "slstm":
+        x = x + ssm.slstm_forward(p["slstm"], cfg, norm(p["ln1"], x))
+        if cfg.d_ff > 0:
+            x = x + mlp(p["mlp"], cfg, norm(p["ln2"], x))
+        return x, None
+    raise ValueError(kind)
 
 
 def _positions_embed(cfg: ModelConfig, params: dict,
@@ -162,28 +272,65 @@ def _layer(tree: dict, layer: int) -> dict:
     return tree_map(lambda t: t[layer], tree)
 
 
+def encode(params: dict, cfg: ModelConfig, batch: dict, *,
+           plain: bool = False,
+           q_block: int = 1024) -> Optional[torch.Tensor]:
+    """The memory cross-attention reads ``[B, M, d]``: for encdec the
+    encoder (bidirectional attention blocks, no RoPE, its final norm) over
+    the stub frame embeddings ``batch["frames"]``, for vlm the projected
+    ``batch["patches"]``; ``None`` for the other families.  A decode step
+    reads it from ``cache["memory"]``."""
+    if cfg.family == "vlm":
+        return torch.matmul(batch["patches"].to(cfg.torch_dtype),
+                            params["frontend_proj"])
+    if cfg.family != "encdec":
+        return None
+    x = torch.matmul(batch["frames"].to(cfg.torch_dtype),
+                     params["frontend_proj"])
+    enc = params["encoder"]
+    for layer in range(cfg.n_encoder_layers):
+        p = _layer(enc["blocks"], layer)["b0_attn_bidir"]
+        x, _ = _apply_block(cfg, "attn_bidir", p, x, None, None, None,
+                            plain=plain, q_block=q_block)
+    return apply_norm(enc["final_norm"], x, cfg.norm_eps, cfg.norm,
+                      plain=plain)
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
-            plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> ``(logits [B, S, V], aux_loss)``; aux is an
-    f32 zero (the ported families have no auxiliary loss).  batch:
-    ``{"tokens": [B, S]}``.
+            plain: bool = False,
+            q_block: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> ``(logits [B, S, V], aux_loss)``; aux is
+    the f32 sum of the MoE blocks' load-balance losses (zero for the other
+    families).  batch: ``{"tokens": [B, S]}``, plus ``"frames"`` ``[B,
+    S_enc, F]`` for encdec and ``"patches"`` ``[B, P, F]`` for vlm.
 
     ``plain=True`` runs the plain PyTorch versions of the kernels (the
-    on-card reference the kernels are held against)."""
+    on-card reference the kernels are held against); ``q_block`` is its
+    attention's query block (the reference's default 1024; above it the
+    sequence must be a multiple of it)."""
     x = _positions_embed(cfg, params, batch["tokens"])
+    memory = encode(params, cfg, batch, plain=plain, q_block=q_block)
     grp, n_groups, rem = program_for(cfg)
     shared = params.get("shared_attn")
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    rope = rope_sin_cos(positions, cfg.hd, cfg.rope_theta)
+    rope = None
+    if _rotary(cfg):
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        rope = rope_sin_cos(positions, cfg.hd, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(kind, p, x, aux):
+        x, lb = _apply_block(cfg, kind, p, x, memory, shared, rope,
+                             plain=plain, q_block=q_block)
+        return x, aux if lb is None else aux + lb
+
     for layer in range(n_groups):
         gp = _layer(params["blocks"], layer)
         for i, kind in enumerate(grp):
             p = None if kind == "shared_attn" else gp[f"b{i}_{kind}"]
-            x = _apply_block(cfg, kind, p, x, shared, rope, plain=plain)
+            x, aux = run(kind, p, x, aux)
     for i, kind in enumerate(rem):
-        x = _apply_block(cfg, kind, params["tail"][f"t{i}_{kind}"], x, shared,
-                         rope, plain=plain)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = run(kind, params["tail"][f"t{i}_{kind}"], x, aux)
     return _logits(params, cfg, x, plain=plain), aux
 
 
@@ -203,10 +350,12 @@ _CACHE_F32 = ("h", "C", "n", "m", "c")
 
 def _block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
                        s_max: int) -> dict:
-    if kind in _ATTN_KINDS:
+    if kind in _ATTN_KINDS or kind in ("moe", "dec_attn"):
         return {n: ParamSpec((batch, s_max, cfg.n_kv_heads, cfg.hd),
                              ("batch", "cache_seq", "kv_heads", "head_dim"),
                              "zeros") for n in ("k", "v")}
+    if kind == "xattn":
+        return {}       # the memory's K / V are recomputed every step
     if kind == "mamba":
         d_inner, nheads, headdim = ssm._mamba_dims(cfg)
         return {
@@ -215,10 +364,26 @@ def _block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
             "conv": ParamSpec((batch, cfg.ssm_conv - 1, d_inner),
                               ("batch", None, "mlp"), "zeros"),
         }
-    raise NotImplementedError(kind)
+    if kind == "mlstm":
+        H, hdm, _ = ssm._mlstm_dims(cfg)
+        return {
+            "C": ParamSpec((batch, H, hdm, hdm),
+                           ("batch", "qheads", "head_dim", None), "zeros"),
+            "n": ParamSpec((batch, H, hdm), ("batch", "qheads", "head_dim"),
+                           "zeros"),
+            "m": ParamSpec((batch, H), ("batch", "qheads"), "zeros"),
+        }
+    if kind == "slstm":
+        H, hdm = ssm._slstm_dims(cfg)
+        return {n: ParamSpec((batch, H, hdm), ("batch", "qheads", "head_dim"),
+                             "zeros") for n in ("c", "n", "h", "m")}
+    raise ValueError(kind)
 
 
-def cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:
+def cache_specs(cfg: ModelConfig, batch: int, s_max: int,
+                mem_len: int = 0) -> dict:
+    """Spec tree of the decode cache; encdec and vlm also hold the
+    ``memory`` ``[batch, mem_len, d]`` their cross-attention reads."""
     grp, n_groups, rem = program_for(cfg)
     specs: dict[str, Any] = {
         "blocks": _stack(
@@ -232,13 +397,18 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:
         specs["shared"] = _stack(
             {"attn": _block_cache_specs(cfg, "shared_attn", batch, s_max)},
             n_groups)
+    if cfg.family in ("encdec", "vlm"):
+        specs["memory"] = ParamSpec((batch, mem_len, cfg.d_model),
+                                    ("batch", "frames", "embed"), "zeros")
     return specs
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               device: Union[str, torch.device]) -> dict:
-    """Zeroed cache tree on ``device``: KV caches and conv windows in the
-    compute dtype, recurrent states (``_CACHE_F32``) in f32."""
+               device: Union[str, torch.device], *,
+               mem_len: int = 0) -> dict:
+    """Zeroed cache tree on ``device``: KV caches, conv windows and the
+    memory in the compute dtype, recurrent states (``_CACHE_F32``) in
+    f32.  The caller writes ``memory`` (encdec, vlm) before decoding."""
 
     def mk(node: Any) -> Any:
         return {name: mk(leaf) if isinstance(leaf, dict) else torch.zeros(
@@ -247,32 +417,61 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                     else cfg.torch_dtype)
                 for name, leaf in node.items()}
 
-    return mk(cache_specs(cfg, batch, s_max))
+    return mk(cache_specs(cfg, batch, s_max, mem_len))
 
 
 def _decode_block(cfg: ModelConfig, kind: str, p: Optional[dict],
                   x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                  shared: Optional[dict], rope, *,
-                  plain: bool) -> torch.Tensor:
+                  memory: Optional[torch.Tensor], shared: Optional[dict],
+                  rope, *, plain: bool) -> torch.Tensor:
     """One block; writes this block's cache in place.  ``rope`` is the
-    (sin, cos) of ``pos``."""
+    (sin, cos) of ``pos`` (``None`` for the encdec family)."""
     eps, nk = cfg.norm_eps, cfg.norm
-    if kind in _ATTN_KINDS:
+
+    def norm(pn, t):
+        return apply_norm(pn, t, eps, nk, plain=plain)
+
+    def self_attend(pa, t, **kw):
+        y, _, _ = attention_from_cache(pa, cfg, t, cache["k"], cache["v"],
+                                       pos, rope=rope, plain=plain, **kw)
+        return y
+
+    def cross_attend(pa, t):
+        return attention(pa, cfg, t, kv_x=memory, causal=False,
+                         use_rope=False, plain=plain)
+
+    if kind in _ATTN_KINDS or kind == "moe":
         pp = shared if kind == "shared_attn" else p
-        h = apply_norm(pp["ln1"], x, eps, nk, plain=plain)
-        y, _, _ = attention_from_cache(pp["attn"], cfg, h, cache["k"],
-                                       cache["v"], pos,
-                                       window=_window(cfg, kind), rope=rope,
-                                       plain=plain)
-        x = x + y
-        h = apply_norm(pp["ln2"], x, eps, nk, plain=plain)
+        x = x + self_attend(pp["attn"], norm(pp["ln1"], x),
+                            window=_window(cfg, kind), use_rope=_rotary(cfg))
+        h = norm(pp["ln2"], x)
+        if kind == "moe":
+            return x + moe_block(p["moe"], cfg, h)[0]
         return x + mlp(pp["mlp"], cfg, h)
+    if kind == "dec_attn":
+        x = x + self_attend(p["attn"], norm(p["ln1"], x), use_rope=False)
+        x = x + cross_attend(p["xattn"], norm(p["ln_x"], x))
+        return x + mlp(p["mlp"], cfg, norm(p["ln2"], x))
+    if kind == "xattn":
+        y = cross_attend(p["xattn"], norm(p["ln1"], x))
+        x = x + torch.tanh(p["gate"].float()).to(x.dtype) * y
+        return x + mlp(p["mlp"], cfg, norm(p["ln2"], x))
     if kind == "mamba":
-        h = apply_norm(p["ln1"], x, eps, nk, plain=plain)
         st = ssm.MambaState(h=cache["h"], conv=cache["conv"])
-        y, _ = ssm.mamba2_decode(p["mamba"], cfg, h, st)
-        return x + y
-    raise NotImplementedError(kind)
+        return x + ssm.mamba2_decode(p["mamba"], cfg, norm(p["ln1"], x),
+                                     st)[0]
+    if kind == "mlstm":
+        st = ssm.MLSTMState(C=cache["C"], n=cache["n"], m=cache["m"])
+        return x + ssm.mlstm_decode(p["mlstm"], cfg, norm(p["ln1"], x),
+                                    st)[0]
+    if kind == "slstm":
+        st = ssm.SLSTMState(c=cache["c"], n=cache["n"], h=cache["h"],
+                            m=cache["m"])
+        x = x + ssm.slstm_decode(p["slstm"], cfg, norm(p["ln1"], x), st)[0]
+        if cfg.d_ff > 0:
+            x = x + mlp(p["mlp"], cfg, norm(p["ln2"], x))
+        return x
+    raise ValueError(kind)
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
@@ -280,31 +479,35 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 plain: bool = False) -> tuple[torch.Tensor, dict]:
     """One decode step.  token ``[B, 1]`` int, pos an int32 scalar tensor
     on the parameters' device.  Returns ``(logits [B, V], cache)``; the
-    cache is updated in place (the reference returns a new one).
+    cache is updated in place (the reference returns a new one).  encdec
+    and vlm read ``cache["memory"]``.
 
     ``plain=True`` runs the plain PyTorch versions of the kernels (the
     on-card reference the kernels are held against)."""
     x = _positions_embed(cfg, params, token)
     grp, n_groups, rem = program_for(cfg)
     shared = params.get("shared_attn")
-    # once per step, on the device: every attention layer rotates by pos
-    rope = rope_sin_cos(pos.reshape(1), cfg.hd, cfg.rope_theta)
+    memory = cache.get("memory")
+    # once per step, on the device: every rotary layer rotates by pos
+    rope = (rope_sin_cos(pos.reshape(1), cfg.hd, cfg.rope_theta)
+            if _rotary(cfg) else None)
+
+    def run(kind, p, c, x):
+        return _decode_block(cfg, kind, p, x, c, pos, memory, shared, rope,
+                             plain=plain)
+
     for layer in range(n_groups):
         gp = _layer(params["blocks"], layer)
         gc = _layer(cache["blocks"], layer)
         for i, kind in enumerate(grp):
             if kind == "shared_attn":
-                c = _layer(cache["shared"]["attn"], layer)
-                x = _decode_block(cfg, kind, None, x, c, pos, shared, rope,
-                                  plain=plain)
+                x = run(kind, None, _layer(cache["shared"]["attn"], layer), x)
             else:
                 key = f"b{i}_{kind}"
-                x = _decode_block(cfg, kind, gp[key], x, gc[key], pos, shared,
-                                  rope, plain=plain)
+                x = run(kind, gp[key], gc[key], x)
     for i, kind in enumerate(rem):
         key = f"t{i}_{kind}"
-        x = _decode_block(cfg, kind, params["tail"][key], x,
-                          cache["tail"][key], pos, shared, rope, plain=plain)
+        x = run(kind, params["tail"][key], cache["tail"][key], x)
     return _logits(params, cfg, x, plain=plain)[:, 0], cache
 
 

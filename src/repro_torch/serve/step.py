@@ -26,13 +26,17 @@ __all__ = ["make_serve_step", "make_prefill_step", "CapturedServeStep"]
 _WRAPPERS = ("decode_attention", "rmsnorm", "flash_attention", "ssm_scan")
 
 
-def make_prefill_step(cfg: ModelConfig, *, plain: bool = False):
+def make_prefill_step(cfg: ModelConfig, *, plain: bool = False,
+                      q_block: int = 1024):
     """prefill_step(params, batch) -> last-position logits ``[B, V]`` f32.
+    ``batch`` holds ``tokens``, and ``frames`` (encdec) or ``patches``
+    (vlm).
 
-    ``plain=True`` runs the plain PyTorch versions of the kernels."""
+    ``plain=True`` runs the plain PyTorch versions of the kernels, with
+    attention in blocks of ``q_block`` queries (``forward``)."""
 
     def prefill_step(params: dict, batch: dict) -> torch.Tensor:
-        logits, _ = forward(params, cfg, batch, plain=plain)
+        logits, _ = forward(params, cfg, batch, plain=plain, q_block=q_block)
         return logits[:, -1].float()
 
     return prefill_step
@@ -71,7 +75,10 @@ class CapturedServeStep:
     launch-plan caches), the cache is zeroed, and the step and its sampling
     are captured with static inputs: a token buffer ``[B, 1]``, a
     one-element int32 position, the cache tree (updated in place) and the
-    parameters.  A call copies the token and the position into those
+    parameters.  For encdec and vlm the cache holds a ``memory`` of
+    ``mem_len`` rows, zeroed after the warm-up: the caller writes it (into
+    ``cache["memory"]``, in place) before the first replay, and every
+    replay reads what it holds then.  A call copies the token and the position into those
     buffers and replays the graph; it returns the graph's own output
     tensors ``(next_token [B, 1], logits [B, V] f32)``, overwritten by the
     next call.  A capture or a replay that fails raises; nothing falls back
@@ -89,12 +96,12 @@ class CapturedServeStep:
     def __init__(self, cfg: ModelConfig, params: dict, batch: int,
                  s_max: int, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None, *,
-                 device=None):
+                 device=None, mem_len: int = 0):
         dev = resolve_device(device)
         if dev.type != "cuda":
             raise ValueError(f"CapturedServeStep: CUDA graphs need the card, "
                              f"got {dev}; the CPU runs make_serve_step")
-        self.cache = init_cache(cfg, batch, s_max, dev)
+        self.cache = init_cache(cfg, batch, s_max, dev, mem_len=mem_len)
         self.token = torch.zeros((batch, 1), dtype=torch.long, device=dev)
         self.pos = torch.zeros((), dtype=torch.int32, device=dev)
         self.graph = torch.cuda.CUDAGraph()

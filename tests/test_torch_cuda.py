@@ -68,6 +68,10 @@ def test_rmsnorm_kernel_matches_plain(card, shape, dtype, with_res):
     (1, 8192, 1152), (4, 1, 1152), (1, 8192, 4, 256), (4, 1, 1, 256),
     # qwen2.5-14b and nemotron-4-15b: d 5120 and 6144 on the loop path
     (1, 4096, 5120), (4, 1, 5120), (1, 4096, 6144), (4, 1, 6144),
+    # xlstm-125m (d 768), olmoe-1b-7b (d 2048; q/k-norm rows of 128 at B 1
+    # x S 4096), kimi-k2 (d 7168), llama-3.2-vision (d 4096)
+    (1, 2048, 768), (4, 1, 768), (1, 4096, 16, 128), (4, 1, 16, 128),
+    (1, 2048, 7168), (4, 1, 7168), (1, 2048, 4096), (4, 1, 4096),
 ], ids=str)
 def test_rmsnorm_kernel_matches_plain_at_path_shapes(card, shape, dtype):
     """The models' shapes, scale in x's dtype as the models hold it; d 3584
@@ -116,6 +120,13 @@ def test_rmsnorm_kernel_matches_plain_off_16_byte_alignment(card, dtype,
     # zamba2-7b generate: B 2, KV 32, G 1, hd 112, S_max 32
     (2, 32, 1, 112, 32, 0, None), (2, 32, 1, 112, 32, 15, None),
     (2, 32, 1, 112, 32, 31, None),
+    # generate at B 4: olmoe-1b-7b (KV 16, G 1, hd 128), kimi-k2 (KV 8,
+    # G 8, hd 112), whisper-large-v3's decoder (KV 20, G 1, hd 64); the
+    # one-query cross-attention over whisper's 1500 encoder rows and
+    # llama-3.2-vision's 1024 patches (pos = M - 1)
+    (4, 16, 1, 128, 32, 31, None), (4, 8, 8, 112, 32, 31, None),
+    (4, 20, 1, 64, 48, 47, None), (4, 20, 1, 64, 1500, 1499, None),
+    (4, 8, 4, 128, 1024, 1023, None),
 ] + [
     # the timing shape's cache, split across blocks: empty, partial and
     # full slices, windows inside one slice and across slices
@@ -167,7 +178,15 @@ FLASH_CASES = (
        (2, 300, 333, 4, 2, 256, False, None, None),
        (1, 190, 190, 4, 1, 256, True, None, None),
        (1, 8192, 8192, 4, 1, 256, True, 512, None),
-       (1, 8192, 8192, 4, 1, 256, True, None, None)])
+       (1, 8192, 8192, 4, 1, 256, True, None, None)]
+    # whisper-large-v3: the bidirectional encoder over 1500 frames and the
+    # decoder's cross-attention (448 queries, 1500 keys); llama-3.2-vision's
+    # cross-attention (2048 queries, 1024 patches, GQA 4); kimi-k2's causal
+    # prefill (H 64, KV 8, hd 112)
+    + [(1, 1500, 1500, 20, 20, 64, False, None, None),
+       (1, 448, 1500, 20, 20, 64, False, None, None),
+       (1, 2048, 1024, 32, 8, 128, False, None, None),
+       (1, 2048, 2048, 64, 8, 112, True, None, None)])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -434,7 +453,8 @@ def test_streaming_restore_pins_and_copies_off_the_loop(card, tmp_path,
 
 def _card_config(arch, dtype="float32"):
     """A reduced config at widths the kernels are built for: qwen3 at hd
-    128, gemma3 at hd 256 (KV 1, G 4, window 16), zamba2 at hd 64."""
+    128, gemma3 at hd 256 (KV 1, G 4, window 16), the others at hd 64
+    (zamba2, olmoe, whisper, llama-3.2-vision; xlstm's cells at 128)."""
     from repro_torch.configs import reduced_config
 
     cfg = reduced_config(arch).replace(dtype=dtype, d_model=256, d_ff=512)
@@ -450,7 +470,9 @@ def _counts():
                                              flash_attention, ssm_scan)}
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b", "zamba2-7b",
+                                  "olmoe-1b-7b", "xlstm-125m",
+                                  "whisper-large-v3", "llama-3.2-vision-11b"])
 def test_captured_generate_matches_the_eager_step(card, arch):
     """Greedy tokens identical, captured against eager, at f32 (gemma3's
     20 positions pass its window of 16); the graph holds exactly one eager
@@ -471,8 +493,11 @@ def test_captured_generate_matches_the_eager_step(card, arch):
     step = log[0]
     assert step.replays == 20
     params = model.tree()
-    cache = init_cache(cfg, 2, 20, card)
-    fresh = CapturedServeStep(cfg, params, 2, 20, device=card)
+    # encdec and vlm decode against generate's stub memory: 8 zero rows
+    mem_len = 8 if cfg.family in ("encdec", "vlm") else 0
+    cache = init_cache(cfg, 2, 20, card, mem_len=mem_len)
+    fresh = CapturedServeStep(cfg, params, 2, 20, device=card,
+                              mem_len=mem_len)
     with torch.inference_mode():
         for t in range(20):
             pos = torch.tensor(t, dtype=torch.int32, device=card)
@@ -524,3 +549,69 @@ def test_a_capture_that_fails_raises(card, monkeypatch):
     with pytest.raises(RuntimeError):
         generate(cfg, model, prompt, 4, device=card)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-11b"])
+def test_captured_step_reads_the_memory_written_after_capture(card, arch):
+    """The memory is part of the captured step's static cache: written
+    after the capture, and rewritten mid-sequence, the replays' logits
+    follow it (equal to eager steps on the same memories within 1e-3, and
+    away from eager steps that kept the first memory).  The VLM's gates
+    are set to 0.5 (zero would add no cross-attention)."""
+    from repro_torch.models.transformer import Decoder, decode_step, init_cache
+    from repro_torch.serve.step import CapturedServeStep
+
+    cfg = _card_config(arch)
+    params = Decoder(cfg, device=card).tree()
+    for key, blk in params["blocks"].items():
+        if "gate" in blk:
+            blk["gate"].fill_(0.5)
+    B, S, M = 2, 8, 24
+    g = torch.Generator(card).manual_seed(6)
+    mems = [torch.randn((B, M, cfg.d_model), device=card, generator=g)
+            for _ in range(2)]
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=card, generator=g)
+    step = CapturedServeStep(cfg, params, B, S, device=card, mem_len=M)
+    follow = init_cache(cfg, B, S, card, mem_len=M)
+    stay = init_cache(cfg, B, S, card, mem_len=M)
+    step.cache["memory"].copy_(mems[0])
+    follow["memory"].copy_(mems[0])
+    stay["memory"].copy_(mems[0])
+    with torch.inference_mode():
+        for t in range(S):
+            if t == S // 2:
+                step.cache["memory"].copy_(mems[1])
+                follow["memory"].copy_(mems[1])
+            pos = torch.tensor(t, dtype=torch.int32, device=card)
+            _, lg = step(toks[:, t:t + 1], pos)
+            lf, _ = decode_step(params, cfg, follow, toks[:, t:t + 1], pos)
+            ls, _ = decode_step(params, cfg, stay, toks[:, t:t + 1], pos)
+            torch.testing.assert_close(lg, lf.float(), atol=1e-3, rtol=0)
+            if t >= S // 2:
+                assert (lg - ls.float()).abs().max().item() > 1e-2
+
+
+def test_captured_moe_step_matches_the_eager_step_at_capacity_one(card):
+    """olmoe's step at B 2 (capacity 1 per expert: pairs that share an
+    expert drop) captured: teacher-forced logits equal the eager step's
+    within 1e-3, and the graph holds the eager step's launches."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Decoder, decode_step, init_cache
+    from repro_torch.serve.step import CapturedServeStep
+
+    cfg = _card_config("olmoe-1b-7b")
+    assert moe.capacity(cfg, 2) == 1
+    params = Decoder(cfg, device=card).tree()
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), device=card,
+                         generator=torch.Generator(card).manual_seed(8))
+    step = CapturedServeStep(cfg, params, 2, 12, device=card)
+    cache = init_cache(cfg, 2, 12, card)
+    with torch.inference_mode():
+        for t in range(12):
+            pos = torch.tensor(t, dtype=torch.int32, device=card)
+            before = _counts()
+            le, cache = decode_step(params, cfg, cache, toks[:, t:t + 1], pos)
+            after = _counts()
+            assert step.launches == {k: after[k] - before[k] for k in after}
+            _, lg = step(toks[:, t:t + 1], pos)
+            torch.testing.assert_close(lg, le.float(), atol=1e-3, rtol=0)

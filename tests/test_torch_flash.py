@@ -152,13 +152,23 @@ def test_attention_matches_jax(dtype, variant):
 
 
 def test_attention_kernel_path_takes_default_positions_only():
-    _, tcfg, _, tp = _qwen3("float32")
+    """No ``positions`` argument: queries sit at 0..Sq-1 and keys at
+    0..Sk-1, also for cross-attention (``kv_x``), where both paths agree
+    with the JAX package's default positions."""
+    jcfg, tcfg, jp, tp = _qwen3("float32")
     pt = {k: t[0] for k, t in tp["blocks"]["b0_attn"]["attn"].items()}
     x = torch.zeros((1, 4, tcfg.d_model))
     with pytest.raises(TypeError, match="positions"):
         TL.attention(pt, tcfg, x, positions=torch.arange(4) + 3)
-    with pytest.raises(NotImplementedError, match="kv_x"):
-        TL.attention(pt, tcfg, x, kv_x=x)
+    pj = jax.tree.map(lambda a: a[0], jp["blocks"]["b0_attn"]["attn"])
+    rng = np.random.default_rng(4)
+    xj, xt = _pair(rng.standard_normal((1, 4, tcfg.d_model)), "float32")
+    mj, mt = _pair(rng.standard_normal((1, 7, tcfg.d_model)), "float32")
+    yj = JL.attention(pj, jcfg, xj, kv_x=mj, causal=False, use_rope=False)
+    for plain in (True, False):
+        _close(TL.attention(pt, tcfg, xt, kv_x=mt, causal=False,
+                            use_rope=False, plain=plain), yj,
+               **MODEL_TOL["float32"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
