@@ -149,6 +149,39 @@ Phases (one JSON line each, ``"phase"`` names them):
    time; the captured ``generate`` at B 4, 16 + 16 against the 1024
    projected patches (40 decode_attention per replay).
 
+17. ``train_grad_hold``: gradients through the kernels (each launch in
+   an ``autograd.Function`` whose backward is the plain version's VJP)
+   against the plain path's, on the card.  Per kernel at the training
+   path's shapes: flash_attention causal at qwen3's (B 4 x S 2048, H 16 /
+   KV 8, hd 128), windowed at gemma3's (hd 256, window 512) and
+   non-causal at whisper's 448 x 1500 cross-attention; rmsnorm with and
+   without residual at (8192, 2048) and qwen3's q/k-norm rows (65536,
+   128); ssm_scan at zamba2's H 112, P = N = 64.  Per model: every
+   leaf's gradient of ``lm_loss`` for qwen3-1.7b at full width with 2
+   layers and zamba2-7b at full width with one hybrid period (6 Mamba2
+   blocks + the shared attention), B 2 x S 1024, under the configs'
+   ``remat="full"`` (each kernel of the stack launches twice: forward
+   and recompute; held exact).  f32 within atol = rtol = 1e-2 and at
+   cosine > 0.9999; bf16 within twice the plain path's own distance from
+   f32.  Each kernel's forward + backward timed beside the plain path's
+   and a library call's (SDPA, ``F.rms_norm``).
+18. ``train``: qwen3-1.7b at full size (28 layers, ``remat="full"``)
+   trains from the restored weights through ``launch.train.run_training``
+   (``MultiSourcePipeline`` over three throttled loopback mirrors, B 4 x
+   S 2048), TRAIN_STEPS steps: every loss finite, launches per step exact
+   (56 flash_attention, 225 rmsnorm); ms per step, tokens/s, model
+   TFLOP/s (6 N T) against the 989 TFLOP/s bf16 peak, peak device
+   memory, the device idle share and top kernels of one profiled step,
+   and the device time under each kernel's plain-VJP backward; then
+   TRAIN_REPEAT steps on one batch, whose last loss must be below its
+   first.
+19. ``train_resume``: qwen3-1.7b at full width with 2 layers, 4 steps
+   with ``CheckpointManager(every_steps=2)``; the step-2 state restored
+   onto the card by ``restore_checkpoint`` bit-exact to the saved one;
+   steps 2-3 re-run from it within 1e-3 relative of the uninterrupted
+   run's losses (deterministic algorithms on, warn-only; whether they are
+   bit-equal is printed).
+
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -290,6 +323,31 @@ VLM_PREFILL_SHAPE = (1, 2048)
 VLM_GENERATE = (4, 16, 16)
 #: the value each zero-init cross-attention gate is set to (tanh 0.46)
 GATE_VALUE = 0.5
+#: training: each kernel's gradient at the training path's shapes (flash:
+#: qwen3 causal B 4 x S 2048, H 16 / KV 8, hd 128; gemma3's window of 512
+#: at hd 256; whisper's 448 x 1500 cross-attention; rmsnorm at d 2048 and
+#: qwen3's q/k-norm rows; ssm_scan at zamba2's H 112, P = N = 64), then
+#: whole models' per-leaf gradients (qwen3-1.7b at full width with 2
+#: layers, zamba2-7b at full width with one hybrid period) at B 2 x S 1024
+GRAD_FLASH_SHAPES = (  # label, B, Sq, Sk, H, KV, hd, causal, window
+    ("qwen3 causal", 4, 2048, 2048, 16, 8, 128, True, None),
+    ("gemma3 local", 1, 2048, 2048, 4, 1, 256, True, 512),
+    ("whisper cross", 2, 448, 1500, 20, 20, 64, False, None),
+)
+GRAD_RMSNORM_SHAPES = ((8192, 2048), (65536, 128))
+GRAD_SSM_SHAPE = (1, 2048, 112, 64, 64)
+GRAD_MODEL_SHAPE = (2, 1024)
+GRAD_MODEL_LAYERS = 2
+#: qwen3-1.7b trained at full size: B 4 x S 2048 batches from the
+#: pipeline over three loopback mirrors, TRAIN_STEPS steps, then
+#: TRAIN_REPEAT steps on one batch (its loss must fall)
+TRAIN_SHAPE = (4, 2048)
+TRAIN_STEPS = 10
+TRAIN_REPEAT = 4
+#: train_resume: qwen3-1.7b at full width with 2 layers, B 2 x S 1024
+RESUME_SHAPE = (2, 1024)
+#: H100 SXM dense bf16 peak (NVIDIA's H100 datasheet)
+BF16_PEAK = 989e12
 
 
 class CheckFailed(Exception):
@@ -2990,6 +3048,480 @@ def cross_family_phase(torch, K, dev, arch) -> dict:
     return by_path
 
 
+# ------------------------------------------------------------------ training
+
+def grad_of(torch, fn, inputs, cot):
+    """``(out, grads)`` of ``fn(*inputs)`` against ``cot``, each input a
+    fresh leaf that requires grad."""
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ins)
+    return out.detach(), list(torch.autograd.grad(out, ins, cot))
+
+
+def hold_grads(torch, gk, gp, gk32, gp32, names, what: str) -> dict:
+    """Gradients of the kernel path (``gk``; the f32 run ``gk32``) against
+    the plain path's (``gp``, ``gp32``), leaf by leaf.  f32: within atol =
+    rtol = 1e-2 and at cosine > 0.9999.  bf16: within twice the plain
+    path's own distance from its f32 gradient, in max abs error and in
+    angle (``hold_kernel_path``'s triangle bound; a leaf whose bf16 and f32
+    plain gradients agree exactly allows 1e-6 of its largest entry).
+    Every kernel-path gradient finite and nonzero: a kernel that cut the
+    graph would leave its inputs with none."""
+    out = {}
+    for name, a, b, a32, b32 in zip(names, gk, gp, gk32, gp32):
+        a, b, a32, b32 = (t.float() for t in (a, b, a32, b32))
+        for tag, t in (("bf16", a), ("f32", a32)):
+            check(bool(torch.isfinite(t).all()) and t.abs().max() > 0,
+                  f"{what} {name}: {tag} kernel-path gradient non-finite "
+                  f"or zero")
+        err32 = (a32 - b32).abs().max().item()
+        cos32 = torch.nn.functional.cosine_similarity(
+            a32.flatten(), b32.flatten(), dim=0).item()
+        check(torch.allclose(a32, b32, atol=1e-2, rtol=1e-2)
+              and cos32 > 0.9999, f"{what} {name}: f32 gradients differ by "
+              f"{err32} (cosine {cos32})")
+        floor = (b - b32).abs().max().item()
+        err = (a - b).abs().max().item()
+        slack = 1e-6 * b32.abs().max().item()
+        ang_floor, ang = _angle(torch, b, b32), _angle(torch, a, b)
+        check(err <= 2 * floor + slack, f"{what} {name}: bf16 gradients "
+              f"differ by {err}, over twice the bf16 floor {floor}")
+        check(ang <= 2 * ang_floor + 1e-6, f"{what} {name}: bf16 gradients "
+              f"at angle {ang}, over twice the floor {ang_floor}")
+        out[name] = {"f32_max_abs_err": err32, "f32_cosine": cos32,
+                     "bf16_max_abs_err": err, "bf16_floor_max_abs": floor,
+                     "bf16_angle": ang, "bf16_floor_angle": ang_floor}
+    return out
+
+
+def kernel_grad_hold(torch, K, dev, label, kernel, plain, inputs, cot,
+                     names, low, library=None) -> dict:
+    """One kernel's gradients against its plain version's: at bf16
+    (``inputs`` as given; the f32 reference upcasts those at index in
+    ``low``) and at f32 (every input f32).  Then one forward + backward
+    at bf16 timed on the kernel path, the plain path and, where one
+    PyTorch call computes the function (``library``), through it.
+    Returns the hold, the timings and the kernel's launches (one per
+    kernel-path call of the holds; the timed calls are not counted)."""
+    up = [t.float() if i in low else t for i, t in enumerate(inputs)]
+    before = counts(K)
+    _, gk = grad_of(torch, kernel, inputs, cot)
+    _, gk32 = grad_of(torch, kernel, up, cot.float())
+    after = counts(K)
+    _, gp = grad_of(torch, plain, inputs, cot)
+    _, gp32 = grad_of(torch, plain, up, cot.float())
+    check(counts(K) == after, f"{label}: the plain path launched a kernel")
+    hold = hold_grads(torch, gk, gp, gk32, gp32, names, label)
+    del gk, gk32, gp, gp32
+    timing = {"kernel_fwd_bwd_ms": fwd_bwd_ms(torch, kernel, inputs, cot),
+              "plain_fwd_bwd_ms": fwd_bwd_ms(torch, plain, inputs, cot),
+              "library_fwd_bwd_ms": None if library is None else
+              fwd_bwd_ms(torch, library, inputs, cot)}
+    return {"hold": hold, "timing": timing,
+            "launches": {k: after[k] - before[k] for k in KERNELS}}
+
+
+def fwd_bwd_ms(torch, fn, inputs, cot, iters: int = 5) -> float:
+    """Device-clock ms of one forward and backward of ``fn``."""
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+
+    def once():
+        torch.autograd.grad(fn(*ins), ins, cot)
+
+    once()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        once()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def train_kernel_grads(torch, K, dev) -> tuple:
+    """``train_grad_hold`` part 1: flash_attention, rmsnorm (with and
+    without residual) and ssm_scan, kernel path against plain path, at
+    the training path's shapes, each forward + backward timed beside the
+    plain path's and a library call's (SDPA, ``F.rms_norm``; none for the
+    SSD scan).  Returns (holds, launches)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+
+    def randn(shape, dt=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    holds, launches = {}, {k: 0 for k in KERNELS}
+
+    def add(label, r):
+        holds[label] = {**r["hold"], "timing": r["timing"]}
+        for k, n in r["launches"].items():
+            launches[k] += n
+
+    for label, B, Sq, Sk, H, KV, hd, causal, window in GRAD_FLASH_SHAPES:
+        q, k, v = (randn((B, Sq, H, hd)), randn((B, Sk, KV, hd)),
+                   randn((B, Sk, KV, hd)))
+        cot = randn((B, Sq, H, hd))
+        kw = dict(causal=causal, window=window)
+
+        def sdpa(q, k, v, causal=causal, window=window):
+            mask = None
+            if window is not None:      # SDPA has no window: a bool mask
+                qp = torch.arange(q.shape[1], device=dev)[:, None]
+                kp = torch.arange(k.shape[1], device=dev)[None, :]
+                mask = (kp <= qp) & (kp > qp - window)
+            o = F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+            return o.transpose(1, 2)
+
+        add(f"flash {label}", kernel_grad_hold(
+            torch, K, dev, f"flash {label}",
+            lambda *t, kw=kw: K.flash_attention(*t, **kw),
+            lambda *t, kw=kw: K.flash_attention_plain(*t, **kw), [q, k, v],
+            cot, ["dq", "dk", "dv"], {0, 1, 2}, library=sdpa))
+        del q, k, v, cot
+    for rows, d in GRAD_RMSNORM_SHAPES:
+        for res in (False, True):
+            x = randn((rows, d))
+            scale = randn((d,), scale=0.1) + 1.0
+            ins = [x, scale] + ([randn((rows, d))] if res else [])
+            names = ["dx", "dscale"] + (["dresidual"] if res else [])
+            add(f"rmsnorm ({rows}, {d}){' + residual' if res else ''}",
+                kernel_grad_hold(
+                    torch, K, dev, f"rmsnorm {rows}x{d}",
+                    lambda x, s, *r: K.rmsnorm(x, s, *r),
+                    lambda x, s, *r: K.rmsnorm_plain(x, s, *r), ins,
+                    randn((rows, d)), names, set(range(len(ins))),
+                    library=lambda x, s, *r: F.rms_norm(
+                        x + r[0] if r else x, (x.shape[-1],), s, 1e-6)))
+    B, S, H, P, N = GRAD_SSM_SHAPE
+    ins = [randn((B, S, H, P)),
+           torch.rand((B, S, H), generator=gen, device=dev) * 0.1 + 0.01,
+           -(torch.rand((H,), generator=gen, device=dev) + 0.5),
+           randn((B, S, N), scale=0.5), randn((B, S, N), scale=0.5)]
+    kw = dict(chunk=128, out_dtype=torch.float32)
+    add(f"ssm_scan zamba2 B {B} S {S} H {H}", kernel_grad_hold(
+        torch, K, dev, "ssm_scan", lambda *t: K.ssm_scan(*t, **kw),
+        lambda *t: K.ssm_scan_plain(*t, **kw), ins,
+        randn((B, S, H, P), torch.float32), ["dx", "ddt", "dA", "dB", "dC"],
+        {0, 3, 4}))
+    return holds, launches
+
+
+def lm_grads(torch, cfg, params, batch, plain: bool) -> tuple:
+    """``(loss, [grad per leaf])`` of ``lm_loss`` (leaves in key order)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.weights import unflatten
+
+    keys, leaves = zip(*tree_leaves(params))
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss = lm_loss(unflatten(dict(zip(keys, leaves))), cfg, batch,
+                   plain=plain)
+    return loss.item(), list(torch.autograd.grad(loss, leaves))
+
+
+def train_model_grads(torch, K, dev, arch) -> tuple:
+    """``train_grad_hold`` part 2: per-leaf gradients of ``lm_loss`` at
+    full width (qwen3-1.7b at GRAD_MODEL_LAYERS layers, zamba2-7b at one
+    hybrid period), kernel path against plain path at bf16 and with the
+    weights in f32, under the config's ``remat`` ("full"): every kernel of
+    the stack launches twice (forward and recompute), the final norm
+    once.  Returns (emitted fields, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.models.transformer import model_specs, program_for
+
+    cfg = get_config(arch)
+    L = cfg.hybrid_period if cfg.family == "hybrid" else GRAD_MODEL_LAYERS
+    cfg = cfg.replace(n_layers=L)
+    params = init_params(model_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(21),
+                         cfg.torch_dtype, dev)
+    B, S = GRAD_MODEL_SHAPE
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(22))}
+    grp, n_groups, rem = program_for(cfg)
+    n_attn = n_groups * sum(k in ("attn", "shared_attn") for k in grp)
+    n_ssm = n_groups * grp.count("mamba") + rem.count("mamba")
+    norms = n_attn * (4 if cfg.qk_norm else 2) + n_ssm
+    twice = 2 if cfg.remat == "full" else 1
+    want = {"flash_attention": twice * n_attn, "ssm_scan": twice * n_ssm,
+            "rmsnorm": twice * norms + 1, "decode_attention": 0}
+    reset_counts(K)
+    lk, gk = lm_grads(torch, cfg, params, batch, plain=False)
+    launches = counts(K)
+    for name, n in want.items():
+        check(launches[name] == n, f"train_grad_hold {arch}: {name} "
+              f"launched {launches[name]} times, expected {n}")
+    lp, gp = lm_grads(torch, cfg, params, batch, plain=True)
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    lk32, gk32 = lm_grads(torch, cfg32, p32, batch, plain=False)
+    lp32, gp32 = lm_grads(torch, cfg32, p32, batch, plain=True)
+    check(counts(K)["flash_attention"] == 2 * want["flash_attention"],
+          f"train_grad_hold {arch}: launches of the f32 run")
+    names = [k for k, _ in tree_leaves(p32)]
+    del p32
+    hold = hold_grads(torch, gk, gp, gk32, gp32, names, f"{arch} lm_loss")
+    for what, a in (("bf16", lk), ("f32", lk32)):
+        check(math.isfinite(a), f"{arch}: {what} loss {a}")
+    worst = {"f32_max_abs_err": max(h["f32_max_abs_err"]
+                                   for h in hold.values()),
+             "f32_min_cosine": min(h["f32_cosine"] for h in hold.values()),
+             "bf16_max_err_over_floor": max(
+                 h["bf16_max_abs_err"] / max(h["bf16_floor_max_abs"], 1e-30)
+                 for h in hold.values())}
+    fields = {"arch": arch, "n_layers": L, "batch": B, "seq": S,
+              "remat": cfg.remat, "leaves": len(names),
+              "loss": {"bf16_kernel": lk, "bf16_plain": lp,
+                       "f32_kernel": lk32, "f32_plain": lp32},
+              "launches_per_grad": launches, "worst": worst,
+              "per_leaf": hold}
+    del gk, gp, gk32, gp32
+    torch.cuda.empty_cache()
+    return fields, counts(K)
+
+
+def train_grad_phase(torch, K, dev) -> dict:
+    """``train_grad_hold``: gradients through the kernels against the
+    plain path's, per kernel and per model.  Returns the launches."""
+    reset_counts(K)
+    holds, launches = train_kernel_grads(torch, K, dev)
+    emit("train_grad_hold", part="kernels", tolerance={
+        "f32": "atol = rtol = 1e-2, cosine > 0.9999",
+        "bf16": "max abs err <= 2 x plain bf16 vs f32, angle <= 2 x its "
+                "angle"}, holds=holds, launches=launches,
+        backward="plain VJP (recomputed; flash in query blocks of "
+                 "BWD_Q_BLOCK)")
+    torch.cuda.empty_cache()
+    for arch in ("qwen3-1.7b", "zamba2-7b"):
+        fields, n = train_model_grads(torch, K, dev, arch)
+        emit("train_grad_hold", part="model", **fields)
+        for k in KERNELS:
+            launches[k] += n[k]
+    return launches
+
+
+def train_profile(torch, fn) -> dict:
+    """Device time of one call of ``fn`` (a train step) by kernel, and the
+    device time under each kernel Function's backward node (the plain
+    VJPs), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev_us(e) > 0]
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+
+    def under(node: str) -> float:
+        # the autograd node's inclusive device time (the kernels its
+        # backward launched)
+        return max((getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0.0))
+                    for e in events if node in e.key), default=0.0) / 1e3
+
+    return {"device_busy_ms": sum(dev_us(e) for e in kernels) / 1e3,
+            "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+                             "calls": e.count} for e in top],
+            "port_kernels_ms": {n: sum(dev_us(e) for e in kernels
+                                       if n in e.key and "kernel" in e.key)
+                                / 1e3 for n in KERNELS},
+            "backward_ms": {"flash_attention": under(
+                                "FlashAttentionFnBackward"),
+                            "rmsnorm": under("RMSNormFnBackward"),
+                            "ssm_scan": under("SSMScanFnBackward")}}
+
+
+def train_phase(torch, K, cfg, dev, params) -> dict:
+    """``train``: qwen3-1.7b at full size trains from the restored weights
+    through ``run_training`` (its MultiSourcePipeline over three throttled
+    loopback mirrors, B 4 x S 2048 batches), TRAIN_STEPS steps; every loss
+    finite, the launches per step exact (with ``remat="full"`` each flash
+    and rmsnorm call of the stack runs twice, the final norm once); then
+    TRAIN_REPEAT steps on one batch, whose last loss must be below its
+    first, and one of them profiled.  Returns the training run's
+    launches."""
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_train_step
+
+    B, S = TRAIN_SHAPE
+    L = cfg.n_layers
+    twice = 2 if cfg.remat == "full" else 1
+    per_step = {"flash_attention": twice * L,
+                "rmsnorm": twice * 4 * L + 1,     # ln1, ln2, q/k-norm; final
+                "decode_attention": 0, "ssm_scan": 0}
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts(K)
+    secs = []
+    state, losses = run_training(cfg, TRAIN_STEPS, B, S, device=dev,
+                                 params=params, step_seconds=secs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts(K)
+    for name, n in per_step.items():
+        check(launches[name] == n * TRAIN_STEPS,
+              f"train {name}: {launches[name]} launches, expected {n} x "
+              f"{TRAIN_STEPS}")
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, decay_steps=10_000)
+    step_fn = make_train_step(cfg, opt)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(31))}
+    repeat = []
+    for _ in range(TRAIN_REPEAT):
+        state, m = step_fn(state, batch)
+        repeat.append(m["loss"].item())
+    check(all(math.isfinite(x) for x in repeat) and repeat[-1] < repeat[0],
+          f"train: losses on one repeated batch {repeat} do not fall")
+    holder = {}
+
+    def one_step():
+        holder["state"], _ = step_fn(state, batch)
+
+    prof = train_profile(torch, one_step)
+    del holder
+    warm = sorted(secs[2:])
+    ms = warm[len(warm) // 2] * 1e3
+    tokens = B * S
+    flops = 6 * n_params * tokens
+    emit("train", arch=cfg.name, n_layers=L, d_model=cfg.d_model,
+         params=n_params, batch=B, seq=S, remat=cfg.remat,
+         steps=TRAIN_STEPS, losses=losses, step_s=secs,
+         ms_per_step_warm=ms, tokens_per_s=tokens / (ms / 1e3),
+         model_flops_per_step=flops, model_flops_rule="6 N T (attention "
+         "scores and the remat recompute not counted)",
+         model_tflops_per_s=flops / (ms / 1e3) / 1e12,
+         model_flops_share_of_bf16_peak=flops / (ms / 1e3) / BF16_PEAK,
+         bound_ms_8nt=8 * n_params * tokens / BF16_PEAK * 1e3,
+         max_memory_allocated=peak, memory_before_run=base,
+         repeated_batch_losses=repeat, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         device_busy_ms=prof["device_busy_ms"],
+         device_idle_share=1.0 - prof["device_busy_ms"] / ms,
+         backward_ms=prof["backward_ms"],
+         flash_backward_share_of_busy=prof["backward_ms"]["flash_attention"]
+         / prof["device_busy_ms"],
+         port_kernels_ms=prof["port_kernels_ms"],
+         top_kernels=prof["top_kernels"])
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_resume_phase(torch, K, cfg, dev) -> dict:
+    """``train_resume``: qwen3-1.7b at full width with 2 layers, 4 steps
+    with a ``CheckpointManager(every_steps=2)``; the step-2 train state
+    restored onto the card with ``restore_checkpoint`` must be bit-exact
+    to the state saved, and steps 2-3 run again from it must give the
+    uninterrupted run's losses (within 1e-3 relative; whether they are bit
+    for bit is printed) with ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: the embedding and gather backwards accumulate by
+    index."""
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = cfg.replace(n_layers=GRAD_MODEL_LAYERS)
+    B, S = RESUME_SHAPE
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, decay_steps=4)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                        device=dev, generator=gen)}
+               for _ in range(4)]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    reset_counts(K)
+    try:
+        state = init_train_state(init_params(
+            model_specs(cfg), torch.Generator(device=dev).manual_seed(42),
+            cfg.torch_dtype, dev), opt)
+        step_fn = make_train_step(cfg, opt)
+        mgr = CheckpointManager(tmp, every_steps=2, keep=3)
+        losses, saved = [], None
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            state, m = step_fn(state, b)
+            losses.append(m["loss"].item())
+            if i + 1 == 2:
+                saved = {k: t.detach().clone()
+                         for k, t in tree_leaves(state)}
+            mgr.maybe_save(i + 1, state)
+        mgr.wait()
+        run_s = time.perf_counter() - t0
+        del state
+        t0 = time.perf_counter()
+        restored, step = restore_checkpoint(tmp, _train_like(cfg, opt),
+                                            step=2, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(step == 2, f"train_resume: restored step {step}")
+        leaves = check_bit_exact(torch, saved, restored, "train_resume")
+        del saved
+        restored["params"] = tree_map(lambda t: t.requires_grad_(True),
+                                      restored["params"])
+        rerun = []
+        for b in batches[2:]:
+            restored, m = make_train_step(cfg, opt)(restored, b)
+            rerun.append(m["loss"].item())
+        del restored
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = counts(K)
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "rmsnorm": 2 * 4 * cfg.n_layers + 1}
+    for name, n in per_step.items():
+        check(launches[name] == n * 6, f"train_resume {name}: "
+              f"{launches[name]} launches, expected {n} x 6")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rerun, losses[2:]))
+    check(rel <= 1e-3, f"train_resume: re-run losses {rerun} against "
+          f"{losses[2:]}")
+    emit("train_resume", arch=cfg.name, n_layers=cfg.n_layers, batch=B,
+         seq=S, losses=losses, rerun_losses=rerun, bit_equal=rerun ==
+         losses[2:], max_rel_diff=rel, tolerance_rel=1e-3,
+         deterministic_algorithms="on (warn_only)", restored_leaves=leaves,
+         state_bit_exact=True, run_s=run_s, restore_s=restore_s,
+         launches=launches)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_like(cfg, opt) -> dict:
+    """The key structure of a train state of ``cfg`` (specs as leaves)."""
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim.adamw import opt_state_specs
+
+    from repro_torch.models.common import ParamSpec
+
+    specs = model_specs(cfg)
+    return {"params": specs, "opt": opt_state_specs(specs, opt),
+            "step": ParamSpec((), (), "zeros")}
+
+
+
 def rmsnorm_only(torch, K, dev, build_) -> int:
     """``--rmsnorm-only``: build, then only rmsnorm's ``kernel_time`` lines
     at RMSNORM_TIME_SHAPES, for the checkout whose ``src`` was given; run
@@ -3059,6 +3591,10 @@ def main() -> int:
                                                       params)
         by_path = {"serve": serve_launches,
                    "prefill": prefill_phase(torch, K, cfg, dev, params)}
+        by_path["train_grad_hold"] = train_grad_phase(torch, K, dev)
+        # trains the restored weights in place; nothing reads them after
+        by_path["train"] = train_phase(torch, K, cfg, dev, params)
+        by_path["train_resume"] = train_resume_phase(torch, K, cfg, dev)
         del params
         torch.cuda.empty_cache()
         by_path["hybrid_prefill"], by_path["hybrid_generate"] = \

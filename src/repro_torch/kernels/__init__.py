@@ -11,6 +11,13 @@ version.
 Dispatch rule of every wrapper: a CPU tensor goes to the plain version; a
 CUDA tensor launches the kernel (built from ``repro_torch/csrc`` at first
 use) or raises.  Each wrapper counts its launches in ``<wrapper>.launches``.
+
+Gradients: every kernel is forward-only, as the TPU kernels are.  With
+grad enabled and an input that requires it, ``rmsnorm``,
+``flash_attention`` and ``ssm_scan`` launch inside an
+``autograd.Function`` whose backward is the plain version's VJP
+(recomputed; flash in blocks of queries); ``decode_attention``, which no
+training path reaches, raises.  Without grad the launch runs bare.
 """
 
 from .decode_attention import (decode_attention, decode_attention_plain,

@@ -168,10 +168,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``decode_attention.launches``, once per call, merge launch
-    included) or raise."""
+    included) or raise.  The kernel has no backward: with grad enabled and
+    an input that requires it, a CUDA call raises."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos, scale=scale,
                                       window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
+                                    or v_cache.requires_grad):
+        # no training path reaches this kernel, and it has no backward
+        raise RuntimeError("decode_attention: the kernel is forward-only; "
+                           "call it with grad disabled or with inputs that "
+                           "do not require grad")
     if not isinstance(pos, torch.Tensor):
         raise TypeError("decode_attention: pos must be an int32 tensor on "
                         "the device")

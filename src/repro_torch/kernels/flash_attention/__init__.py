@@ -1,3 +1,5 @@
-from .ops import flash_attention, flash_attention_plain
+from .ops import (FlashAttentionFn, flash_attention, flash_attention_plain,
+                  flash_attention_vjp)
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_plain",
+           "flash_attention_vjp"]

@@ -19,6 +19,13 @@ that chip; a ragged ``Sk`` is masked by the kernel itself.
 
 Query ``i`` and key ``j`` sit at positions ``i`` and ``j`` (both from 0,
 as in the TPU kernel).  A row whose every key is masked gives 0.
+
+Gradients: the TPU kernel is forward-only, and so is this one.  Under
+autograd the launch runs inside :class:`FlashAttentionFn`, whose backward
+recomputes the plain version in blocks of queries and differentiates it
+(:func:`flash_attention_vjp`); at bf16 that is the VJP of the plain
+function at the kernel's inputs, which keeps P in f32 where the kernel
+rounds it to bf16.
 """
 
 from __future__ import annotations
@@ -32,13 +39,17 @@ import torch
 from .._build import library
 from .._common import check_cuda, check_status, dtype_code, stream_handle
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_plain",
+           "flash_attention_vjp"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (64, 112, 128, 256)
 #: the C entry point's code for a TMA tensor map it could not encode
 #: (plus the driver's CUresult)
 ENCODE_ERROR = 20000
+#: queries per block of the backward's recompute: the f32 scores of one
+#: block at qwen3's training shape (B 4, H 16, Sk 2048) are 268 MB
+BWD_Q_BLOCK = 512
 
 
 def _valid(Sq: int, Sk: int, causal: bool, window: Optional[int],
@@ -54,6 +65,19 @@ def _valid(Sq: int, Sk: int, causal: bool, window: Optional[int],
     return valid
 
 
+def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            valid: torch.Tensor, scale: float) -> torch.Tensor:
+    """qg ``[B, Sq, KV, G, hd]``, k/v ``[B, Sk, KV, hd]`` (all f32), valid
+    ``[Sq, Sk]`` -> ``[B, Sq, KV, G, hd]`` f32.  Masked scores take the
+    lowest finite f32 and their probabilities are multiplied by 0, so a
+    fully masked row gives 0 and the function has a gradient everywhere
+    (a ``-inf`` fill would give NaN rows to repair in place)."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * scale
+    s = s.masked_fill(~valid, torch.finfo(torch.float32).min)
+    p = torch.softmax(s, dim=-1) * valid
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
@@ -67,23 +91,53 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     qg = q.float().reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
-    s = s.masked_fill(~_valid(Sq, Sk, causal, window, q.device), -math.inf)
-    p = torch.softmax(s, dim=-1).nan_to_num_(0.0)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    o = _attend(qg, k.float(), v.float(),
+                _valid(Sq, Sk, causal, window, q.device), scale)
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Same contract as :func:`flash_attention_plain`.
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        q_block: int = BWD_Q_BLOCK
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_plain` at
+    (q, k, v) against the cotangent ``dout``, in the inputs' dtypes.  The
+    forward is recomputed ``q_block`` queries at a time, so the f32 scores
+    held at once are ``[B, KV, G, q_block, Sk]``, never the whole
+    ``Sq x Sk``: each block's graph is built, differentiated and freed
+    before the next.  Queries of different blocks share no term, so dq is
+    exact per block and dk, dv are the blocks' f32 sums."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    valid = _valid(Sq, Sk, causal, window, q.device)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        kf = k.detach().float().requires_grad_(True)
+        vf = v.detach().float().requires_grad_(True)
+        for q0 in range(0, Sq, q_block):
+            qb = q[:, q0:q0 + q_block].detach().requires_grad_(True)
+            n = qb.shape[1]
+            o = _attend(qb.float().reshape(B, n, KV, G, hd), kf, vf,
+                        valid[q0:q0 + n], scale)
+            o = o.reshape(B, n, H, hd).to(q.dtype)
+            gq, gk, gv = torch.autograd.grad(o, (qb, kf, vf),
+                                             dout[:, q0:q0 + n])
+            dq[:, q0:q0 + n] = gq
+            dk += gk
+            dv += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``flash_attention.launches``) or raise."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int], scale: Optional[float]) -> torch.Tensor:
+    """Check the CUDA tensors and launch the kernel once (counted)."""
     dev = check_cuda("flash_attention", q=q, k=k, v=v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -124,6 +178,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_status(status, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel in the forward; the backward is :func:`flash_attention_vjp`
+    (the plain version's VJP, recomputed in query blocks).  The TPU kernel
+    has no backward kernel, so neither has this one yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale)
+        return _launch(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = flash_attention_vjp(q, k, v, dout.contiguous(),
+                                         causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Same contract as :func:`flash_attention_plain`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``flash_attention.launches``) or raise.  When grad is
+    enabled and an input requires it, the launch runs inside
+    :class:`FlashAttentionFn`, whose backward is the plain version's VJP;
+    otherwise it runs bare, as serving and its captured graphs do."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal, window, scale)
 
 
 flash_attention.launches = 0

@@ -1,5 +1,5 @@
-from .ops import (RowPlan, plan_rows, rmsnorm, rmsnorm_lanes_plain,
-                  rmsnorm_plain)
+from .ops import (RMSNormFn, RowPlan, plan_rows, rmsnorm, rmsnorm_lanes_plain,
+                  rmsnorm_plain, rmsnorm_vjp)
 
-__all__ = ["RowPlan", "plan_rows", "rmsnorm", "rmsnorm_lanes_plain",
-           "rmsnorm_plain"]
+__all__ = ["RMSNormFn", "RowPlan", "plan_rows", "rmsnorm",
+           "rmsnorm_lanes_plain", "rmsnorm_plain", "rmsnorm_vjp"]

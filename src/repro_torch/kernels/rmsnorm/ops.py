@@ -12,7 +12,9 @@ each (a 128-wide bf16 row takes 16 lanes, so a warp holds two), the scale
 held in registers per warp; a two-pass loop for widths without an instance
 of that path; a scalar path for rows that allow no 16-byte access.  The port's decoder calls it without a residual, as the
 reference model does; the residual form is the TPU kernel's and is checked
-on the card all the same.
+on the card all the same.  The kernel is forward-only, as the TPU kernel
+is: under autograd it runs inside :class:`RMSNormFn`, whose backward is
+the plain version's VJP.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ from .._build import library
 from .._common import (check_cuda, check_status, dtype_code, sm_count,
                        stream_handle)
 
-__all__ = ["RowPlan", "plan_rows", "rmsnorm", "rmsnorm_lanes_plain",
-           "rmsnorm_plain"]
+__all__ = ["RMSNormFn", "RowPlan", "plan_rows", "rmsnorm",
+           "rmsnorm_lanes_plain", "rmsnorm_plain", "rmsnorm_vjp"]
 
 #: warps per block on every path (``rmsnorm.cu``: ``BLOCK`` / 32)
 WARPS_PER_BLOCK = 4
@@ -163,15 +165,9 @@ def rmsnorm_lanes_plain(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype).reshape(x.shape)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            residual: Optional[torch.Tensor] = None, *,
-            eps: float = 1e-6) -> torch.Tensor:
-    """x ``[..., d]``, scale ``[d]``, residual like x -> y like x.
-
-    CPU tensors take :func:`rmsnorm_plain`; CUDA tensors launch the kernel
-    (counted in ``rmsnorm.launches``) or raise."""
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, scale, residual, eps=eps)
+def _launch(x: torch.Tensor, scale: torch.Tensor,
+            residual: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """Check the CUDA tensors and launch the kernel once (counted)."""
     tensors = {"x": x, "scale": scale}
     if residual is not None:
         tensors["residual"] = residual
@@ -204,6 +200,59 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     check_status(status, "rmsnorm")
     rmsnorm.launches += 1
     return out
+
+
+def rmsnorm_vjp(x: torch.Tensor, scale: torch.Tensor,
+                residual: Optional[torch.Tensor], dy: torch.Tensor, *,
+                eps: float = 1e-6) -> tuple:
+    """The gradients ``(dx, dscale, dresidual)`` of :func:`rmsnorm_plain`
+    at its inputs against the cotangent ``dy`` (``dresidual`` is ``None``
+    without a residual), by recomputing it under autograd."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, scale)]
+        r = None
+        if residual is not None:
+            r = residual.detach().requires_grad_(True)
+            ins.append(r)
+        y = rmsnorm_plain(ins[0], ins[1], r, eps=eps)
+        grads = torch.autograd.grad(y, ins, dy)
+    return grads[0], grads[1], grads[2] if residual is not None else None
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The kernel in the forward; the backward is :func:`rmsnorm_vjp` (the
+    plain version's VJP).  The TPU kernel has no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, scale, residual, eps):
+        ctx.save_for_backward(x, scale, residual)
+        ctx.eps = eps
+        return _launch(x, scale, residual, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, residual = ctx.saved_tensors
+        dx, dscale, dres = rmsnorm_vjp(x, scale, residual, dy, eps=ctx.eps)
+        return dx, dscale, dres, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            residual: Optional[torch.Tensor] = None, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x ``[..., d]``, scale ``[d]``, residual like x -> y like x.
+
+    CPU tensors take :func:`rmsnorm_plain`; CUDA tensors launch the kernel
+    (counted in ``rmsnorm.launches``) or raise.  When grad is enabled and
+    an input requires it, the launch runs inside :class:`RMSNormFn`, whose
+    backward is the plain version's VJP (the residual gets its gradient
+    too); otherwise it runs bare, as serving and its captured graphs do."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, scale, residual, eps=eps)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or scale.requires_grad
+            or (residual is not None and residual.requires_grad)):
+        return RMSNormFn.apply(x, scale, residual, eps)
+    return _launch(x, scale, residual, eps)
 
 
 rmsnorm.launches = 0

@@ -1,5 +1,6 @@
-from .ops import (plan_groups, round_hi_lo, ssd_chunked, ssm_scan,
-                  ssm_scan_phases_plain, ssm_scan_plain)
+from .ops import (SSMScanFn, plan_groups, round_hi_lo, ssd_chunked, ssm_scan,
+                  ssm_scan_phases_plain, ssm_scan_plain, ssm_scan_vjp)
 
-__all__ = ["plan_groups", "round_hi_lo", "ssd_chunked", "ssm_scan",
-           "ssm_scan_phases_plain", "ssm_scan_plain"]
+__all__ = ["SSMScanFn", "plan_groups", "round_hi_lo", "ssd_chunked",
+           "ssm_scan", "ssm_scan_phases_plain", "ssm_scan_plain",
+           "ssm_scan_vjp"]

@@ -18,6 +18,9 @@ The plain version is the chunked SSD form, :func:`ssd_chunked` (which the
 model's ``_ssd_chunked`` is), on the sequence padded to whole chunks.
 :func:`ssm_scan_phases_plain` is the kernel's three-phase arithmetic,
 rounding points included, for the CPU tests; nothing else calls it.
+
+The kernel is forward-only, as the TPU kernel is: under autograd it runs
+inside :class:`SSMScanFn`, whose backward is the plain version's VJP.
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ from .._build import library
 from .._common import (check_cuda, check_status, dtype_code, sm_count,
                        stream_handle)
 
-__all__ = ["plan_groups", "round_hi_lo", "ssd_chunked", "ssm_scan",
-           "ssm_scan_phases_plain", "ssm_scan_plain"]
+__all__ = ["SSMScanFn", "plan_groups", "round_hi_lo", "ssd_chunked",
+           "ssm_scan", "ssm_scan_phases_plain", "ssm_scan_plain",
+           "ssm_scan_vjp"]
 
 #: limits of the kernel's shared-memory tiles
 CHUNKS = (32, 64, 128)
@@ -96,6 +100,11 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         cum = torch.cumsum(dAq, dim=1)                  # [B, Q, H]
         total = cum[:, -1:, :]                          # [B, 1, H]
         li = cum[:, :, None, :] - cum[:, None, :, :]    # [B, Q, Q, H]
+        # above the diagonal li > 0 may overflow exp to inf; masking the
+        # exponent first keeps the VJP finite (where's zero cotangent
+        # times inf is NaN).  The reference masks only after exp, so its
+        # gradient is NaN once a chunk's decay passes ~88 nats.
+        li = torch.where(mask[None, :, :, None], li, 0.0)
         L = torch.where(mask[None, :, :, None], torch.exp(li), 0.0)
         scores = torch.einsum("bqn,bkn->bqk", Cq, Bq)
         xdt = xq * dtq[..., None]                       # [B, Q, H, P]
@@ -196,19 +205,10 @@ def ssm_scan_phases_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.stack(ys, dim=1).reshape(B, nc * Q, H, P)[:, :S]
 
 
-def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
-             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Same contract as :func:`ssm_scan_plain`, with y in x's dtype or f32.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.  One call counts once in ``ssm_scan.launches``, though it runs
-    up to three launches (state, pass and output; the first two only when
-    :func:`plan_groups` gives more than one group), with the f32 state
-    scratch allocated here by ``torch.empty``."""
-    if x.device.type == "cpu":
-        return ssm_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
-                              out_dtype=out_dtype)
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+            out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """Check the CUDA tensors and run one call's launches (counted once)."""
     dev = check_cuda("ssm_scan", x=x, dt=dt, A=A, Bm=Bm, Cm=Cm)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -252,6 +252,59 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     check_status(status, "ssm_scan")
     ssm_scan.launches += 1
     return y
+
+
+def ssm_scan_vjp(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int = 128,
+                 out_dtype: Optional[torch.dtype] = None) -> tuple:
+    """The gradients ``(dx, ddt, dA, dB, dC)`` of :func:`ssm_scan_plain` at
+    its inputs against the cotangent ``dy``, by recomputing it under
+    autograd (its chunked form keeps one chunk's ``[B, Q, Q, H]`` decay
+    matrix at a time in the forward; autograd keeps every chunk's)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        y = ssm_scan_plain(*ins, chunk=chunk, out_dtype=out_dtype)
+        return torch.autograd.grad(y, ins, dy)
+
+
+class SSMScanFn(torch.autograd.Function):
+    """The kernel in the forward; the backward is :func:`ssm_scan_vjp` (the
+    plain version's VJP).  The TPU kernel has no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, out_dtype):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.args = (chunk, out_dtype)
+        return _launch(x, dt, A, Bm, Cm, chunk, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        chunk, out_dtype = ctx.args
+        grads = ssm_scan_vjp(*ctx.saved_tensors, dy, chunk=chunk,
+                             out_dtype=out_dtype)
+        return (*grads, None, None)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Same contract as :func:`ssm_scan_plain`, with y in x's dtype or f32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.  One call counts once in ``ssm_scan.launches``, though it runs
+    up to three launches (state, pass and output; the first two only when
+    :func:`plan_groups` gives more than one group), with the f32 state
+    scratch allocated here by ``torch.empty``.  When grad is enabled and
+    an input requires it, the call runs inside :class:`SSMScanFn`, whose
+    backward is the plain version's VJP; otherwise it runs bare."""
+    if x.device.type == "cpu":
+        return ssm_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
+                              out_dtype=out_dtype)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        return SSMScanFn.apply(x, dt, A, Bm, Cm, chunk, out_dtype)
+    return _launch(x, dt, A, Bm, Cm, chunk, out_dtype)
 
 
 ssm_scan.launches = 0

@@ -16,8 +16,14 @@ The out-projections multiply ``[B, S, H*hd]`` by ``wo`` viewed as
 ``[H*hd, d]``: the einsum ``bsnh,nhd->bsd`` would copy the whole weight
 into a permuted layout on every call.
 
-Not ported: the ``attn_probs_dtype="compute"`` lever and the reference's
-sharding hints.
+``attn_block_remat`` checkpoints each query block of the plain path's
+attention, as the reference's does; the kernel path stores no
+probabilities (its backward recomputes them block by block), so there it
+changes nothing.  ``norm_mult_dtype="compute"`` and ``norm_custom_bwd``
+are plain PyTorch, as in the reference (:func:`apply_norm`).
+
+Not ported: the ``attn_probs_dtype="compute"`` lever (it raises) and the
+reference's sharding hints.
 """
 
 from __future__ import annotations
@@ -27,15 +33,16 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  flash_attention, rmsnorm, rmsnorm_plain)
 from repro_torch.models.common import ModelConfig, ParamSpec
 
 __all__ = [
-    "norm_spec", "apply_norm", "rope_sin_cos", "apply_rope",
-    "attention_specs", "attention", "attention_from_cache", "mlp_specs",
-    "mlp", "out_proj",
+    "norm_spec", "apply_norm", "RMSNormBF16Bwd", "rope_sin_cos",
+    "apply_rope", "attention_specs", "attention", "attention_from_cache",
+    "mlp_specs", "mlp", "out_proj",
 ]
 
 #: masked-score constant of the reference model (``layers.py:_NEG_INF``)
@@ -51,20 +58,76 @@ def norm_spec(cfg: ModelConfig) -> dict:
     return d
 
 
+class RMSNormBF16Bwd(torch.autograd.Function):
+    """RMSNorm with f32 row statistics, multiplies in the compute dtype and
+    a hand-written backward that keeps every activation-sized tensor in
+    the compute dtype (port of the reference's custom-VJP
+    ``_rmsnorm_bf16_bwd``: ``_rmsnorm_bf16_fwd`` / ``_rmsnorm_bf16_rev``,
+    ``repro/models/layers.py``, the ``norm_custom_bwd`` lever).
+
+    The reference computes it in plain jnp, not in a Pallas kernel, and it
+    is not the rmsnorm kernel's function (that one multiplies in f32), so
+    plain PyTorch is its port on every device.  The saved and returned
+    tensors are in the compute dtype and the row statistics ``[..., 1]``
+    in f32, as in the reference; its contractions of bf16 operands with
+    f32 accumulation (``preferred_element_type``) are f32 sums of the
+    exact f32 products here, through f32 temporaries of the row's size
+    (the sums' order may differ)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ms = x.float().square().sum(dim=-1, keepdim=True) / x.shape[-1]
+        inv = torch.rsqrt(ms + eps)                         # [..., 1] f32
+        ctx.save_for_backward(x, inv, scale)
+        return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, inv, scale = ctx.saved_tensors
+        inv_c = inv.to(x.dtype)
+        xhat = x * inv_c
+        lead = tuple(range(dy.dim() - 1))
+        dscale = (dy.float() * xhat.float()).sum(dim=lead).to(scale.dtype)
+        dxhat = dy * scale.to(dy.dtype)
+        # the row term in f32 (a [..., 1] statistic, like the forward)
+        row = (dxhat.float() * xhat.float()).sum(
+            dim=-1, keepdim=True) / x.shape[-1]
+        dx = inv_c * (dxhat - xhat * row.to(x.dtype))
+        return dx, dscale, None
+
+
 def apply_norm(p: dict, x: torch.Tensor, eps: float, kind: str = "rmsnorm",
-               *, plain: bool = False) -> torch.Tensor:
-    """Normalization with f32 statistics and multiply (the reference's
-    default ``f32_mult=True`` branch).  RMSNorm goes through the rmsnorm
-    kernel; LayerNorm (f32 mean and variance, then scale and bias in f32,
-    cast back) is plain PyTorch on both paths."""
+               f32_mult: bool = True, custom_bwd: bool = False, *,
+               plain: bool = False) -> torch.Tensor:
+    """Normalization with f32 statistics (the reference's ``apply_norm``).
+
+    ``f32_mult=True`` (default): the multiplies in f32 too.  RMSNorm goes
+    through the rmsnorm kernel; LayerNorm (f32 mean and variance, then
+    scale and bias in f32, cast back) is plain PyTorch on both paths.
+    ``f32_mult=False`` (``norm_mult_dtype="compute"``) keeps the
+    multiplies in the compute dtype, statistics still f32: plain PyTorch,
+    as in the reference (the kernel multiplies in f32).
+    ``custom_bwd=True`` (rmsnorm only, ``norm_custom_bwd``): the
+    hand-written bf16 backward, :class:`RMSNormBF16Bwd`, whatever
+    ``f32_mult`` says, as in the reference."""
+    if custom_bwd and kind != "layernorm":
+        return RMSNormBF16Bwd.apply(x, p["scale"], eps)
     if kind == "layernorm":
         xf = x.float()
         mu = xf.mean(dim=-1, keepdim=True)
         var = (xf - mu).square().mean(dim=-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps)
-        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+        if f32_mult:
+            y = (xf - mu) * torch.rsqrt(var + eps)
+            return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+        inv = torch.rsqrt(var + eps).to(x.dtype)
+        mu_c = mu.to(x.dtype)
+        return ((x - mu_c) * inv * p["scale"] + p["bias"]).to(x.dtype)
     if kind != "rmsnorm":
         raise ValueError(f"norm {kind!r}")
+    if not f32_mult:
+        ms = x.float().square().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(ms + eps).to(x.dtype)
+        return x * inv * p["scale"].to(x.dtype)
     return (rmsnorm_plain if plain else rmsnorm)(x, p["scale"], eps=eps)
 
 
@@ -249,6 +312,10 @@ def attention(
                                  f"q_block={q_block}")
             windowed = (window is not None and causal and not cross
                         and window + q_block < Sk)
+            # attn_block_remat: recompute each block's f32 probabilities in
+            # the backward instead of keeping every block's (training only)
+            remat_blocks = bool(cfg.attn_block_remat) and \
+                torch.is_grad_enabled()
             outs = []
             for q0 in range(0, Sq, q_block):
                 qi = q[:, q0:q0 + q_block]
@@ -262,7 +329,11 @@ def attention(
                 else:
                     kb, vb = k, v
                     bias = _mask_bias(pi, kv_positions, causal, window)
-                outs.append(_sdpa(qi, kb, vb, bias, scale))
+                if remat_blocks:
+                    outs.append(checkpoint(_sdpa, qi, kb, vb, bias, scale,
+                                           use_reentrant=False))
+                else:
+                    outs.append(_sdpa(qi, kb, vb, bias, scale))
             out = torch.cat(outs, dim=1)
     return out_proj(out.reshape(B, Sq, cfg.n_heads, hd), p["wo"])
 

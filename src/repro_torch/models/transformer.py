@@ -26,17 +26,28 @@ patches) is computed by ``forward`` and, for decode, held in the cache's
 step's positions are computed once per forward or decode step and shared
 by every rotary layer; the encoder-decoder and every cross-attention use
 no RoPE, as in the reference.  ``forward`` builds no cache, as the
-reference's does not; ``generate`` prefills through the decode step.  The
-training levers ``remat`` and ``seq_shard_norms`` are not ported.
+reference's does not; ``generate`` prefills through the decode step.
+
+Training: :func:`lm_loss` is the reference's loss (both ``loss_dtype``
+paths).  ``remat`` checkpoints each group of the stack (and each encoder
+layer), as the reference's ``_remat_wrap`` does the body of its scan,
+only while grad is enabled; ``norm_mult_dtype`` and ``norm_custom_bwd``
+select the reference's norm variants (``layers.apply_norm``);
+``attn_block_remat`` acts on the plain attention path
+(``layers.attention``); ``seq_shard_norms`` is a sharding hint that
+changes nothing on one card.  Serving and prefill run under
+``inference_mode`` and never checkpoint.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import ssm
@@ -48,21 +59,15 @@ from repro_torch.models.layers import (apply_norm, attention,
                                        mlp, mlp_specs, norm_spec,
                                        rope_sin_cos)
 
-__all__ = ["program_for", "model_specs", "encode", "forward", "prefill",
-           "cache_specs", "init_cache", "decode_step", "num_params",
-           "active_params", "Decoder"]
+__all__ = ["program_for", "model_specs", "encode", "forward", "lm_loss",
+           "prefill", "cache_specs", "init_cache", "decode_step",
+           "num_params", "active_params", "Decoder"]
 
 
 # ------------------------------------------------------------------ programs
 
 def program_for(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]]:
     """(group_def, n_groups, remainder_def) for the decoder stack."""
-    if cfg.norm_mult_dtype != "float32":
-        raise NotImplementedError("norm_mult_dtype='compute' is not ported")
-    if cfg.norm_custom_bwd:
-        # the reference's custom-VJP rmsnorm forward multiplies in the
-        # compute dtype; it arrives with training
-        raise NotImplementedError("norm_custom_bwd is not ported")
     L = cfg.n_layers
     if cfg.family == "moe":
         return ("moe",), L, ()
@@ -199,6 +204,17 @@ def active_params(cfg: ModelConfig) -> int:
 
 # ------------------------------------------------------------------ forward
 
+def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+          plain: bool) -> torch.Tensor:
+    """The config's norm (``apply_norm`` with its ``norm_mult_dtype`` and
+    ``norm_custom_bwd`` levers).  ``seq_shard_norms``, the reference's
+    sequence-parallel sharding hint for these segments, changes nothing on
+    one card and is not read."""
+    return apply_norm(p, x, cfg.norm_eps, cfg.norm,
+                      cfg.norm_mult_dtype == "float32",
+                      bool(cfg.norm_custom_bwd), plain=plain)
+
+
 def _apply_block(cfg: ModelConfig, kind: str, p: Optional[dict],
                  x: torch.Tensor, memory: Optional[torch.Tensor],
                  shared: Optional[dict], rope, *, plain: bool,
@@ -207,10 +223,8 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Optional[dict],
     or ``None``).  ``memory``: the encoder / vision stream; ``rope``: the
     (sin, cos) of the sequence's positions (``None`` for the encdec
     family, which rotates nothing)."""
-    eps, nk = cfg.norm_eps, cfg.norm
-
     def norm(pn, t):
-        return apply_norm(pn, t, eps, nk, plain=plain)
+        return _norm(cfg, pn, t, plain=plain)
 
     def attend(pa, t, **kw):
         return attention(pa, cfg, t, rope=rope, plain=plain,
@@ -250,6 +264,46 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Optional[dict],
     raise ValueError(kind)
 
 
+#: matmul-like ops whose outputs the ``"dots"`` policy saves (the
+#: reference's ``checkpoint_dots``); everything else is recomputed
+_DOT_OPS = ("mm", "bmm", "addmm", "baddbmm", "matmul", "linear")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op._opname in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(cfg: ModelConfig, fn):
+    """The reference's ``_remat_wrap``: ``remat="full"`` checkpoints ``fn``
+    (saves nothing inside it, recomputes it in the backward), ``"dots"``
+    saves only the outputs of matrix products, ``"none"`` leaves it as it
+    is.  Only while grad is enabled: serving and prefill run ``fn`` bare.
+    Under ``"full"`` every kernel inside ``fn`` launches twice per
+    training step (forward and recompute)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if cfg.remat == "dots":
+            from torch.utils.checkpoint import \
+                create_selective_checkpoint_contexts
+
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return wrapped
+
+
 def _positions_embed(cfg: ModelConfig, params: dict,
                      tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens].to(cfg.torch_dtype)
@@ -260,8 +314,7 @@ def _positions_embed(cfg: ModelConfig, params: dict,
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
             plain: bool) -> torch.Tensor:
-    x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.norm,
-                   plain=plain)
+    x = _norm(cfg, params["final_norm"], x, plain=plain)
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"])
     return torch.einsum("bsd,dv->bsv", x, params["unembed"])
@@ -288,12 +341,15 @@ def encode(params: dict, cfg: ModelConfig, batch: dict, *,
     x = torch.matmul(batch["frames"].to(cfg.torch_dtype),
                      params["frontend_proj"])
     enc = params["encoder"]
+
+    def layer_fn(x, p):
+        return _apply_block(cfg, "attn_bidir", p, x, None, None, None,
+                            plain=plain, q_block=q_block)[0]
+
+    layer_fn = _remat_wrap(cfg, layer_fn)
     for layer in range(cfg.n_encoder_layers):
-        p = _layer(enc["blocks"], layer)["b0_attn_bidir"]
-        x, _ = _apply_block(cfg, "attn_bidir", p, x, None, None, None,
-                            plain=plain, q_block=q_block)
-    return apply_norm(enc["final_norm"], x, cfg.norm_eps, cfg.norm,
-                      plain=plain)
+        x = layer_fn(x, _layer(enc["blocks"], layer)["b0_attn_bidir"])
+    return _norm(cfg, enc["final_norm"], x, plain=plain)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -324,14 +380,50 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
                              plain=plain, q_block=q_block)
         return x, aux if lb is None else aux + lb
 
-    for layer in range(n_groups):
-        gp = _layer(params["blocks"], layer)
+    def group(x, aux, gp, shared):
         for i, kind in enumerate(grp):
             p = None if kind == "shared_attn" else gp[f"b{i}_{kind}"]
             x, aux = run(kind, p, x, aux)
+        return x, aux
+
+    # the reference checkpoints the body of its scan over groups; the
+    # shared block's parameters go in as arguments, so a recompute sees
+    # the same tensors
+    group = _remat_wrap(cfg, group)
+    for layer in range(n_groups):
+        x, aux = group(x, aux, _layer(params["blocks"], layer), shared)
     for i, kind in enumerate(rem):
         x, aux = run(kind, params["tail"][f"t{i}_{kind}"], x, aux)
     return _logits(params, cfg, x, plain=plain), aux
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict,
+            aux_weight: float = 0.01, *, plain: bool = False,
+            q_block: int = 1024) -> torch.Tensor:
+    """Next-token cross-entropy plus ``aux_weight`` times the MoE
+    load-balance loss, an f32 scalar (port of the reference's
+    ``lm_loss``).
+
+    ``loss_dtype="float32"``: the logits in f32, their f32 log-sum-exp,
+    minus the label logit.  The reference takes the label logit as an f32
+    one-hot contraction over the vocabulary; here it is a gather, which
+    for finite logits is the same value (every other term of the
+    contraction is an exact 0) and the same gradient (1 at the label, 0
+    elsewhere), without an f32 ``[B, S, V]`` one-hot.
+    ``loss_dtype="compute"``: the label logit gathered from the
+    compute-dtype logits, the log-sum-exp still in f32, as in the
+    reference.  ``plain`` and ``q_block`` as for :func:`forward`."""
+    logits, aux = forward(params, cfg, batch, plain=plain, q_block=q_block)
+    targets = batch["tokens"][:, 1:].long()[..., None]
+    logits = logits[:, :-1]
+    if cfg.loss_dtype == "compute":
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        label = torch.gather(logits, -1, targets)[..., 0].float()
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        label = torch.gather(logits, -1, targets)[..., 0]
+    return (lse - label).mean() + aux_weight * aux
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -426,10 +518,8 @@ def _decode_block(cfg: ModelConfig, kind: str, p: Optional[dict],
                   rope, *, plain: bool) -> torch.Tensor:
     """One block; writes this block's cache in place.  ``rope`` is the
     (sin, cos) of ``pos`` (``None`` for the encdec family)."""
-    eps, nk = cfg.norm_eps, cfg.norm
-
     def norm(pn, t):
-        return apply_norm(pn, t, eps, nk, plain=plain)
+        return _norm(cfg, pn, t, plain=plain)
 
     def self_attend(pa, t, **kw):
         y, _, _ = attention_from_cache(pa, cfg, t, cache["k"], cache["v"],

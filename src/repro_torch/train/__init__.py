@@ -1,0 +1,5 @@
+"""Training step (port of ``repro.train``)."""
+
+from .step import TrainState, init_train_state, make_train_step
+
+__all__ = ["TrainState", "init_train_state", "make_train_step"]

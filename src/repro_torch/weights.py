@@ -8,6 +8,13 @@ port keeps the reference's key paths and shapes, so the mapping is by
 (``.view(np.uint16)`` -> ``torch.from_numpy`` -> ``.view(torch.bfloat16)``),
 bit for bit.  Nothing here needs ``ml_dtypes`` except turning a bf16
 tensor back into a numpy bf16 array.
+
+A train state crosses the same way: ``{"params", "opt": {"m", "v",
+"step"}, "step"}`` with its 0-d leaves (the optimizer's f32 step, the
+state's int32 step) and moments in either ``moment_dtype``.  Parameters
+that require grad go out detached; :func:`to_torch` returns plain
+tensors, to which ``repro_torch.train.init_train_state`` gives
+``requires_grad``.
 """
 
 from __future__ import annotations

@@ -178,18 +178,6 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         restore_checkpoint(str(tmp_path), params)
 
 
-@pytest.mark.parametrize("field,value", [("norm_custom_bwd", 1),
-                                         ("norm_mult_dtype", "compute")])
-def test_program_for_refuses_unported_norm_options(field, value):
-    """Norm options whose reference forward differs from the port's (the
-    custom-VJP rmsnorm multiplies in the compute dtype) raise instead of
-    being silently ignored."""
-    _, tcfg = _cfgs("float32")
-    TT.program_for(tcfg)
-    with pytest.raises(NotImplementedError, match=field):
-        TT.program_for(tcfg.replace(**{field: value}))
-
-
 def test_program_for_matches_reference_for_every_ported_arch():
     """``program_for`` returns the reference's program for each config the
     port registers, gemma3's 5:1 local/global program included."""

@@ -19,6 +19,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as jax_reduced
@@ -27,7 +28,7 @@ from repro.models.common import ParamSpec as JaxSpec
 from repro.models.common import init_params as jax_init_params
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import transformer as TT
-from repro_torch.models.common import tree_leaves
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.weights import tensor_from_numpy, to_torch
 
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
@@ -133,3 +134,24 @@ def check_weights(arch: str) -> None:
 
 def cache_leaf(tree, key: str):
     return functools.reduce(lambda n, k: n[k], key.split("/"), tree)
+
+
+def batch_pair(cfg, seed: int = 1, B: int = 2, S: int = 16):
+    """The same training batch for both packages: tokens (and frames /
+    patches for encdec / vlm) from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    arrays = {"tokens": rng.integers(0, cfg.vocab_size,
+                                     (B, S)).astype(np.int32)}
+    if cfg.family == "encdec":
+        arrays["frames"] = rng.standard_normal(
+            (B, S, cfg.frontend_dim)).astype(np.float32)
+    elif cfg.family == "vlm":
+        arrays["patches"] = rng.standard_normal(
+            (B, 8, cfg.frontend_dim)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v) for k, v in arrays.items()})
+
+
+def fresh(tree):
+    """A copy of a (cached) parameter tree whose leaves require grad."""
+    return tree_map(lambda t: t.detach().clone().requires_grad_(True), tree)
