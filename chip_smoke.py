@@ -181,6 +181,27 @@ Phases (one JSON line each, ``"phase"`` names them):
    steps 2-3 re-run from it within 1e-3 relative of the uninterrupted
    run's losses (deterministic algorithms on, warn-only; whether they are
    bit-equal is printed).
+20. The distributed phase (``repro_torch.distributed``), under a 1-rank
+   NCCL process group in this process (``file://`` rendezvous) and a
+   (1, 1) (data, model) mesh from ``launch.mesh.make_local_mesh``.
+   ``restore_dtensor`` (run at the end of the restore options, while
+   their checkpoint is on disk): qwen3-1.7b restored over the three
+   mirrors with ``shardings=sharding_tree(...)``, every leaf a
+   ``DTensor`` whose local shard is bit-exact to the saved leaf.
+   ``dist_qwen3_dp``: qwen3-1.7b at full width with 2 layers, two AdamW
+   steps under the mesh and two without, from one seed: losses and
+   parameters bit-equal.  ``dist_olmoe_hold``: olmoe-1b-7b at full width
+   with 2 layers at capacity factor 64, the a2a path at M = 1 against the
+   one-hot path (no pair dropped; loss and router gradients within the
+   stated bf16 tolerance).  ``dist_olmoe_train``: olmoe-1b-7b at full
+   width with 8 of its 16 layers (3.56 B parameters), B 4 x S 2048, three
+   timed steps and one profiled step through each path (ms per step,
+   tokens/s, peak memory, idle share, dropped pairs in one forward,
+   launches exact).  ``dist_compression``: ``compressed_mean`` and
+   ``compressed_reduce_scatter`` over a qwen3 gradient tree, bit-equal to
+   the CPU's arithmetic.  ``dist_gloo_two_ranks``: two gloo ranks spawned
+   on the card (CUDA tensors), each with 32 of olmoe's experts, the MoE
+   block's outputs and gradients against this process's 1-rank run.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -203,6 +224,7 @@ import sys
 import tempfile
 import threading
 import time
+from contextlib import nullcontext
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MB = 1 << 20
@@ -868,6 +890,21 @@ def attn_bound(B, Sq, Sk, H, KV, hd, causal, e=2):
     return nbytes, 4.0 * B * H * hd * pairs
 
 
+def flash_fwd_bwd_bound(B, Sq, Sk, H, KV, hd, causal, window=None, e=2):
+    """One forward and backward of attention: q, k, v and dO read once, o,
+    dq, dk and dv written once; the forward's QK^T and PV and the
+    backward's five products (QK^T recomputed, dP, dV, dQ, dK) over the
+    visible pairs, 3.5 x the forward's flops."""
+    if window is not None:
+        pairs = sum(min(i + 1, window) for i in range(Sq))
+    elif causal:
+        pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    nbytes = (4 * B * Sq * H + 4 * B * Sk * KV) * hd * e
+    return nbytes, 14.0 * B * H * hd * pairs
+
+
 def flash_time(torch, K, dev, randn, ptxas, label, B, Sq, Sk, H, KV, hd,
                causal) -> dict:
     """flash_attention at one bf16 shape (Sq may differ from Sk), timed
@@ -1018,6 +1055,17 @@ def ssm_bound(B, S, H, P, N, Q, ex=2, ey=4):
         + 2 * B * S * N * ex
     flops = 2.0 * B * nc * tri * (N + H * P) + 4.0 * B * S * H * P * N
     return nbytes, flops
+
+
+def ssm_fwd_bwd_bound(B, S, H, P, N, Q):
+    """One forward and backward of the SSD scan at bf16 x, B, C and f32 dt,
+    y: the forward's bytes plus dy read and dx, ddt, dA, dB, dC written
+    once; the backward takes two products for each of the forward's, 3 x
+    its flops."""
+    nbytes, flops = ssm_bound(B, S, H, P, N, Q)
+    nbytes += B * S * H * P * (4 + 2) + B * S * H * 4 + H * 4 \
+        + 2 * B * S * N * 2
+    return nbytes, 3.0 * flops
 
 
 def ssm_kernel_phase(torch, K, dev, record, worst, ptxas):
@@ -1857,6 +1905,7 @@ def restore_options_phase(torch, cfg, dev, root, d, want, total, tree):
     restore_sharded_phase(torch, cfg, dev, root, d, want, total)
     restore_broadcast_phase(torch, cfg, dev, root, d, want, total)
     checkpoint_manager_phase(torch, cfg, dev, root, tree, want)
+    restore_dtensor_phase(torch, cfg, dev, root, d, want)
 
 
 # ------------------------------------------------------------------ serve
@@ -2751,14 +2800,19 @@ class MoEProbe:
         self.torch, self.moe = torch, moe
         self.dropped, self.flips = [], []
         self.recorded = self.replay = None
+        #: set to E / M while an a2a path runs: its second bucketing has a
+        #: class E / M for empty slots, which are not pairs
+        self.empty = None
 
     def _slots(self, gate_idx, n_experts, cap):
         row, keep = self.slots(gate_idx, n_experts, cap)
+        if self.empty is not None and n_experts == self.empty + 1:
+            keep = keep | (gate_idx == self.empty)
         self.dropped.append((~keep).sum())
         return row, keep
 
-    def _gates(self, cfg, xt, router):
-        vals, idx, lb = self.gates(cfg, xt, router)
+    def _gates(self, cfg, xt, router, *rest):
+        vals, idx, lb = self.gates(cfg, xt, router, *rest)
         if self.recorded is not None:
             self.recorded.append(idx)
         if self.replay is not None:
@@ -3095,12 +3149,13 @@ def hold_grads(torch, gk, gp, gk32, gp32, names, what: str) -> dict:
 
 
 def kernel_grad_hold(torch, K, dev, label, kernel, plain, inputs, cot,
-                     names, low, library=None) -> dict:
+                     names, low, library=None, bound=None) -> dict:
     """One kernel's gradients against its plain version's: at bf16
     (``inputs`` as given; the f32 reference upcasts those at index in
     ``low``) and at f32 (every input f32).  Then one forward + backward
     at bf16 timed on the kernel path, the plain path and, where one
-    PyTorch call computes the function (``library``), through it.
+    PyTorch call computes the function (``library``), through it, beside
+    ``bound`` ((bytes, flops) of one forward and backward) as a time.
     Returns the hold, the timings and the kernel's launches (one per
     kernel-path call of the holds; the timed calls are not counted)."""
     up = [t.float() if i in low else t for i, t in enumerate(inputs)]
@@ -3117,6 +3172,9 @@ def kernel_grad_hold(torch, K, dev, label, kernel, plain, inputs, cot,
               "plain_fwd_bwd_ms": fwd_bwd_ms(torch, plain, inputs, cot),
               "library_fwd_bwd_ms": None if library is None else
               fwd_bwd_ms(torch, library, inputs, cot)}
+    if bound is not None:
+        timing["bound_fwd_bwd_ms"], timing["bound_fwd_bwd_by"] = bound_ms(
+            *bound, "bfloat16")
     return {"hold": hold, "timing": timing,
             "launches": {k: after[k] - before[k] for k in KERNELS}}
 
@@ -3183,7 +3241,8 @@ def train_kernel_grads(torch, K, dev) -> tuple:
             torch, K, dev, f"flash {label}",
             lambda *t, kw=kw: K.flash_attention(*t, **kw),
             lambda *t, kw=kw: K.flash_attention_plain(*t, **kw), [q, k, v],
-            cot, ["dq", "dk", "dv"], {0, 1, 2}, library=sdpa))
+            cot, ["dq", "dk", "dv"], {0, 1, 2}, library=sdpa,
+            bound=flash_fwd_bwd_bound(B, Sq, Sk, H, KV, hd, causal, window)))
         del q, k, v, cot
     for rows, d in GRAD_RMSNORM_SHAPES:
         for res in (False, True):
@@ -3209,7 +3268,7 @@ def train_kernel_grads(torch, K, dev) -> tuple:
         torch, K, dev, "ssm_scan", lambda *t: K.ssm_scan(*t, **kw),
         lambda *t: K.ssm_scan_plain(*t, **kw), ins,
         randn((B, S, H, P), torch.float32), ["dx", "ddt", "dA", "dB", "dC"],
-        {0, 3, 4}))
+        {0, 3, 4}, bound=ssm_fwd_bwd_bound(B, S, H, P, N, kw["chunk"])))
     return holds, launches
 
 
@@ -3521,6 +3580,532 @@ def _train_like(cfg, opt) -> dict:
             "step": ParamSpec((), (), "zeros")}
 
 
+# ------------------------------------------------------------ distributed
+
+#: olmoe-1b-7b trained at full width with its 16 layers cut to 8: 3.56 B
+#: parameters, ~43 GB of bf16 weights and gradients and f32 moments
+DIST_OLMOE_LAYERS = 8
+DIST_SHAPE = (4, 2048)
+DIST_STEPS = 3
+#: the hold of the a2a path against the one-hot path where nothing drops:
+#: capacity factor 64 makes the a2a path's second buffer T k cf^2 / E rows
+#: per expert, so it runs at 2 layers and B 2 x S 16 (4.3 GB of buffer)
+DIST_HOLD_LAYERS = 2
+DIST_HOLD_SHAPE = (2, 16)
+DIST_HOLD_CF = 64.0
+#: the hold is bit-equality of the first loss and every router gradient:
+#: at M = 1 and capacity factor 64 the two paths compute one function, and
+#: five runs on the H100 read them bit-equal (PERF.md), so any difference
+#: is a bucketing or gradient fault of the a2a path
+
+
+class dist_group:
+    """A 1-rank process group in this process (NCCL on the card, a
+    ``file://`` rendezvous in a scratch directory) and a (1, 1) (data,
+    model) mesh over it (``launch.mesh.make_local_mesh``); the group is
+    destroyed on exit."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+
+    def __enter__(self):
+        import datetime
+
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_local_mesh
+
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+        dist.init_process_group(
+            "nccl" if self.dev.type == "cuda" else "gloo",
+            init_method=f"file://{self.tmp}/rendezvous", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        return make_local_mesh(1, 1, device=self.dev)
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def restore_dtensor_phase(torch, cfg, dev, root, d, want):
+    """``restore_dtensor`` (the distributed phase's part a, run while the
+    restore phase's checkpoint is on disk): the qwen3-1.7b checkpoint
+    restored over the three throttled mirrors with
+    ``shardings=sharding_tree(model_specs)`` under a 1-rank NCCL (1, 1)
+    mesh; every leaf a ``DTensor`` on the card whose local shard is
+    bit-exact to the saved leaf."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.distributed import activate
+    from repro_torch.models.common import sharding_tree, tree_leaves
+    from repro_torch.models.transformer import model_specs
+
+    with dist_group(torch, dev) as mesh, activate(mesh):
+        specs = model_specs(cfg)
+        shardings = sharding_tree(specs)
+        with MirrorFleet(d) as fleet:
+            tree, step = restore_checkpoint(root, specs, step=1,
+                                            replicas=fleet.replicas,
+                                            device=dev, shardings=shardings)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - fleet.t0
+        got = dict(tree_leaves(tree))
+        check(step == 1 and sorted(got) == sorted(want),
+              "restore_dtensor: keys differ from saved")
+        placements = set()
+        for key, t in want.items():
+            r = got[key]
+            check(isinstance(r, DTensor), f"restore_dtensor: {key} is "
+                  f"{type(r).__name__}, not a DTensor")
+            local = r.to_local()
+            placements.add(str(tuple(r.placements)))
+            check(local.device == t.device and local.dtype == t.dtype
+                  and local.shape == t.shape and torch.equal(local, t),
+                  f"restore_dtensor: {key}'s local shard is not bit-exact")
+        del tree, got
+    total = os.path.getsize(os.path.join(d, "data.bin"))
+    emit("restore_dtensor", arch=cfg.name, mesh=[1, 1], backend="nccl",
+         restore_s=seconds, gb_per_s=total / seconds / 1e9,
+         leaves=len(want), placements=sorted(placements), bit_exact=True)
+    torch.cuda.empty_cache()
+
+
+def _dist_train_run(torch, cfg, dev, seed, batches, mesh, opt):
+    """Fresh parameters from ``seed``, ``len(batches)`` train steps (under
+    ``activate(mesh)`` when a mesh is given); the losses and final
+    parameters."""
+    from repro_torch.distributed import activate
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    state = init_train_state(init_params(
+        model_specs(cfg), torch.Generator(device=dev).manual_seed(seed),
+        cfg.torch_dtype, dev), opt)
+    step = make_train_step(cfg, opt)
+    losses = []
+    with activate(mesh) if mesh is not None else nullcontext():
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(m["loss"].item())
+    return losses, {k: t.detach() for k, t in tree_leaves(state["params"])}
+
+
+def dist_qwen3_phase(torch, K, dev, mesh) -> dict:
+    """``dist_qwen3_dp`` (part b): qwen3-1.7b at full width with 2 layers,
+    2 AdamW steps of B 2 x S 1024 under the (1, 1) mesh, then the same from
+    the same seed without one: losses and parameters bit-equal (an average
+    over one rank is the identity), deterministic algorithms on."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config("qwen3-1.7b").replace(n_layers=GRAD_MODEL_LAYERS)
+    B, S = RESUME_SHAPE
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, decay_steps=4)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                        device=dev, generator=gen)}
+               for _ in range(2)]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reset_counts(K)
+        t0 = time.perf_counter()
+        lm, pm = _dist_train_run(torch, cfg, dev, 62, batches, mesh, opt)
+        meshed_s = time.perf_counter() - t0
+        launches = counts(K)
+        lp, pp = _dist_train_run(torch, cfg, dev, 62, batches, None, opt)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "rmsnorm": 2 * 4 * cfg.n_layers + 1}
+    for name, n in per_step.items():
+        check(launches[name] == 2 * n, f"dist_qwen3_dp {name}: "
+              f"{launches[name]} launches, expected {n} x 2")
+    check(lm == lp, f"dist_qwen3_dp: meshed losses {lm} != unmeshed {lp}")
+    same = [k for k in pm if torch.equal(pm[k], pp[k])]
+    check(len(same) == len(pm), f"dist_qwen3_dp: parameters differ: "
+          f"{sorted(set(pm) - set(same))[:5]}")
+    emit("dist_qwen3_dp", arch=cfg.name, n_layers=cfg.n_layers, batch=B,
+         seq=S, mesh=[1, 1], backend="nccl", losses=lm, unmeshed_losses=lp,
+         losses_bit_equal=True, params_bit_equal=len(same), meshed_s=meshed_s,
+         deterministic_algorithms="on (warn_only)", launches=launches)
+    del pm, pp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _router_grads(torch, cfg, params, batch, mesh):
+    """(loss, the router leaves' gradients) of one ``lm_loss`` call, under
+    ``activate(mesh)`` when a mesh is given."""
+    from repro_torch.distributed import activate
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import lm_loss
+
+    keys = [k for k, _ in tree_leaves(params) if k.endswith("router")]
+    leaves = dict(tree_leaves(params))
+    with activate(mesh) if mesh is not None else nullcontext():
+        loss = lm_loss(params, cfg, batch)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+    return loss.item(), dict(zip(keys, grads))
+
+
+def dist_olmoe_phase(torch, K, dev, mesh) -> dict:
+    """Part c: olmoe-1b-7b at full width on the card through both MoE
+    paths.  ``dist_olmoe_hold``: at capacity factor 64 (nothing drops) and
+    2 layers, B 2 x S 16, the a2a path at M = 1 (under the mesh) and the
+    one-hot path give the same first loss and router gradients, bit for
+    bit.  ``dist_olmoe_train``: 8 of 16 layers, B 4 x S
+    2048, the config's 1.25: DIST_STEPS timed steps and one profiled step
+    through each path from the same seed (ms per step, tokens/s, peak
+    memory, idle share: 1 - the profiled step's device busy time / the
+    unprofiled warm step's host time, as ``train`` reads it; tracing
+    lengthens a saturated step's kernels, so it can read a little below
+    0), every loss finite, launches per step exact, and each path's
+    dropped pairs in one forward.  Returns the launches by
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import activate
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.models.transformer import lm_loss, model_specs
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    base = get_config("olmoe-1b-7b")
+    by_path = {}
+
+    # --- the hold where nothing drops
+    cfg = base.replace(n_layers=DIST_HOLD_LAYERS, capacity_factor=DIST_HOLD_CF)
+    params = tree_map(lambda t: t.requires_grad_(True), init_params(
+        model_specs(cfg), torch.Generator(device=dev).manual_seed(71),
+        cfg.torch_dtype, dev))
+    B, S = DIST_HOLD_SHAPE
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(72))}
+    probe = MoEProbe(torch, moe)
+    probe.empty = cfg.n_experts
+    reset_counts(K)
+    (la, ga), drop_a = probe.run(lambda: _router_grads(torch, cfg, params,
+                                                       batch, mesh))
+    probe.empty = None
+    (lo, go), drop_o = probe.run(lambda: _router_grads(torch, cfg, params,
+                                                       batch, None))
+    by_path["dist_olmoe_hold"] = counts(K)
+    check(drop_a == 0 and drop_o == 0, f"dist_olmoe_hold: pairs dropped at "
+          f"capacity factor {DIST_HOLD_CF}: a2a {drop_a}, one-hot {drop_o}")
+    check(la == lo, f"dist_olmoe_hold: loss {la} (a2a) vs {lo} (one-hot)")
+    grads = {}
+    for k in go:
+        a, o = ga[k].float(), go[k].float()
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten(), o.flatten(), dim=0).item()
+        err = (a - o).abs().max().item()
+        peak = o.abs().max().item()
+        grads[k] = {"max_abs_err": err, "max_abs": peak, "cosine": cos}
+        check(torch.equal(ga[k], go[k]),
+              f"dist_olmoe_hold: {k} gradient {grads[k]}")
+    emit("dist_olmoe_hold", arch=base.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+         batch=B, seq=S, capacity_factor=cfg.capacity_factor,
+         loss_a2a=la, loss_one_hot=lo, router_grads=grads,
+         dropped_pairs={"a2a": drop_a, "one_hot": drop_o},
+         tolerance="bit-equal",
+         launches=by_path["dist_olmoe_hold"])
+    del params, ga, go
+    torch.cuda.empty_cache()
+
+    # --- training at full width, both paths from the same seed
+    cfg = base.replace(n_layers=DIST_OLMOE_LAYERS)
+    B, S = DIST_SHAPE
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, decay_steps=10_000)
+    gen = torch.Generator(device=dev).manual_seed(73)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                        device=dev, generator=gen)}
+               for _ in range(DIST_STEPS + 1)]
+    L = cfg.n_layers
+    per_step = {"flash_attention": 2 * L, "rmsnorm": 2 * 4 * L + 1}
+    per_forward = {"flash_attention": L, "rmsnorm": 4 * L + 1}
+    for path, m in (("a2a", mesh), ("one_hot", None)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(model_specs(cfg), torch.Generator(
+            device=dev).manual_seed(74), cfg.torch_dtype, dev)
+        n_params = sum(t.numel() for _, t in tree_leaves(params))
+        state = init_train_state(params, opt)
+        step = make_train_step(cfg, opt)
+        reset_counts(K)
+        losses, secs = [], []
+        with activate(m) if m is not None else nullcontext():
+            for b in batches[:DIST_STEPS]:
+                t0 = time.perf_counter()
+                state, met = step(state, b)
+                losses.append(met["loss"].item())
+                secs.append(time.perf_counter() - t0)
+            holder = {}
+
+            def one_step():
+                holder["s"], _ = step(state, batches[DIST_STEPS])
+
+            t0 = time.perf_counter()
+            prof = train_profile(torch, one_step)
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+            state = holder.pop("s")
+            peak = torch.cuda.max_memory_allocated()
+            probe.empty = cfg.n_experts if m is not None else None
+            with torch.no_grad():
+                _, dropped = probe.run(lambda: lm_loss(
+                    state["params"], cfg, batches[0]))
+            probe.empty = None
+        launches = counts(K)
+        for name, n in per_step.items():
+            want = n * (DIST_STEPS + 1) + per_forward[name]
+            check(launches[name] == want, f"dist_olmoe_train {path} {name}: "
+                  f"{launches[name]} launches, expected {want}")
+        check(all(math.isfinite(x) for x in losses),
+              f"dist_olmoe_train {path}: losses {losses}")
+        warm = sorted(secs[1:])
+        ms = warm[len(warm) // 2] * 1e3
+        by_path[f"dist_olmoe_{path}"] = launches
+        emit("dist_olmoe_train", path=path, arch=base.name, n_layers=L,
+             n_layers_config=base.n_layers, d_model=cfg.d_model,
+             n_experts=cfg.n_experts, top_k=cfg.top_k, d_ff=cfg.d_ff,
+             vocab=cfg.vocab_size, params=n_params, batch=B, seq=S,
+             capacity_factor=cfg.capacity_factor, remat=cfg.remat,
+             mesh=[1, 1] if m is not None else None, losses=losses,
+             step_s=secs, ms_per_step_warm=ms,
+             tokens_per_s=B * S / (ms / 1e3), max_memory_allocated=peak,
+             device_busy_ms=prof["device_busy_ms"],
+             profiled_step_ms=profiled_ms,
+             device_idle_share=1.0 - prof["device_busy_ms"] / ms,
+             top_kernels=prof["top_kernels"][:5],
+             dropped_pairs_one_forward=dropped,
+             pairs_one_forward=B * S * cfg.top_k * L, launches=launches)
+        del state, params, holder
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def dist_compression_phase(torch, K, dev, mesh) -> dict:
+    """Part d: ``compressed_mean`` of the gradient tree of qwen3-1.7b at
+    full width with 2 layers (B 2 x S 1024), and
+    ``compressed_reduce_scatter`` of each leaf, over the 1-rank group: q
+    and scale of every leaf bit-equal to ``quantize_int8`` of the same
+    gradient on the CPU, and both outputs bit-equal to the same arithmetic
+    on the CPU (the sum over one rank)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import Mesh
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.models.transformer import lm_loss, model_specs
+    from repro_torch.optim.compression import (compressed_mean,
+                                               compressed_reduce_scatter,
+                                               quantize_int8)
+    from repro_torch.weights import unflatten
+
+    cfg = get_config("qwen3-1.7b").replace(n_layers=GRAD_MODEL_LAYERS)
+    B, S = RESUME_SHAPE
+    params = tree_map(lambda t: t.requires_grad_(True), init_params(
+        model_specs(cfg), torch.Generator(device=dev).manual_seed(81),
+        cfg.torch_dtype, dev))
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(82))}
+    reset_counts(K)
+    keys, leaves = zip(*tree_leaves(params))
+    grads = unflatten(dict(zip(keys, torch.autograd.grad(
+        lm_loss(params, cfg, batch), leaves))))
+    launches = counts(K)
+    group = Mesh.of(mesh).group(("data",))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means = compressed_mean(grads, group)
+    torch.cuda.synchronize()
+    mean_ms = (time.perf_counter() - t0) * 1e3
+    n = 0
+    rs_ms = 0.0
+    for key, g in tree_leaves(grads):
+        q, s = quantize_int8(g)
+        qc, sc = quantize_int8(g.cpu())
+        check(torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc),
+              f"dist_compression: {key}'s q / scale differ from the CPU's")
+        want = (qc.to(torch.bfloat16) * sc.to(torch.bfloat16) / 1).float()
+        check(torch.equal(dict(tree_leaves(means))[key].cpu(), want),
+              f"dist_compression: compressed_mean of {key}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = compressed_reduce_scatter(g, group)
+        torch.cuda.synchronize()
+        rs_ms += (time.perf_counter() - t0) * 1e3
+        want = (qc.reshape(1, -1).float() * sc.reshape(1, 1)).sum(dim=0) / 1
+        check(torch.equal(rs.cpu(), want),
+              f"dist_compression: compressed_reduce_scatter of {key}")
+        n += g.numel()
+    emit("dist_compression", arch=cfg.name, n_layers=cfg.n_layers,
+         leaves=len(keys), elements=n, group_size=1, backend="nccl",
+         q_scale_bit_equal_to_cpu=True, outputs_bit_equal_to_cpu=True,
+         compressed_mean_ms=mean_ms, compressed_reduce_scatter_ms=rs_ms,
+         launches=launches)
+    del params, grads, means
+    torch.cuda.empty_cache()
+    return launches
+
+#: the two gloo ranks on one card: olmoe's MoE block at full width (d 2048,
+#: E 64, top 8, d_ff 1024) in f32 on a (1, 2) mesh, each rank holding 32
+#: experts, at capacity factor 64 (nothing drops, so M = 2 and M = 1 route
+#: the same pairs); outputs and gradients within GLOO_TOL of the 1-rank
+#: run's
+GLOO_SHAPE = (1, 16)
+GLOO_TOL = 1e-5
+
+
+def _gloo_moe_case(torch, dev):
+    """The MoE block's config, parameters, input and cotangent, drawn on
+    the CPU from a seed (every process draws the same) and moved to
+    ``dev``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.moe import moe_specs
+
+    cfg = get_config("olmoe-1b-7b").replace(dtype="float32",
+                                             capacity_factor=DIST_HOLD_CF)
+    g = torch.Generator().manual_seed(91)
+    p = init_params(moe_specs(cfg), g, torch.float32, torch.device("cpu"))
+    x = torch.randn((*GLOO_SHAPE, cfg.d_model), generator=g)
+    cot = torch.randn(x.shape, generator=g)
+    return cfg, {k: v.to(dev) for k, v in p.items()}, x.to(dev), cot.to(dev)
+
+
+def _gloo_moe_grads(torch, cfg, p, x, cot):
+    """y and the gradients of mean(y . cot) + lb for x and each leaf."""
+    from repro_torch.models.moe import moe_block
+
+    p = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    x = x.detach().requires_grad_(True)
+    y, lb = moe_block(p, cfg, x)
+    keys = sorted(p)
+    g = torch.autograd.grad((y * cot).sum(-1).mean() + lb,
+                            [x] + [p[k] for k in keys])
+    return y.detach(), lb.item(), dict(zip(["x"] + keys, g))
+
+
+def gloo_rank(rank: int, out: str) -> int:
+    """``--gloo-rank``: one of two gloo ranks on the card (a (1, 2) mesh),
+    the MoE block through the a2a path; writes its results to ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import activate
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.moe import moe_specs
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{out}/rendezvous", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=300))
+    try:
+        cfg, p, x, cot = _gloo_moe_case(torch, dev)
+        with activate(make_local_mesh(1, 2, device=dev)) as ctx:
+            specs = moe_specs(cfg)
+            blocks = {k: ctx.mesh.local_slices(ctx.spec(s.logical, s.shape),
+                                               s.shape)
+                      for k, s in specs.items()}
+            local = {k: p[k][blocks[k]].contiguous() for k in p}
+            blocks = {k: [(sl.start, sl.stop) for sl in v]
+                      for k, v in blocks.items()}
+            y, lb, g = _gloo_moe_grads(torch, cfg, local, x, cot)
+        torch.save({"y": y.cpu(), "lb": lb, "blocks": blocks,
+                    "grads": {k: v.cpu() for k, v in g.items()},
+                    "device": str(y.device)},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dist_gloo_phase(torch, dev, mesh) -> None:
+    """``dist_gloo_two_ranks``: two gloo ranks spawned on the one card hold
+    32 experts each of olmoe's MoE block at full width and exchange their
+    buckets by all-to-all (gloo takes CUDA tensors for every collective the
+    path uses); at capacity factor 64 their outputs and gradients match
+    this process's 1-rank NCCL run of the same block within GLOO_TOL of
+    each tensor's largest entry.  No kernel runs in the MoE block."""
+    import repro_torch
+    from repro_torch.distributed import activate
+
+    src = os.path.dirname(os.path.dirname(os.path.abspath(
+        repro_torch.__file__)))
+    out = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    try:
+        # this process's run first, its results moved off the card, so the
+        # two ranks find the card's memory free
+        cfg, p, x, cot = _gloo_moe_case(torch, dev)
+        with activate(mesh):
+            y1, lb1, g1 = _gloo_moe_grads(torch, cfg, p, x, cot)
+        y1, g1 = y1.cpu(), {k: v.cpu() for k, v in g1.items()}
+        del p, x, cot
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--gloo-rank", str(r), "--gloo-dir", out,
+                                   "--src", src])
+                 for r in range(2)]
+        try:
+            rcs = [pr.wait(timeout=600) for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        seconds = time.perf_counter() - t0
+        check(rcs == [0, 0], f"dist_gloo_two_ranks: ranks exited {rcs}")
+        worst = {}
+        for r in range(2):
+            res = torch.load(os.path.join(out, f"rank{r}.pt"))
+            check(res["device"].startswith("cuda"),
+                  f"dist_gloo_two_ranks: rank {r} ran on {res['device']}")
+            pairs = [("y", res["y"], y1)] + [
+                (k, v, g1[k][tuple(slice(*ab) for ab in
+                                   res["blocks"].get(k, ()))])
+                for k, v in res["grads"].items()]
+            for name, got, want in pairs:
+                err = (got - want).abs().max().item()
+                peak = want.abs().max().item()
+                worst[name] = max(worst.get(name, 0.0), err / max(peak, 1e-30))
+                check(got.shape == want.shape and err <= GLOO_TOL * peak,
+                      f"dist_gloo_two_ranks: rank {r} {name} off by {err} "
+                      f"(largest entry {peak})")
+            check(abs(res["lb"] - lb1) <= 1e-6,
+                  f"dist_gloo_two_ranks: rank {r} lb {res['lb']} vs {lb1}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    emit("dist_gloo_two_ranks", arch=cfg.name, d_model=cfg.d_model,
+         n_experts=cfg.n_experts, top_k=cfg.top_k, batch=GLOO_SHAPE[0],
+         seq=GLOO_SHAPE[1], dtype="float32", mesh=[1, 2], backend="gloo",
+         capacity_factor=cfg.capacity_factor, tolerance_rel=GLOO_TOL,
+         max_rel_err=worst, seconds=seconds)
+
+
+
+def distributed_phase(torch, K, dev) -> dict:
+    """The distributed phase's parts b-d and the two gloo ranks under one
+    1-rank NCCL group and a (1, 1) mesh (part a runs inside the restore
+    phase, while its checkpoint is on disk)."""
+    by_path = {}
+    with dist_group(torch, dev) as mesh:
+        by_path["dist_qwen3_dp"] = dist_qwen3_phase(torch, K, dev, mesh)
+        by_path.update(dist_olmoe_phase(torch, K, dev, mesh))
+        by_path["dist_compression"] = dist_compression_phase(torch, K, dev,
+                                                             mesh)
+        dist_gloo_phase(torch, dev, mesh)
+    return by_path
+
+
 
 def rmsnorm_only(torch, K, dev, build_) -> int:
     """``--rmsnorm-only``: build, then only rmsnorm's ``kernel_time`` lines
@@ -3551,6 +4136,10 @@ def main() -> int:
                     help="time only rmsnorm (for comparing two checkouts)")
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="the src directory whose repro_torch is driven")
+    ap.add_argument("--gloo-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # the distributed phase's
+    ap.add_argument("--gloo-dir", default=None,  # own rank processes
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -3570,6 +4159,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.gloo_rank is not None:
+        return gloo_rank(args.gloo_rank, args.gloo_dir)
     if args.rmsnorm_only:
         return rmsnorm_only(torch, K, dev, build)
     smi = nvidia_smi()
@@ -3597,6 +4188,7 @@ def main() -> int:
         by_path["train_resume"] = train_resume_phase(torch, K, cfg, dev)
         del params
         torch.cuda.empty_cache()
+        by_path.update(distributed_phase(torch, K, dev))
         by_path["hybrid_prefill"], by_path["hybrid_generate"] = \
             hybrid_phase(torch, K, dev)
         by_path.update(gemma3_phase(torch, K, dev))

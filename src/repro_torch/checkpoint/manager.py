@@ -26,8 +26,11 @@ reference's: ``tuner`` re-tunes the chunk geometry while the blob streams
 in, ``wave_bytes`` re-tunes between waves, ``manager`` routes the fetches
 through a shared ``TransferManager`` fleet, ``resume`` makes the restore
 crash-resumable (spool plus journal), ``mirror`` serves landed ranges to
-peers, and ``shard_plan`` fetches one host's span.  The reference's
-``shardings`` has no counterpart on one card: ``device=`` stands in for it.
+peers, and ``shard_plan`` fetches one host's span.  ``shardings`` (a
+tree of ``repro_torch.distributed.Placements``, e.g.
+``models.common.sharding_tree`` under an active mesh) lands each leaf as
+a ``DTensor`` whose local shard is this rank's block of the restored
+bytes; leaves without one land as plain tensors on ``device``.
 
 ``CheckpointManager`` saves every N steps from a host snapshot, on a
 thread, and keeps the last k steps.
@@ -161,7 +164,10 @@ class _StreamingRestore:
     the resume path re-verifies journaled CRCs against exactly these
     bytes).  A leaf is copied off the spool into a fresh host tensor
     before its device copy, so nothing handed back, and no copy still in
-    flight, reads the map that :meth:`close` unmaps.  :meth:`finish`
+    flight, reads the map that :meth:`close` unmaps.  A leaf with a
+    sharding keeps only this rank's block, cut on the host before its
+    device copy, as the local shard of a ``DTensor`` (``landed_bytes``
+    counts the bytes copied out into the leaves).  :meth:`finish`
     synchronises the copy stream: no tensor it returns is still in
     flight.
 
@@ -172,11 +178,14 @@ class _StreamingRestore:
     """
 
     def __init__(self, manifest: dict, like: Any, device: torch.device,
-                 spool_path: Optional[str] = None):
+                 spool_path: Optional[str] = None,
+                 shardings: Optional[Any] = None):
         self._covered: list[tuple[int, int]] = []   # disjoint [s, e), sorted
         self.duplicate_bytes = 0                    # re-delivered byte count
+        self.landed_bytes = 0       # bytes copied out into the leaves
         self._like = like
         self._device = device
+        self._shardings = dict(tree_leaves(shardings))
         by_key = {e["key"]: e for e in manifest["leaves"]}
         keys = [k for k, _ in tree_leaves(like)]
         missing = [k for k in keys if k not in by_key]
@@ -271,30 +280,62 @@ class _StreamingRestore:
     def _materialize(self, j: int) -> None:
         """Queue leaf ``j``'s copy to the device (a host clone on the
         CPU).  The copy lands in a fresh allocation, so the dtype view is
-        aligned whatever the leaf's offset in the blob."""
+        aligned whatever the leaf's offset in the blob.  A leaf with a
+        sharding copies only this rank's block: where that is not the
+        whole leaf, it is cut from the host bytes into a host tensor of
+        its own first."""
         e = self._entries[j]
         shape, dtype = e["shape"], _dtype(e["dtype"])
         n, off = int(e["nbytes"]), int(e["offset"])
+        pl = self._shardings.get(e["key"])
+        cut = False
+        if pl is not None:
+            block = pl.mesh.local_slices(pl.spec, shape)
+            cut = any(b.stop - b.start != m for b, m in zip(block, shape))
+            shape = [b.stop - b.start for b in block]
         if n == 0:
-            self._out[e["key"]] = torch.empty(shape, dtype=dtype,
-                                              device=self._device)
+            self._out[e["key"]] = self._place(
+                torch.empty(shape, dtype=dtype, device=self._device), pl)
             return
+        pin = self._stream is not None
         if self._host is not None:
-            src = self._host[off:off + n]
+            whole = self._host[off:off + n]
         else:
-            spool = torch.frombuffer(self._mmap, dtype=torch.uint8, count=n,
+            whole = torch.frombuffer(self._mmap, dtype=torch.uint8, count=n,
                                      offset=off)
-            src = torch.empty(n, dtype=torch.uint8,
-                              pin_memory=self._stream is not None)
-            src.copy_(spool)
-            del spool           # no view of the map outlives this call
-        if self._stream is None:
-            raw = src.clone() if self._host is not None else src
+        if cut:
+            # bytes stay bytes (no dtype view of an unaligned offset): each
+            # element's itemsize bytes are one trailing dim
+            isz = dtype.itemsize
+            src = torch.empty((*shape, isz), dtype=torch.uint8,
+                              pin_memory=pin)
+            src.copy_(whole.view(*e["shape"], isz)[block])
+            src = src.view(-1)
+        elif self._host is not None:
+            src = whole if pin else whole.clone()
         else:
-            raw = torch.empty(n, dtype=torch.uint8, device=self._device)
+            src = torch.empty(n, dtype=torch.uint8, pin_memory=pin)
+            src.copy_(whole)
+        del whole           # no view of the map outlives this call
+        self.landed_bytes += src.numel()
+        if pin:
+            raw = torch.empty(src.numel(), dtype=torch.uint8,
+                              device=self._device)
             with torch.cuda.stream(self._stream):
                 raw.copy_(src, non_blocking=True)
-        self._out[e["key"]] = raw.view(dtype).reshape(shape)
+        else:
+            raw = src
+        self._out[e["key"]] = self._place(raw.view(dtype).reshape(shape), pl)
+
+    @staticmethod
+    def _place(local: torch.Tensor, pl: Any) -> torch.Tensor:
+        """``local`` itself, or as this rank's shard of a ``DTensor``."""
+        if pl is None:
+            return local
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(local, pl.mesh.device_mesh, tuple(pl),
+                                  run_check=False)
 
     def synchronize(self) -> None:
         """Wait until every queued device copy has landed."""
@@ -409,6 +450,7 @@ def restore_checkpoint(
     mirror: Any = None,
     shard_plan: Any = None,
     device: Optional[Union[str, torch.device]] = None,
+    shardings: Optional[Any] = None,
 ) -> tuple[Any, int]:
     """Restore ``(state, step)`` onto ``device`` (default ``"cuda"``; raises
     without a card).
@@ -463,10 +505,16 @@ def restore_checkpoint(
     (see ``repro_torch.transfer.fetch_sharded`` for K such fetches with
     work stealing).
 
+    ``shardings`` (``like``'s structure, ``repro_torch.distributed.
+    Placements`` leaves as ``models.common.sharding_tree`` gives them, or
+    ``None``) lands each leaf that has one as a ``DTensor`` on ``device``
+    whose local shard is this rank's block of the restored bytes (cut by
+    the leaf's spec; no collective runs); leaves without one land whole,
+    as plain tensors.  It is a keyword here, where the reference takes it
+    fourth.
+
     ``options`` (a :class:`RestoreOptions`) holds the same tail options;
-    bare keywords override it field by field.  The reference's
-    ``shardings`` has no counterpart on one card (``device`` stands in),
-    so it is not a keyword."""
+    bare keywords override it field by field."""
     opts = options if options is not None else RestoreOptions()
     overrides = {k: v for k, v in {
         "tuner": tuner, "wave_bytes": wave_bytes, "manager": manager,
@@ -487,7 +535,7 @@ def restore_checkpoint(
         d = _step_dir(root, step)
         with open(os.path.join(d, _MANIFEST)) as f:
             manifest = json.load(f)
-        stream = _StreamingRestore(manifest, like, dev)
+        stream = _StreamingRestore(manifest, like, dev, shardings=shardings)
         try:
             total = stream.total_bytes
             with open(os.path.join(d, _DATA), "rb") as f:
@@ -552,7 +600,8 @@ def restore_checkpoint(
             jr = ResumeJournal.open(os.path.join(resume, "journal.log"),
                                     total_bytes=total,
                                     meta={"step": int(step)})
-        stream = _StreamingRestore(manifest, like, dev, spool_path=spool)
+        stream = _StreamingRestore(manifest, like, dev, spool_path=spool,
+                                   shardings=shardings)
         if mirror is not None:
             mirror.bind(stream, total)
         try:

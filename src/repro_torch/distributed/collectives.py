@@ -1,0 +1,145 @@
+"""Collectives with a stated backward, for model code that runs one rank's
+share of a sharded computation (the expert-parallel MoE block).
+
+JAX differentiates through ``shard_map`` collectives by their transposes.
+Here each collective is an ``autograd.Function`` whose backward is chosen
+so that every leaf replicated over the ``model`` axis gets its full
+gradient on every model rank, with no model-axis all-reduce afterwards:
+
+- :func:`all_to_all`: forward an all-to-all of equal blocks along dim 0,
+  backward the same all-to-all of the gradient (its transpose);
+- :func:`split`: forward this rank's block of a tensor replicated over the
+  group, backward an all-gather (every rank's block of the gradient);
+- :func:`gather`: forward an all-gather of each rank's block, backward
+  this rank's block of the gradient (the computation after it is
+  replicated, so every rank holds the same full gradient: ``torch.
+  distributed.nn``'s all-gather would sum the copies);
+- :func:`gather_dim1`: the FSDP gather of expert weights along dim 1,
+  backward a reduce-scatter (sum) of the gradient;
+- :func:`all_mean`: forward the group mean, backward the identity, so the
+  data-parallel mean of per-rank gradients of a function of the global
+  mean is that function's gradient.
+
+A group of one rank makes each an identity that still issues its
+collective.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["all_to_all", "split", "gather", "gather_dim1", "all_mean",
+           "all_gather_into"]
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """Every rank's ``x`` stacked along dim 0 into ``out``."""
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+
+
+def _a2a(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _gather0(x: torch.Tensor, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    all_gather_into(out, x, group)
+    return out
+
+
+def _block0(x: torch.Tensor, group) -> torch.Tensor:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    step = x.shape[0] // n
+    return x[r * step:(r + 1) * step].contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _a2a(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.group), None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _block0(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather0(g.contiguous(), ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather0(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block0(g, ctx.group), None
+
+
+class _GatherDim1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, group):
+        ctx.group = group
+        return _gather0(w.transpose(0, 1), group).transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        gt = g.transpose(0, 1).contiguous()
+        out = gt.new_empty((gt.shape[0] // n, *gt.shape[1:]))
+        dist.reduce_scatter_tensor(out, gt, group=ctx.group)
+        return out.transpose(0, 1), None
+
+
+class _AllMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block ``j`` of dim 0 goes to group rank ``j``; block ``j`` of the
+    result came from rank ``j``."""
+    return _AllToAll.apply(x, group)
+
+
+def split(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of dim 0 of ``x`` (replicated over ``group``)."""
+    return _Split.apply(x, group)
+
+
+def gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0, in group-rank order."""
+    return _Gather.apply(x, group)
+
+
+def gather_dim1(w: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``w`` concatenated along dim 1 (FSDP storage shards)."""
+    return _GatherDim1.apply(w, group)
+
+
+def all_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over ``group``; its backward passes the gradient
+    through unscaled."""
+    return _AllMean.apply(x, group)

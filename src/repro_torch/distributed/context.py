@@ -1,0 +1,435 @@
+"""Sharding context: logical-axis rules resolved against a device mesh
+(port of ``repro.distributed.context``).
+
+Models are written against *logical* axis names ("batch", "heads", "mlp",
+"expert", ...).  ``activate`` binds those names to the axes of a mesh;
+``ShardingCtx.spec`` resolves a leaf's logical names to a
+:class:`PartitionSpec` (a tuple holding JAX's entries: a mesh axis name, a
+tuple of names, or ``None`` per dim), masked where an axis does not divide
+the dim, and ``axis_size``/``batch_axes`` let blocks (the MoE all-to-all,
+the data-parallel train step) discover the topology.  With no active
+context everything degrades to a no-op, so the same model code runs
+anywhere.
+
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (ranks exist,
+collectives run) or a shape-only :class:`Mesh` (axis names and sizes, the
+counterpart of JAX's ``AbstractMesh``: enough to plan specs and restore
+spans without ranks).  ``sharding`` turns a spec into DTensor placements,
+one per mesh dim; ``Mesh.local_slices`` cuts one rank's block from the
+spec itself.  The two differ where a tuple entry names its axes out of
+mesh order (``("data", "pod")`` on a ``(pod, data, model)`` mesh): JAX
+takes the first axis named as major, a DTensor the earlier mesh dim, so
+``sharding`` raises there while the slices follow JAX.
+
+Unlike the reference's, the active context is process-wide, not
+thread-local: under ``remat`` the backward's recompute runs model code on
+autograd's device threads, which must see the mesh the forward saw.  One
+process drives one rank, so one context per process is its natural scope.
+
+Hillclimbing edits the *rules*, never the models.
+"""
+
+from __future__ import annotations
+
+import math
+import weakref
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
+
+import torch
+
+__all__ = [
+    "DEFAULT_RULES",
+    "Mesh",
+    "PartitionSpec",
+    "Placements",
+    "ShardingRules",
+    "ShardingCtx",
+    "activate",
+    "active_ctx",
+    "constrain",
+    "logical_to_spec",
+    "named_sharding",
+    "process_index",
+]
+
+#: Baseline logical->mesh rules (megatron-style TP over "model", DP over
+#: "pod"+"data").  Values are a mesh axis name, a tuple of axis names, or
+#: None (replicated).  Per-arch overrides live in the arch config.
+DEFAULT_RULES: dict[str, object] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "attn_in": None,        # attention-weight d dims (FSDP lever)
+    "attn_out_d": None,
+    "qheads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "expert": "model",
+    "expert_mlp": None,
+    "moe_seq": "model",     # seq resharding at the MoE a2a boundary
+    "layers": None,
+    "state": None,          # SSM state dim
+    "conv": None,
+    "cache_seq": None,      # KV-cache sequence dim (seq-sharded for 500k)
+    "frames": None,         # audio/vision source positions
+    "fsdp": None,           # extra storage-only shard dim; "data" = FSDP
+}
+
+
+class PartitionSpec(tuple):
+    """JAX's ``PartitionSpec`` as a tuple: one entry per leading dim, each
+    a mesh axis name, a tuple of names (the first named is major) or
+    ``None``; trailing dims are replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+class Placements(tuple):
+    """A leaf's DTensor placements, one per mesh dim, with the mesh and
+    the spec they came from (``mesh.local_slices(spec, shape)`` is this
+    rank's block)."""
+
+    def __new__(cls, placements, mesh: "Mesh", spec: PartitionSpec):
+        obj = super().__new__(cls, placements)
+        obj.mesh = mesh
+        obj.spec = spec
+        return obj
+
+
+#: DeviceMesh -> {axes: process group}: groups over several axes are built
+#: once per mesh (``new_group`` is collective and not free)
+_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+class Mesh:
+    """A mesh's axis names and sizes (``shape``: name -> size, as JAX's
+    ``Mesh.shape``), and its ``DeviceMesh`` when ranks exist.
+    ``Mesh(sizes, names)`` alone is shape-only: it plans, it runs no
+    collective."""
+
+    def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str],
+                 device_mesh: Any = None):
+        self.axis_sizes = tuple(int(s) for s in axis_sizes)
+        self.axis_names = tuple(axis_names)
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"mesh sizes {self.axis_sizes} vs names "
+                             f"{self.axis_names}")
+        self.device_mesh = device_mesh
+
+    @classmethod
+    def of(cls, mesh: Any) -> "Mesh":
+        """``mesh`` itself, or a ``DeviceMesh`` with named dims wrapped."""
+        if isinstance(mesh, Mesh):
+            return mesh
+        names = getattr(mesh, "mesh_dim_names", None)
+        if names is None:
+            raise ValueError("a DeviceMesh needs mesh_dim_names to take "
+                             "logical-axis rules")
+        return cls(tuple(mesh.shape), names, device_mesh=mesh)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    def _ranks(self):
+        if self.device_mesh is None:
+            raise RuntimeError("a shape-only mesh has no ranks: pass a "
+                               "DeviceMesh (launch.mesh.make_local_mesh)")
+        return self.device_mesh
+
+    def coordinate(self) -> dict[str, int]:
+        """This rank's index along each axis."""
+        coord = self._ranks().get_coordinate()
+        if coord is None:
+            raise RuntimeError("this rank is not in the mesh")
+        return dict(zip(self.axis_names, coord))
+
+    def group(self, axes: Sequence[str]):
+        """The process group spanning ``axes`` (in mesh order; group rank
+        = position along them, the earlier mesh axis major), ``None`` for
+        no axes.  Collective for several axes: every rank of the mesh asks
+        for the same axes at the same point."""
+        dm = self._ranks()
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if not axes:
+            return None
+        if len(axes) == 1:
+            return dm.get_group(axes[0])
+        cache = _GROUPS.setdefault(dm, {})
+        if axes not in cache:
+            import torch.distributed as dist
+
+            dims = [self.axis_names.index(a) for a in axes]
+            rest = [i for i in range(len(self.axis_names)) if i not in dims]
+            rows = dm.mesh.permute(*rest, *dims).reshape(
+                -1, math.prod(self.axis_sizes[i] for i in dims))
+            me = dist.get_rank()
+            for row in rows.tolist():
+                g = dist.new_group(row)
+                if me in row:
+                    cache[axes] = g
+        return cache[axes]
+
+    def local_slices(self, spec: Sequence, shape: Sequence[int],
+                     coord: Optional[dict] = None) -> tuple:
+        """The block of a ``shape`` leaf laid out by ``spec`` that the rank
+        at ``coord`` (default: this rank) holds, one ``slice`` per dim.  A
+        tuple entry's first axis is major, as in JAX's
+        ``devices_indices_map``; every sharded dim must divide evenly."""
+        coord = self.coordinate() if coord is None else coord
+        out = []
+        for dim, n in enumerate(shape):
+            entry = spec[dim] if dim < len(spec) else None
+            if entry is None:
+                out.append(slice(0, n))
+                continue
+            idx, parts = 0, 1
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                idx = idx * self.shape[a] + coord[a]
+                parts *= self.shape[a]
+            if n % parts:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                                 f"split into {parts} even blocks")
+            step = n // parts
+            out.append(slice(idx * step, (idx + 1) * step))
+        return tuple(out)
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    rules: dict = field(default_factory=lambda: dict(DEFAULT_RULES))
+
+    def override(self, **kw) -> "ShardingRules":
+        d = dict(self.rules)
+        d.update(kw)
+        return ShardingRules(d)
+
+    def resolve_entries(self, logical: Sequence[Optional[str]],
+                        axes_present: frozenset) -> list:
+        """Raw per-dim entries (mesh axis name / tuple / None), dropping
+        mesh axes the active mesh does not have (no "pod" on one pod)."""
+        out = []
+        for name in logical:
+            if name is None:
+                out.append(None)
+                continue
+            target = self.rules.get(name)
+            if target is None:
+                out.append(None)
+            elif isinstance(target, tuple):
+                present = tuple(a for a in target if a in axes_present)
+                out.append(present if present else None)
+            else:
+                out.append(target if target in axes_present else None)
+        return out
+
+    def resolve(self, logical: Sequence[Optional[str]],
+                axes_present: frozenset) -> PartitionSpec:
+        out = _dedupe(self.resolve_entries(logical, axes_present))
+        while out and out[-1] is None:
+            out.pop()
+        return PartitionSpec(*out)
+
+
+@dataclass
+class ShardingCtx:
+    mesh: Mesh
+    rules: ShardingRules
+
+    def __post_init__(self):
+        self.mesh = Mesh.of(self.mesh)
+
+    @property
+    def axes(self) -> frozenset:
+        return frozenset(self.mesh.axis_names)
+
+    def spec(self, logical: Sequence[Optional[str]],
+             shape: Optional[Sequence[int]] = None) -> PartitionSpec:
+        entries = self.rules.resolve_entries(logical, self.axes)
+        if shape is not None:
+            # Divisibility masking for storage shardings: an axis that
+            # doesn't divide the dim drops to replicated (GQA kv=8 heads
+            # cannot shard over model=16 -> wk/wv replicate).
+            entries = entries + [None] * (len(shape) - len(entries))
+            masked = []
+            for dim, entry in zip(shape, entries):
+                if entry is None:
+                    masked.append(None)
+                    continue
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                factor = 1
+                for a in axes:
+                    factor *= self.mesh.shape[a]
+                masked.append(entry if dim % factor == 0 else None)
+            entries = masked
+        out = _dedupe(entries)
+        while out and out[-1] is None:
+            out.pop()
+        return PartitionSpec(*out)
+
+    def sharding(self, logical: Sequence[Optional[str]],
+                 shape: Optional[Sequence[int]] = None) -> Placements:
+        """The spec's DTensor placements, one per mesh dim.  Raises
+        ``NotImplementedError`` for a tuple entry whose axes are out of
+        mesh order (a DTensor cannot take the first-named axis as major)."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        spec = self.spec(logical, shape)
+        out = [Replicate()] * len(self.mesh.axis_names)
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            idx = [self.mesh.axis_names.index(a)
+                   for a in (entry if isinstance(entry, tuple) else (entry,))]
+            if idx != sorted(idx):
+                raise NotImplementedError(
+                    f"spec entry {entry!r} names mesh axes out of the mesh's "
+                    f"order {self.mesh.axis_names}: JAX takes the first "
+                    f"named as major, a DTensor the earlier mesh dim")
+            for i in idx:
+                out[i] = Shard(dim)
+        return Placements(out, self.mesh, spec)
+
+    def axis_size(self, name: str) -> int:
+        if name not in self.mesh.axis_names:
+            return 1
+        return self.mesh.shape[name]
+
+    def batch_axes(self) -> tuple[str, ...]:
+        """Physical axes the batch is sharded over (for psum in loss)."""
+        target = self.rules.rules.get("batch")
+        if target is None:
+            return ()
+        if isinstance(target, str):
+            target = (target,)
+        return tuple(a for a in target if a in self.mesh.axis_names)
+
+    def fsdp_axes(self) -> tuple[str, ...]:
+        """The mesh axes ``expert_mlp`` resolves to: an expert leaf's dim 1
+        is stored split over them (FSDP) and the MoE block all-gathers it.
+        Raises ``NotImplementedError`` where the rules name them out of
+        mesh order (the gather takes the earlier mesh axis as major)."""
+        target = self.rules.rules.get("expert_mlp")
+        if isinstance(target, str):
+            target = (target,)
+        axes = tuple(a for a in (target or ()) if a in self.mesh.axis_names)
+        if list(axes) != [a for a in self.mesh.axis_names if a in axes]:
+            raise NotImplementedError(
+                f"expert_mlp axes {axes} out of the mesh's order "
+                f"{self.mesh.axis_names}: the gather would take the earlier "
+                f"mesh axis as major")
+        return axes
+
+    def expert_split(self, logical: Sequence[Optional[str]]) -> list:
+        """Per dim of a leaf with these logical names, the mesh axes (of
+        size > 1) each rank holds it split over in the expert-parallel
+        layout: an expert leaf's ``expert`` dim over ``model`` and the dim
+        after it over :meth:`fsdp_axes`; every other dim, and every leaf
+        without an ``expert`` dim, whole."""
+        out = [()] * len(logical)
+        if "expert" in logical:
+            i = logical.index("expert")
+            out[i] = tuple(a for a in ("model",) if self.axis_size(a) > 1)
+            out[i + 1] = tuple(a for a in self.fsdp_axes()
+                               if self.axis_size(a) > 1)
+        return out
+
+    def batch_shard(self) -> tuple[int, int]:
+        """(this rank's index along the batch axes, their total size): the
+        block of a global batch this rank feeds the data-parallel step."""
+        coord = self.mesh.coordinate()
+        idx, n = 0, 1
+        for a in self.batch_axes():
+            idx = idx * self.mesh.shape[a] + coord[a]
+            n *= self.mesh.shape[a]
+        return idx, n
+
+
+def _dedupe(entries: list) -> list:
+    """Drop mesh axes already claimed by an earlier dim (masking can free an
+    axis — e.g. batch=1 decode frees 'data' for the cache_seq dim)."""
+    seen: set = set()
+    out = []
+    for entry in entries:
+        if entry is None:
+            out.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        keep = tuple(a for a in axes if a not in seen)
+        seen.update(keep)
+        if not keep:
+            out.append(None)
+        elif len(keep) == 1:
+            out.append(keep[0])
+        else:
+            out.append(keep)
+    return out
+
+
+_active: Optional[ShardingCtx] = None
+
+
+def active_ctx() -> Optional[ShardingCtx]:
+    return _active
+
+
+@contextmanager
+def activate(mesh: Any, rules: Optional[ShardingRules] = None):
+    """Bind a mesh (a ``DeviceMesh`` or a shape-only :class:`Mesh`) and
+    rules for the duration of the block, in this process."""
+    global _active
+    prev = _active
+    _active = ShardingCtx(mesh=mesh, rules=rules or ShardingRules())
+    try:
+        yield _active
+    finally:
+        _active = prev
+
+
+def logical_to_spec(logical: Sequence[Optional[str]]) -> PartitionSpec:
+    ctx = active_ctx()
+    if ctx is None:
+        return PartitionSpec()
+    return ctx.spec(logical)
+
+
+def named_sharding(logical: Sequence[Optional[str]]) -> Optional[Placements]:
+    ctx = active_ctx()
+    if ctx is None:
+        return None
+    return ctx.sharding(logical)
+
+
+def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """``x`` laid out as its logical dims resolve: a ``DTensor`` is
+    redistributed to those placements, a plain tensor (this rank's values)
+    returned as it is.  Never changes a value; a no-op without an active
+    context."""
+    ctx = active_ctx()
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, tuple(ctx.sharding(logical)))
+
+
+def process_index() -> int:
+    """This process's rank, 0 without a process group (the counterpart of
+    ``jax.process_index``)."""
+    import torch.distributed as dist
+
+    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
+            else 0)

@@ -2,10 +2,13 @@
 
 ``ModelConfig`` is the reference dataclass field for field, so a config
 written for the JAX package reads the same here.  Parameters are plain
-trees (nested dicts of tensors) declared as ``ParamSpec`` leaves; the
-sharding machinery of the reference (logical axes to a mesh) has no
-counterpart in a one-card port, so ``logical`` names are kept only as
-documentation of each dimension.
+trees (nested dicts of tensors) declared as ``ParamSpec`` leaves whose
+``logical`` names resolve against an active sharding context
+(``repro_torch.distributed``): ``sharding_tree`` gives each leaf's DTensor
+placements, ``distribute_tree`` turns full tensors into ``DTensor``s built
+from this rank's blocks, ``full_tree`` turns them back and ``local_tree``
+takes each rank's block as a plain tensor (the data-parallel train step's
+storage).
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.distributed.context import active_ctx
+
 __all__ = ["ModelConfig", "ParamSpec", "init_params", "spec_tree_num_params",
-           "tree_leaves", "tree_map"]
+           "tree_leaves", "tree_map", "sharding_tree", "distribute_tree",
+           "full_tree", "local_tree"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -129,11 +135,13 @@ def tree_leaves(tree: Any) -> list[tuple[str, Any]]:
     return out
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested-dict tree."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested-dict tree (and the leaves at
+    the same keys of each tree in ``rest``)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def _init_leaf(spec: ParamSpec, dtype: torch.dtype, device: torch.device,
@@ -167,3 +175,45 @@ def init_params(specs: Any, generator: torch.Generator,
 
 def spec_tree_num_params(specs: Any) -> int:
     return int(sum(math.prod(s.shape) for _, s in tree_leaves(specs)))
+
+
+def sharding_tree(specs: Any) -> Any:
+    """Placements tree (requires an active ctx; divisibility-masked): each
+    leaf's ``repro_torch.distributed.Placements``, one per mesh dim."""
+    ctx = active_ctx()
+    if ctx is None:
+        raise RuntimeError("sharding_tree needs an active sharding context")
+    return tree_map(lambda s: ctx.sharding(s.logical, s.shape), specs)
+
+
+def distribute_tree(tree: Any, shardings: Any) -> Any:
+    """Full tensors -> ``DTensor``s: each rank keeps its block of each leaf
+    (cut by the leaf's spec, ``Mesh.local_slices``) as the local shard.
+    No collective runs; every rank must hold the same full values."""
+    from torch.distributed.tensor import DTensor
+
+    def one(t, pl):
+        if pl is None:
+            return t
+        local = t.detach()[pl.mesh.local_slices(pl.spec, t.shape)]
+        return DTensor.from_local(local.contiguous(), pl.mesh.device_mesh,
+                                  tuple(pl), run_check=False)
+
+    return tree_map(one, tree, shardings)
+
+
+def full_tree(tree: Any) -> Any:
+    """``DTensor``s -> full tensors (``full_tensor()``: a collective);
+    plain tensors pass through."""
+    from torch.distributed.tensor import DTensor
+
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def local_tree(tree: Any) -> Any:
+    """``DTensor``s -> this rank's local shards as plain tensors."""
+    from torch.distributed.tensor import DTensor
+
+    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t,
+                    tree)

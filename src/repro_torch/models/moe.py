@@ -1,17 +1,26 @@
-"""Mixture-of-Experts block (port of ``repro.models.moe``).
+"""Mixture-of-Experts block with expert parallelism (port of
+``repro.models.moe``).
 
-The reference has two dispatch paths.  Its **one-hot path** (decode, small
-token counts, no mesh) is the Switch-style dispatch einsum: each (token,
-slot) pair takes the next free row of its expert's buffer, up to a
-capacity of ``ceil(T * k / E * capacity_factor)`` rows for the call's T
-tokens; pairs past it are dropped (they ride the residual).  Its **a2a
-path** shards tokens and experts over a device mesh and exchanges buckets
-with an all-to-all; it needs a mesh, which the port does not have yet, so
-``moe_block`` always computes the one-hot path's function.
+Two dispatch paths, chosen as the reference chooses them.  The **one-hot
+path** (decode, small token counts, no mesh) is the Switch-style dispatch
+einsum: each (token, slot) pair takes the next free row of its expert's
+buffer, up to a capacity of ``ceil(T * k / E * capacity_factor)`` rows
+for the call's T tokens; pairs past it are dropped (they ride the
+residual).  The **a2a path** (an active sharding context whose model axis
+M divides S, with B * S >= 4 M) runs on each rank of the mesh: the rank
+takes its block of the tokens, buckets its (token, slot) pairs by
+destination expert shard with a capacity, exchanges the buckets with an
+all-to-all over the model group, buckets what it received by local expert
+with a second capacity, runs its E / M experts, and sends the rows back
+(:func:`_moe_a2a_local`).  Expert weights are this rank's shards (the
+expert dim over ``model``, optionally dim 1 over ``expert_mlp``'s data
+axes, FSDP, all-gathered inside the block).  The collectives are
+``repro_torch.distributed.collectives`` functions whose backwards give
+every leaf replicated over ``model`` its full gradient on every model rank.
 
 The one-hot einsum costs O(T * E * cap * d): at a 4096-token prefill of 64
 experts that is petaflops of multiplications by zero.  The port computes
-the same function by index.  The running count of each expert over the
+both paths' functions by index.  The running count of each expert over the
 flattened (token, slot) pairs in token-major order gives each pair its
 row, so the same pairs are dropped; kept pairs are copied into an
 ``[E, cap, d]`` buffer (dropped ones into a spare row that is cut off),
@@ -19,7 +28,9 @@ the experts run as batched products, and each pair reads its row back,
 weighted by its gate value in the compute dtype and summed over the k
 slots.  Every shape is static (no ``nonzero``, no boolean-mask indexing,
 no host sync), so a decode step with MoE blocks can be captured in a CUDA
-graph.  No TPU kernel computes any of this; it is plain PyTorch.
+graph.  The a2a path keeps the reference's buckets, capacities and
+drop slots, so it keeps and drops the same pairs.  No TPU kernel computes
+any of this; it is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.context import active_ctx
 from repro_torch.models.common import ModelConfig, ParamSpec
 
 __all__ = ["moe_specs", "moe_block"]
@@ -50,9 +63,14 @@ def moe_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def _gates(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor):
+def _gates(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor,
+           batch_group=None):
     """Router in f32: (weights ``[T, k]`` f32, expert indices ``[T, k]``,
-    Switch load-balance loss ``E * sum_e f_e * P_e``)."""
+    Switch load-balance loss ``E * sum_e f_e * P_e``).  With
+    ``batch_group`` (the data-parallel ranks, each holding its own T
+    tokens) the two means are taken over every rank's tokens; their
+    backward passes each rank's gradient through unscaled, so the
+    data-parallel mean of the ranks' gradients is the global loss's."""
     logits = xt.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)
@@ -61,6 +79,8 @@ def _gates(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor):
     E = cfg.n_experts
     me = probs.mean(dim=0)                                  # [E] mean prob
     ce = F.one_hot(gate_idx[:, 0], E).float().mean(dim=0)   # [E] top-1 share
+    if batch_group is not None:
+        me, ce = C.all_mean(me, batch_group), C.all_mean(ce, batch_group)
     return gate_vals, gate_idx, E * (me * ce).sum()
 
 
@@ -75,7 +95,8 @@ def _slots(gate_idx: torch.Tensor, n_experts: int,
            cap: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Each flattened (token, slot) pair's buffer row ``e * cap + pos``
     and whether it is kept (``pos < cap``), ``pos`` being the pairs of the
-    same expert before it in token-major order."""
+    same expert before it in token-major order.  (The a2a path groups
+    by destination shard, then by local expert.)"""
     flat_e = gate_idx.reshape(-1)
     # the running count per expert along each expert's own row (a scan
     # along the last dimension: down the columns of the [T*k, E] one-hot
@@ -119,15 +140,109 @@ def _moe_indexed(cfg: ModelConfig, xt: torch.Tensor, gate_vals: torch.Tensor,
     return out.reshape(T, k, d).sum(dim=1)
 
 
+def _moe_a2a_local(cfg: ModelConfig, xt: torch.Tensor,
+                   gate_vals: torch.Tensor, gate_idx: torch.Tensor, wi, wg,
+                   wo, *, model_group, n_shards: int,
+                   fsdp_group=None) -> torch.Tensor:
+    """One rank's share of the a2a path.  xt ``[T_loc, d]`` are this rank's
+    tokens, gate_vals / gate_idx ``[T_loc, k]`` their routing; wi / wg / wo
+    ``[E / M, ...]`` this rank's experts (dim 1 FSDP-sharded over
+    ``fsdp_group`` when given) -> ``[T_loc, d]``."""
+    if fsdp_group is not None:
+        wi = C.gather_dim1(wi, fsdp_group)
+        wo = C.gather_dim1(wo, fsdp_group)
+        if wg is not None:
+            wg = C.gather_dim1(wg, fsdp_group)
+
+    T_loc, d = xt.shape
+    E, k, M = cfg.n_experts, cfg.top_k, n_shards
+    E_loc = E // M
+    cap = max(int(math.ceil(T_loc * k / M * cfg.capacity_factor)), 1)
+
+    flat_e = gate_idx.reshape(-1)                       # [T_loc*k] global ids
+    dest = torch.div(flat_e, E_loc, rounding_mode="floor")
+    local_e = flat_e - dest * E_loc                     # id on that shard
+    # bucket by destination shard: row dest * cap + pos, pos < cap kept
+    row, keep = _slots(dest, M, cap)
+    spare = M * cap                                     # the drop slot
+    slot = torch.where(keep, row, spare)
+    src = torch.arange(T_loc * k, device=xt.device) // k
+    send_x = xt.new_zeros((spare + 1, d)).index_copy(0, slot, xt[src])
+    send_e = torch.full((spare + 1,), E_loc, dtype=local_e.dtype,
+                        device=xt.device).index_copy(0, slot, local_e)
+
+    recv_x = C.all_to_all(send_x[:spare], model_group)  # [M*cap, d]
+    recv_e = C.all_to_all(send_e[:spare], model_group)  # E_loc = empty slot
+
+    # bucket what arrived by local expert (empty slots are class E_loc)
+    R = M * cap
+    cap2 = max(int(math.ceil(R / E_loc * cfg.capacity_factor)), 1)
+    row2, fits = _slots(recv_e, E_loc + 1, cap2)
+    keep2 = fits & (recv_e < E_loc)
+    spare2 = E_loc * cap2
+    buf = recv_x.new_zeros((spare2 + 1, d)).index_copy(
+        0, torch.where(keep2, row2, spare2), recv_x)
+    yb = _expert_mlp(cfg, buf[:spare2].view(E_loc, cap2, d), wi, wg, wo)
+    y_rows = yb.reshape(spare2, d)[torch.where(keep2, row2, 0)]
+    y_rows = y_rows * keep2[:, None].to(xt.dtype)
+
+    back = C.all_to_all(y_rows, model_group)            # [M*cap, d]
+    sel = back[torch.where(keep, row, 0)] * keep[:, None].to(xt.dtype)
+    weights = gate_vals.reshape(-1).to(xt.dtype)
+    return (sel * weights[:, None]).reshape(T_loc, k, d).sum(dim=1)
+
+
 def moe_block(p: dict, cfg: ModelConfig,
               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, d]`` -> (y ``[B, S, d]``, load-balance loss, f32 scalar).
 
-    The reference's one-hot path, for any token count (the expert-parallel
-    all-to-all path needs a device mesh the port does not have yet)."""
+    Without an active sharding context (or with too few tokens for the
+    model axis), the one-hot path.  Under one, the a2a path: ``x`` is this
+    rank's block of the global batch (its rows along the batch axes,
+    replicated over ``model``) and the expert leaves are this rank's
+    shards (``ShardingCtx.expert_split``); the reference's rule reads the
+    global batch, B times the batch axes' size.  Where the rule picks the
+    one-hot path under a mesh of more than one rank, this raises
+    ``NotImplementedError``: that path routes over every expert and takes
+    its capacity and load-balance means over the global batch, while a
+    rank holds its shards and its rows (the reference runs it on global
+    arrays)."""
     B, S, d = x.shape
+    ctx = active_ctx()
+    wi, wo, wg = p["wi"], p["wo"], p.get("wg")
+
+    use_a2a = False
+    if ctx is not None:
+        M = ctx.axis_size("model")
+        n_batch = math.prod(ctx.axis_size(a) for a in ctx.batch_axes())
+        use_a2a = S % max(M, 1) == 0 and B * n_batch * S >= 4 * M
+
+    if not use_a2a:
+        if ctx is not None and math.prod(ctx.mesh.axis_sizes) > 1:
+            raise NotImplementedError(
+                f"the one-hot MoE path on a {ctx.mesh.shape} mesh (B {B} x "
+                f"S {S} a rank; the a2a path needs S % model == 0 and "
+                f"B * S >= 4 * model over the global batch): it routes over "
+                f"every expert and the global batch, a rank holds its "
+                f"expert shards and its batch rows")
+        xt = x.reshape(B * S, d)
+        gate_vals, gate_idx, lb = _gates(cfg, xt, p["router"])
+        y = _moe_indexed(cfg, xt, gate_vals.to(x.dtype), gate_idx, wi, wg,
+                         wo)
+        return y.reshape(B, S, d), lb
+
+    mesh = ctx.mesh
+    fsdp_axes = ctx.fsdp_axes()
+    model_group = mesh.group(("model",))
     xt = x.reshape(B * S, d)
-    gate_vals, gate_idx, lb = _gates(cfg, xt, p["router"])
-    y = _moe_indexed(cfg, xt, gate_vals.to(x.dtype), gate_idx, p["wi"],
-                     p.get("wg"), p["wo"])
-    return y.reshape(B, S, d), lb
+    gate_vals, gate_idx, lb = _gates(cfg, xt, p["router"],
+                                     mesh.group(ctx.batch_axes()))
+    # this rank's tokens: block m of its batch rows, which is block
+    # (batch index) * M + m of the global tokens, as P((*batch, "model"))
+    xt_loc = C.split(xt, model_group)
+    gv_loc = C.split(gate_vals.to(x.dtype), model_group)
+    gi_loc = C.split(gate_idx, model_group)
+    yt = _moe_a2a_local(
+        cfg, xt_loc, gv_loc, gi_loc, wi, wg, wo, model_group=model_group,
+        n_shards=M, fsdp_group=mesh.group(fsdp_axes) if fsdp_axes else None)
+    return C.gather(yt, model_group).reshape(B, S, d), lb

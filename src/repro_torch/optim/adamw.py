@@ -7,11 +7,11 @@ bias correction from the f32 ``step``, and no weight decay on 1-D leaves
 elsewhere, so it is not used.
 
 Unlike the reference, which returns new trees, :func:`adamw_apply`
-updates the parameters and both moments IN PLACE (one leaf's f32
-temporaries at a time), so a step never holds a second copy of the
-model or of its moments.  Every quantity stays on the device: the step,
-learning rate, norm and clip scale are 0-d f32 tensors, so a step never
-waits on the host.
+updates the parameters and both moments IN PLACE (the f32 temporaries of
+one block of at most ``UPDATE_BLOCK`` elements of one leaf at a time), so
+a step never holds a second copy of the model or of its moments.  Every
+quantity stays on the device: the step, learning rate, norm and clip scale
+are 0-d f32 tensors, so a step never waits on the host.
 """
 
 from __future__ import annotations
@@ -21,11 +21,16 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.common import ParamSpec, tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_apply", "opt_state_specs",
            "lr_at_step", "global_norm"]
+
+#: elements of a leaf updated at a time (each f32 temporary of the update
+#: is at most this large: 256 MiB)
+UPDATE_BLOCK = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -40,8 +45,8 @@ class AdamWConfig:
     decay_steps: int = 10_000
     min_lr_frac: float = 0.1
     moment_dtype: str = "float32"      # bf16 halves optimizer memory (kimi)
-    # the reference shards the moments over its data axes (ZeRO-1); a
-    # storage declaration for a mesh, which one card does not have: not read
+    # the reference shards the moments over its data axes (ZeRO-1); the
+    # port keeps them beside the parameters' shards (not read yet)
     zero1: bool = True
 
 
@@ -75,23 +80,40 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.float32, device=dev)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, groups: Optional[dict] = None) -> torch.Tensor:
     """sqrt of the f32 sum of squares of every leaf, leaves in the
-    reference's (sorted key) order."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for _, g in tree_leaves(tree)))
+    reference's (sorted key) order.
+
+    ``groups`` ("/"-key -> process group) names the leaves that are this
+    rank's shards of a larger leaf: their sums of squares are all-reduced
+    over the group that holds the other shards (every shard counted once,
+    one all-reduce per group) before they join the rest."""
+    groups = groups or {}
+    sq = [(k, torch.sum(torch.square(g.float()))) for k, g in tree_leaves(tree)]
+    total = sum(s for k, s in sq if k not in groups)
+    shards: dict = {}
+    for k, s in sq:
+        if k in groups:
+            shards.setdefault(groups[k], []).append(s)
+    for group, parts in shards.items():
+        part = sum(parts)
+        dist.all_reduce(part, group=group)
+        total = total + part
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_apply(grads: Any, state: dict, params: Any, cfg: AdamWConfig,
-                decay_mask: Optional[Any] = None):
+                decay_mask: Optional[Any] = None, *,
+                norm_groups: Optional[dict] = None):
     """Returns ``(params, state, metrics)``.  ``params`` and the moments
     are updated in place (the reference returns new trees); ``state`` is a
     new dict holding the same moment tensors and the new f32 step.
-    metrics: ``grad_norm`` and ``lr``, 0-d f32 tensors."""
+    metrics: ``grad_norm`` and ``lr``, 0-d f32 tensors.  ``norm_groups``
+    as for :func:`global_norm` (sharded leaves of a data-parallel step)."""
     step = state["step"] + 1.0
     lr = lr_at_step(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, norm_groups)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                          max=1.0)
              if cfg.grad_clip > 0 else torch.ones((), device=gnorm.device))
@@ -122,6 +144,12 @@ def adamw_apply(grads: Any, state: dict, params: Any, cfg: AdamWConfig,
     flat_v = dict(tree_leaves(state["v"]))
     flat_w = dict(tree_leaves(decay_mask))
     for key, p in tree_leaves(params):
-        upd(p, flat_g[key], flat_m[key], flat_v[key], flat_w[key])
+        g, m, v, wd = flat_g[key], flat_m[key], flat_v[key], flat_w[key]
+        # elementwise, so block by block gives the same values; a stacked
+        # expert leaf of a billion elements would otherwise hold six f32
+        # copies of itself at once
+        flat = (p.view(-1), g.reshape(-1), m.view(-1), v.view(-1))
+        for i in range(0, p.numel(), UPDATE_BLOCK):
+            upd(*(t[i:i + UPDATE_BLOCK] for t in flat), wd)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, {"m": state["m"], "v": state["v"], "step": step}, metrics

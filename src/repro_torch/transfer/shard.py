@@ -45,7 +45,7 @@ from repro_torch.transfer.journal import uncovered_intervals
 
 __all__ = [
     "ShardPlan", "StealLedger", "ShardFetchResult", "manifest_boundaries",
-    "plan_shards", "plan_for_mesh", "fetch_sharded",
+    "plan_shards", "plan_for_mesh", "plan_for_ctx", "fetch_sharded",
 ]
 
 
@@ -124,17 +124,39 @@ def plan_for_mesh(total: int, mesh: Any, axis: str = "data",
                   boundaries: Optional[Sequence[int]] = None) -> ShardPlan:
     """A :class:`ShardPlan` with one shard per slice of ``mesh`` along
     ``axis`` (duck-typed: any object whose ``shape`` maps axis names to
-    sizes, so planning stays usable on I/O-only hosts).
-
-    The reference's ``plan_for_ctx`` (the plan and this process's slot
-    from the active sharding context) waits for the port's
-    ``distributed.context``."""
+    sizes, such as ``repro_torch.distributed.Mesh``, so planning stays
+    usable on I/O-only hosts)."""
     try:
         k = int(mesh.shape[axis])
     except (KeyError, TypeError) as e:
         raise ValueError(
             f"mesh has no {axis!r} axis to shard the restore over") from e
     return plan_shards(total, k, boundaries)
+
+
+def plan_for_ctx(total: int, axis: str = "data",
+                 boundaries: Optional[Sequence[int]] = None,
+                 ctx: Any = None) -> tuple[int, ShardPlan]:
+    """(this host's shard index, the plan) from a sharding context.
+
+    ``ctx`` defaults to ``repro_torch.distributed.context.active_ctx()``.
+    The host index is this process's rank modulo the number of shards (as
+    the reference computes it from ``jax.process_index()``), not its
+    coordinate along ``axis``: every process computes the same plan and
+    picks a slot from its rank."""
+    if ctx is None:
+        from repro_torch.distributed.context import active_ctx
+
+        ctx = active_ctx()
+        if ctx is None:
+            raise RuntimeError("no active sharding context: pass ctx= or "
+                               "activate() a mesh first")
+    mesh = ctx.mesh
+    plan = plan_for_mesh(total, mesh, axis, boundaries)
+    from repro_torch.distributed.context import process_index
+
+    host = process_index() % max(plan.n_hosts, 1)
+    return host, plan
 
 
 # --------------------------------------------------------------------------

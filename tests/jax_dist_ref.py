@@ -1,0 +1,205 @@
+"""The JAX reference's side of the port's distributed tests.
+
+Run as its own process, with ``N`` forced host devices (JAX fixes the
+device count when it starts, and the test process must keep seeing one):
+
+    python tests/jax_dist_ref.py PROGRAM N IN.npz OUT.npz ARGS_JSON
+
+Each program reads its inputs from ``IN.npz`` (written with numpy by the
+test), runs the reference on a mesh of the forced devices and writes what
+the test compares to ``OUT.npz``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *path, last = key.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def _flat(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def moe(data: dict, cases: list) -> dict:
+    """``moe_block`` under ``activate`` per (D, M, fsdp, cf): y, lb and the
+    gradients of mean_t(y_t . cot_t) + lb."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs import reduced_config
+    from repro.distributed.context import ShardingRules, activate
+    from repro.launch.mesh import make_local_mesh
+    from repro.models.moe import moe_block
+
+    out = {}
+    p = {k: jnp.asarray(data[k]) for k in ("router", "wi", "wg", "wo")}
+    x, cot = jnp.asarray(data["x"]), jnp.asarray(data["cot"])
+    for D, M, fsdp, cf in cases:
+        cfg = reduced_config("olmoe-1b-7b").replace(
+            dtype="float32", capacity_factor=cf)
+        rules = ShardingRules()
+        if fsdp:
+            rules = rules.override(expert_mlp="data")
+        with activate(make_local_mesh(D, M), rules):
+            def f(p, x):
+                y, lb = moe_block(p, cfg, x)
+                return jnp.mean(jnp.sum(y * cot, -1)) + lb, (y, lb)
+
+            (_, (y, lb)), (gp, gx) = jax.jit(jax.value_and_grad(
+                f, argnums=(0, 1), has_aux=True))(p, x)
+        name = f"{D}x{M}_fsdp{int(fsdp)}_cf{cf}"
+        out[f"{name}/y"], out[f"{name}/lb"] = np.asarray(y), np.asarray(lb)
+        out[f"{name}/gx"] = np.asarray(gx)
+        for k, g in gp.items():
+            out[f"{name}/grads/{k}"] = np.asarray(g)
+    return out
+
+
+def dp_train(data: dict, cases: list) -> dict:
+    """``make_train_step`` jitted under ``activate`` per (name, arch, D, M,
+    remat, cf, steps, rules): the loss of each step and the final
+    parameters.  Rules keep the dense leaves whole; "whole_fsdp" adds
+    ``expert_mlp="data"``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs import reduced_config
+    from repro.distributed.context import ShardingRules, activate
+    from repro.launch.mesh import make_local_mesh
+    from repro.optim.adamw import AdamWConfig
+    from repro.train.step import init_train_state, make_train_step
+
+    whole = ShardingRules().override(qheads=None, kv_heads=None, mlp=None,
+                                     vocab=None)
+    out = {}
+    for name, arch, D, M, remat, cf, steps, rules in cases:
+        rules = (whole.override(expert_mlp="data") if rules == "whole_fsdp"
+                 else whole)
+        cfg = reduced_config(arch).replace(dtype="float32", remat=remat,
+                                           capacity_factor=cf)
+        params = _nest({k[len(arch) + 1:]: jnp.asarray(v)
+                        for k, v in data.items() if k.startswith(arch + "/")})
+        opt = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=1,
+                          decay_steps=steps)
+        state = init_train_state(params, opt)
+        with activate(make_local_mesh(D, M), rules):
+            step = jax.jit(make_train_step(cfg, opt))
+            for i in range(steps):
+                state, m = step(state, {"tokens": jnp.asarray(
+                    data[f"tokens/{arch}"][i])})
+                out[f"{name}/loss{i}"] = np.asarray(m["loss"])
+                out[f"{name}/grad_norm{i}"] = np.asarray(m["grad_norm"])
+        for k, v in _flat(state["params"]).items():
+            out[f"{name}/params/{k}"] = np.asarray(v)
+    return out
+
+
+def compression(data: dict, steps: int) -> dict:
+    """On a (4,) data mesh: each device's (q, scale),
+    ``compressed_reduce_scatter`` and ``compressed_mean`` of its row of
+    ``g``; then ``steps`` error-feedback steps, (a) through
+    ``make_compressed_allreduce`` on grads every device holds alike and
+    (b) through ``compressed_mean`` inside ``shard_map`` on each device's
+    own grads, composed as that function composes it."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+
+    from repro.compat import shard_map
+    from repro.optim.compression import (compressed_mean,
+                                         compressed_reduce_scatter,
+                                         dequantize_int8,
+                                         make_compressed_allreduce,
+                                         quantize_int8)
+
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("data",))
+    g = jnp.asarray(data["g"])
+    out = {}
+    for i in range(4):
+        q, s = quantize_int8(g[i])
+        out[f"q{i}"], out[f"scale{i}"] = np.asarray(q), np.asarray(s)
+    rs = shard_map(lambda g: compressed_reduce_scatter(g[0], "data"),
+                   mesh=mesh, in_specs=P("data"), out_specs=P("data"))
+    cm = shard_map(lambda g: compressed_mean(g[0], ("data",)), mesh=mesh,
+                   in_specs=P("data"), out_specs=P())
+    out["rs"] = np.asarray(rs(g))
+    out["mean"] = np.asarray(cm(g))
+
+    reduce = jax.jit(make_compressed_allreduce(mesh, ("data",)))
+    err = jnp.zeros(data["same"].shape[1:], jnp.float32)
+    for t in range(steps):
+        m, err = reduce(jnp.asarray(data["same"][t]), err)
+        out[f"same/mean{t}"], out[f"same/err{t}"] = (np.asarray(m),
+                                                     np.asarray(err))
+    err = jnp.zeros(data["own"].shape[1:], jnp.float32)
+    for t in range(steps):
+        gin = jnp.asarray(data["own"][t]) + err
+        m = cm(gin)
+        q, s = quantize_int8(m)
+        err = gin - dequantize_int8(q, s)[None]
+        out[f"own/mean{t}"], out[f"own/err{t}"] = (np.asarray(m),
+                                                   np.asarray(err))
+    return out
+
+
+def slices(data: dict, cases: list) -> dict:
+    """``NamedSharding(mesh, spec).devices_indices_map(shape)`` per (mesh
+    shape, axis names, spec, shape): each device's (start, stop) per dim,
+    in the order of the mesh's devices."""
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    out = {}
+    for i, (sizes, names, spec, shape) in enumerate(cases):
+        n = int(np.prod(sizes))
+        mesh = Mesh(np.array(jax.devices()[:n]).reshape(sizes), tuple(names))
+        entries = [tuple(e) if isinstance(e, list) else e for e in spec]
+        idx = NamedSharding(mesh, P(*entries)).devices_indices_map(
+            tuple(shape))
+        rows = []
+        for dev in mesh.devices.reshape(-1):
+            rows.append([(sl.start or 0, shape[d] if sl.stop is None
+                          else sl.stop) for d, sl in enumerate(idx[dev])])
+        out[f"case{i}"] = np.asarray(rows, np.int64).reshape(n, len(shape),
+                                                               2)
+    return out
+
+
+PROGRAMS = {"moe": moe, "dp_train": dp_train, "compression": compression,
+            "slices": slices}
+
+
+def main(program: str, n: int, inp: str, outp: str, args: str) -> None:
+    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n}"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import numpy as np
+
+    data = dict(np.load(inp)) if os.path.exists(inp) else {}
+    res = PROGRAMS[program](data, **json.loads(args))
+    np.savez(outp, **res)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4],
+         sys.argv[5])

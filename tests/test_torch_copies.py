@@ -6,11 +6,14 @@ tree, docstrings stripped, must equal the reference's; the reference is
 read as source text, never imported.  The copied simulator must also give
 the reference's results for each policy.
 
-One exception, named in ``LEFT_OUT``: the port's ``transfer/shard.py``
-leaves out the reference's ``plan_for_ctx`` (it reads the JAX package's
-sharding context and ``jax.process_index()``, and waits for the port's
-``distributed.context``).  The function and its ``__all__`` entry are
-removed from both trees before they are compared.
+One translation, named in ``TRANSLATED``: the port's ``plan_for_ctx``
+(``transfer/shard.py``) takes the process index from its own
+``distributed.context.process_index``, where the reference imports JAX
+and calls ``jax.process_index()``.  Those two spellings are mapped onto
+the reference's in the port's source before it is parsed; the rest of the
+file, that function included, is compared as it stands.  (Until the port
+had a sharding context it left ``plan_for_ctx`` out; ``LEFT_OUT`` names
+no function now.)
 """
 
 import ast
@@ -35,8 +38,16 @@ COPIES = [
     "data/pipeline.py", "data/__init__.py",
 ]
 
-#: module -> top-level names the port leaves out of its copy
-LEFT_OUT = {"transfer/shard.py": {"plan_for_ctx"}}
+#: module -> top-level names the port leaves out of its copy (none now)
+LEFT_OUT: dict = {}
+
+#: module -> (port spelling, reference spelling) pairs substituted in the
+#: port's source text before it is parsed
+TRANSLATED = {"transfer/shard.py": [
+    ("from repro_torch.distributed.context import process_index\n",
+     "import jax\n"),
+    ("host = process_index() %", "host = jax.process_index() %"),
+]}
 
 
 class _Normalize(ast.NodeTransformer):
@@ -86,10 +97,18 @@ class _Normalize(ast.NodeTransformer):
         return node
 
 
+def _source(pkg: str, rel: str) -> str:
+    with open(os.path.join(_SRC, pkg, rel)) as f:
+        text = f.read()
+    if pkg == "repro_torch":
+        for port, ref in TRANSLATED.get(rel, ()):
+            assert text.count(port) == 1, (rel, port)
+            text = text.replace(port, ref)
+    return text
+
+
 def _tree(pkg: str, rel: str) -> str:
-    path = os.path.join(_SRC, pkg, rel)
-    with open(path) as f:
-        tree = ast.parse(f.read(), path)
+    tree = ast.parse(_source(pkg, rel), os.path.join(_SRC, pkg, rel))
     return ast.dump(_Normalize(LEFT_OUT.get(rel, ())).visit(tree))
 
 
@@ -109,18 +128,21 @@ def test_normalizer_sees_a_changed_body():
 
 
 def test_left_out_is_only_what_the_port_omits():
-    """The shard exception is narrow: the reference really has
-    ``plan_for_ctx`` (dropping it changes its tree), the port has no such
-    name, and a left-out name drops nothing else."""
+    """The port now omits nothing of ``transfer/shard.py``: ``plan_for_ctx``
+    is in both packages and their ``__all__``; the translation is narrow
+    (each pair matches once, and without it the trees differ, so the
+    function's body is really compared); a left-out name would still drop
+    only itself."""
     import repro_torch.transfer.shard as port_shard
 
     rel = "transfer/shard.py"
-    path = os.path.join(_SRC, "repro", rel)
-    src = open(path).read()
-    whole = ast.dump(_Normalize().visit(ast.parse(src)))
-    assert whole != _tree("repro", rel)
-    assert not hasattr(port_shard, "plan_for_ctx")
-    assert "plan_for_ctx" not in port_shard.__all__
+    assert LEFT_OUT == {}
+    assert callable(port_shard.plan_for_ctx)
+    assert "plan_for_ctx" in port_shard.__all__
+    with open(os.path.join(_SRC, "repro_torch", rel)) as f:
+        raw = ast.dump(_Normalize().visit(ast.parse(f.read())))
+    assert raw != _tree("repro", rel)
+    assert _tree("repro_torch", rel) == _tree("repro", rel)
     code = 'def f():\n    pass\ndef g():\n    pass\n__all__ = ["f", "g"]\n'
     kept = _Normalize({"f"}).visit(ast.parse(code))
     assert [n.name for n in kept.body[:-1]] == ["g"]

@@ -9,6 +9,7 @@ machine with an H100 and ``nvcc``:
 """
 
 import math
+from contextlib import nullcontext
 
 import pytest
 import torch
@@ -758,3 +759,140 @@ def test_train_step_on_the_card_reaches_every_norm_and_projection(card,
     state, m = make_train_step(cfg, opt)(state, batch)
     assert torch.isfinite(m["loss"]) and m["grad_norm"] > 0
     assert int(state["step"]) == 1
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A 1-rank NCCL process group in the test's process and a (1, 1)
+    (data, model) mesh over it; destroyed after the test."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_local_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_restore_on_the_card_is_bit_exact(card, nccl_mesh, tmp_path):
+    """A reduced olmoe checkpoint restored with ``shardings=`` under the
+    1-rank mesh: every leaf a DTensor on the card whose local shard is the
+    saved leaf, bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.distributed import activate
+    from repro_torch.models.common import (init_params, sharding_tree,
+                                           tree_leaves)
+    from repro_torch.models.transformer import model_specs
+
+    cfg = _card_config("olmoe-1b-7b", "bfloat16")
+    specs = model_specs(cfg)
+    tree = init_params(specs, torch.Generator(card).manual_seed(0),
+                       cfg.torch_dtype, card)
+    save_checkpoint(str(tmp_path / "ckpt"), 1, tree)
+    with activate(nccl_mesh):
+        out, _ = restore_checkpoint(str(tmp_path / "ckpt"), specs,
+                                    device=card,
+                                    shardings=sharding_tree(specs))
+    got = dict(tree_leaves(out))
+    for k, t in tree_leaves(tree):
+        assert isinstance(got[k], DTensor), k
+        local = got[k].to_local()
+        assert local.is_cuda and torch.equal(local, t), k
+
+
+def test_dp_step_on_one_rank_is_bit_equal_to_the_plain_step(card, nccl_mesh):
+    """Two AdamW steps of a reduced qwen3 under the 1-rank mesh equal the
+    unmeshed steps bit for bit (an average over one rank is the identity),
+    deterministic algorithms on."""
+    from repro_torch.distributed import activate
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = _card_config("qwen3-1.7b", "bfloat16").replace(remat="full")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    batches = [{"tokens": torch.randint(
+        0, cfg.vocab_size, (2, 128), device=card,
+        generator=torch.Generator(card).manual_seed(i))} for i in (1, 2)]
+
+    def run(mesh):
+        state = init_train_state(init_params(
+            model_specs(cfg), torch.Generator(card).manual_seed(0),
+            cfg.torch_dtype, card), opt)
+        step = make_train_step(cfg, opt)
+        losses = []
+        with activate(mesh) if mesh is not None else nullcontext():
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(m["loss"].item())
+        return losses, dict(tree_leaves(state["params"]))
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        lm, pm = run(nccl_mesh)
+        lp, pp = run(None)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert lm == lp
+    for k in pp:
+        assert torch.equal(pm[k], pp[k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a2a_at_one_rank_matches_the_one_hot_path(card, nccl_mesh, dtype):
+    """Reduced olmoe's ``lm_loss`` and gradients through the a2a path at
+    M = 1 (under the mesh) and through the one-hot path, at capacity
+    factor 64 where neither drops a pair: f32 within 1e-5 of each leaf's
+    largest entry, bf16 at cosine > 0.999 per leaf and the loss within
+    1e-2; the kernels launch on both paths."""
+    from repro_torch.distributed import activate
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.transformer import lm_loss, model_specs
+    from repro_torch.weights import unflatten
+
+    cfg = _card_config("olmoe-1b-7b", dtype).replace(capacity_factor=64.0,
+                                                     remat="full")
+    params = init_params(model_specs(cfg), torch.Generator(card).manual_seed(3),
+                         cfg.torch_dtype, card)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (2, 64), device=card,
+        generator=torch.Generator(card).manual_seed(4))}
+
+    def grads(mesh):
+        keys, leaves = zip(*tree_leaves(params))
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        with activate(mesh) if mesh is not None else nullcontext():
+            loss = lm_loss(unflatten(dict(zip(keys, leaves))), cfg, batch)
+            g = torch.autograd.grad(loss, leaves)
+        return loss.item(), dict(zip(keys, g))
+
+    c0 = _counts()
+    la, ga = grads(nccl_mesh)
+    c1 = _counts()
+    lo, go = grads(None)
+    assert c1["flash_attention"] > c0["flash_attention"]
+    assert _counts()["rmsnorm"] - c1["rmsnorm"] == \
+        c1["rmsnorm"] - c0["rmsnorm"] > 0
+    if dtype == "float32":
+        assert la == pytest.approx(lo, rel=1e-6)
+        for k in go:
+            peak = go[k].abs().max().item()
+            torch.testing.assert_close(ga[k], go[k], atol=1e-5 * peak + 1e-7,
+                                       rtol=1e-5, msg=k)
+    else:
+        assert abs(la - lo) <= 1e-2
+        for k in go:
+            a, o = ga[k].float().flatten(), go[k].float().flatten()
+            if o.abs().max() > 0:
+                cos = torch.nn.functional.cosine_similarity(a, o, dim=0)
+                assert cos > 0.999, k

@@ -380,19 +380,14 @@ def test_restore_checkpoint_with_a_tuner_is_bit_exact_and_adopts(tmp_path):
 @pytest.mark.parametrize("kw", ["wave_bytes", "manager", "resume", "mirror",
                                 "shard_plan", "shardings"])
 def test_restore_options_of_later_slices_are_refused(tmp_path, kw):
-    """The reference's tail options are keywords of the port now (the call
-    gets as far as the missing checkpoint); only ``shardings``, which
-    waits for the port's sharding context, is still refused."""
+    """The reference's tail options are keywords of the port now, and so
+    is ``shardings`` since the port has a sharding context: none is
+    refused (the call gets as far as the missing checkpoint)."""
     from repro_torch.checkpoint import restore_checkpoint
 
-    if kw == "shardings":
-        with pytest.raises(TypeError, match=kw):
-            restore_checkpoint(str(tmp_path), {}, step=1, device="cpu",
-                               **{kw: 1})
-    else:
-        with pytest.raises(FileNotFoundError, match="manifest.json"):
-            restore_checkpoint(str(tmp_path), {}, step=1, device="cpu",
-                               **{kw: 1})
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
+        restore_checkpoint(str(tmp_path), {}, step=1, device="cpu",
+                           **{kw: 1})
 
 
 def test_client_accepts_a_tuner():

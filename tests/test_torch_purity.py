@@ -49,7 +49,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.core.autotune", "repro_torch.core.online",
                  "repro_torch.transfer.sink", "repro_torch.transfer.mirror",
                  "repro_torch.transfer.shard", "repro_torch.transfer.manager",
-                 "repro_torch.data", "repro_torch.data.pipeline"):
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.distributed", "repro_torch.distributed.context",
+                 "repro_torch.distributed.collectives",
+                 "repro_torch.launch.mesh", "repro_torch.optim.compression"):
         assert name in mods
     code = (
         "import sys\n"

@@ -1,0 +1,397 @@
+"""Spawned gloo ranks for the port's distributed tests, and the programs
+they run.
+
+``run_ranks(program, world, tmp_path, **args)`` starts ``world`` Python
+processes of this file, each of which joins one gloo process group through
+a ``file://`` rendezvous in ``tmp_path`` (no port is fixed, so the suite's
+xdist workers cannot collide), runs ``PROGRAMS[program](**args)`` and
+writes its result with ``torch.save``.  The group, every collective and
+the join carry a deadline, so a hang fails the test instead of eating the
+suite's clock.  Inputs travel as ``.npz`` files written by the test; the
+programs import torch and the port only (the JAX reference runs in its
+own process, ``tests/jax_dist_ref.py``).
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+import subprocess
+import sys
+import time
+import uuid
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import tree_leaves
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "..", "src")
+#: seconds a spawn of ranks may take, start-up included (also each
+#: collective's timeout in the ranks' process group)
+DEADLINE = 60.0
+#: seconds the JAX reference's process may take: it compiles every case
+#: (a hang still fails; the reference's own subprocess tests allow 600 s)
+REFERENCE_DEADLINE = 180.0
+
+
+def start(args: list, tmp_path, tag: str, env: dict | None = None):
+    """A child process with its output in a file under ``tmp_path``."""
+    log = open(os.path.join(str(tmp_path), f"{tag}.log"), "w+")
+    e = dict(os.environ, PYTHONPATH=os.pathsep.join([_SRC, _HERE]),
+             OMP_NUM_THREADS="1", **(env or {}))
+    e.pop("XLA_FLAGS", None)
+    return subprocess.Popen([sys.executable, *args], stdout=log,
+                            stderr=subprocess.STDOUT, env=e), log
+
+
+def finish(procs: list, deadline: float) -> None:
+    """Wait for every ``(process, log)`` until ``deadline`` (monotonic);
+    kill them all and fail with their logs if one is late or fails."""
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        for p, _ in procs:
+            p.kill()
+            p.wait(timeout=10)
+    bad = [(p, log) for p, log in procs if p.returncode != 0]
+    tails = []
+    for p, log in procs:
+        log.seek(0)
+        if (p, log) in bad:
+            tails.append(f"--- exit {p.returncode}\n{log.read()[-3000:]}")
+        log.close()
+    assert not bad, "\n".join(tails)
+
+
+def spawn_ranks(program: str, world: int, tmp_path, **args) -> tuple:
+    """Start ``world`` ranks of ``program``; returns what :func:`collect`
+    takes (so a test can run the JAX reference meanwhile)."""
+    tag = f"{program}_{world}_{uuid.uuid4().hex[:8]}"
+    out = os.path.join(str(tmp_path), tag)
+    os.makedirs(out)
+    with open(os.path.join(out, "args.json"), "w") as f:
+        json.dump(args, f)
+    init = os.path.join(out, "rendezvous")
+    procs = [start([__file__, program, str(r), str(world), init, out],
+                   tmp_path, f"{tag}_r{r}") for r in range(world)]
+    return procs, out, world
+
+
+def collect(spawned: tuple, deadline: float = DEADLINE) -> list:
+    """Every rank's result, in rank order."""
+    procs, out, world = spawned
+    finish(procs, time.monotonic() + deadline)
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def run_ranks(program: str, world: int, tmp_path, **args) -> list:
+    return collect(spawn_ranks(program, world, tmp_path, **args))
+
+
+def spawn_reference(program: str, n_devices: int, tmp_path, inputs: str,
+                    **args) -> tuple:
+    """Start ``tests/jax_dist_ref.py PROGRAM`` on ``n_devices`` forced host
+    devices; :func:`collect_reference` returns its ``.npz`` as a dict."""
+    outp = os.path.join(str(tmp_path), f"ref_{program}_{uuid.uuid4().hex[:8]}"
+                        f".npz")
+    proc = start([os.path.join(_HERE, "jax_dist_ref.py"), program,
+                  str(n_devices), inputs, outp, json.dumps(args)],
+                 tmp_path, os.path.basename(outp)[:-4])
+    return [proc], outp
+
+
+def collect_reference(spawned: tuple,
+                      deadline: float = REFERENCE_DEADLINE) -> dict:
+    procs, outp = spawned
+    finish(procs, time.monotonic() + deadline)
+    return dict(np.load(outp))
+
+
+# ------------------------------------------------------------------ programs
+
+def _mesh(shape):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cpu", torch.arange(int(np.prod(shape))).view(*shape),
+                      mesh_dim_names=("data", "model"))
+
+
+def _rules(fsdp: bool = False, dense_whole: bool = False):
+    from repro_torch.distributed import ShardingRules
+
+    rules = ShardingRules()
+    if fsdp:
+        rules = rules.override(expert_mlp="data")
+    if dense_whole:
+        rules = rules.override(qheads=None, kv_heads=None, mlp=None,
+                               vocab=None)
+    return rules
+
+
+def _local(ctx, specs: dict, full: dict) -> dict:
+    """This rank's blocks of the full numpy leaves ``full`` (flat keys), as
+    tensors of their own (a step updates them in place)."""
+    out = {}
+    for key, s in tree_leaves(specs):
+        spec = ctx.spec(s.logical, s.shape)
+        out[key] = torch.tensor(full[key][ctx.mesh.local_slices(
+            spec, s.shape)])
+    return out
+
+
+def moe(inputs: str, cases: list) -> dict:
+    """``moe_block`` on each (D, M, fsdp, cf) case whose mesh has this
+    world's size: the objective mean_t(y_t . cot_t) + lb on this rank's
+    batch rows, its gradients reduced to the global objective's (each
+    rank's blocks).  On four ranks also ``below_rule``: per (D, M, fsdp)
+    in ``BELOW_RULE``, what ``moe_block`` on the expert shards raises at S
+    3, where M does not divide S and the one-hot path is chosen."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import activate
+    from repro_torch.models.moe import moe_block, moe_specs
+
+    data = dict(np.load(inputs))
+    out = {}
+    for D, M, fsdp, cf in cases:
+        if D * M != dist.get_world_size():
+            continue
+        cfg = reduced_config("olmoe-1b-7b").replace(
+            dtype="float32", capacity_factor=cf)
+        with activate(_mesh((D, M)), _rules(fsdp)) as ctx:
+            specs = moe_specs(cfg)
+            p = {k: v.requires_grad_(True)
+                 for k, v in _local(ctx, specs, data).items()}
+            bi, nb = ctx.batch_shard()
+            rows = slice(bi * data["x"].shape[0] // nb,
+                         (bi + 1) * data["x"].shape[0] // nb)
+            x = torch.from_numpy(data["x"][rows]).requires_grad_(True)
+            cot = torch.from_numpy(data["cot"][rows])
+            y, lb = moe_block(p, cfg, x)
+            obj = (y * cot).sum(-1).mean() + lb
+            keys = sorted(p)
+            grads = torch.autograd.grad(obj, [x] + [p[k] for k in keys])
+            gx, gp = grads[0] / nb, dict(zip(keys, grads[1:]))
+            data_group = ctx.mesh.group(("data",))
+            for k in keys:
+                fsdp_leaf = fsdp and k != "router" and D > 1
+                if not fsdp_leaf:
+                    dist.all_reduce(gp[k], group=data_group)
+                gp[k] /= nb
+        out[f"{D}x{M}_fsdp{int(fsdp)}_cf{cf}"] = {
+            "y": y.detach(), "lb": lb.detach(), "gx": gx, "grads": gp,
+            "rows": (rows.start, rows.stop), "slices": {
+                k: [(sl.start, sl.stop) for sl in ctx.mesh.local_slices(
+                    ctx.spec(s.logical, s.shape), s.shape)]
+                for k, s in specs.items()}}
+    if dist.get_world_size() == 4:
+        cfg = reduced_config("olmoe-1b-7b").replace(dtype="float32")
+        out["below_rule"] = {}
+        for D, M, fsdp in BELOW_RULE:
+            with activate(_mesh((D, M)), _rules(fsdp)) as ctx:
+                p = _local(ctx, moe_specs(cfg), data)
+                try:
+                    moe_block(p, cfg, torch.from_numpy(data["x"][:, :3]))
+                    raised = None
+                except NotImplementedError as e:
+                    raised = str(e)
+            out["below_rule"][f"{D}x{M}_fsdp{int(fsdp)}"] = raised
+    return out
+
+
+#: meshes whose expert shards meet the one-hot path at S 3 (M does not
+#: divide S): experts over model, and over model and data (FSDP)
+BELOW_RULE = [(1, 4, False), (2, 2, True)]
+
+
+def dp_train(inputs: str, cases: list) -> dict:
+    """The port's train step under a (D, M) mesh per case (name, arch, D,
+    M, remat, cf, steps, rules) whose mesh has this world's size (rules:
+    "whole" keeps the dense leaves whole, "whole_fsdp" adds
+    ``expert_mlp="data"``, "default" are the default rules):
+    each rank feeds its batch rows and holds its parameter shards; the
+    losses, clip norms and final shards (or the ``NotImplementedError``
+    the step raised)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import activate
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.weights import unflatten
+
+    data = dict(np.load(inputs))
+    out = {}
+    for name, arch, D, M, remat, cf, steps, rules in cases:
+        if D * M != dist.get_world_size():
+            continue
+        cfg = reduced_config(arch).replace(dtype="float32", remat=remat,
+                                           capacity_factor=cf)
+        opt = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=1,
+                          decay_steps=steps)
+        full = {k[len(arch) + 1:]: v for k, v in data.items()
+                if k.startswith(arch + "/")}
+        res = {"losses": [], "grad_norms": []}
+        with activate(_mesh((D, M)), _rules(
+                fsdp=rules == "whole_fsdp",
+                dense_whole=rules != "default")) as ctx:
+            specs = model_specs(cfg)
+            local = _local(ctx, specs, full)
+            res["slices"] = {
+                k: [(sl.start, sl.stop) for sl in ctx.mesh.local_slices(
+                    ctx.spec(s.logical, s.shape), s.shape)]
+                for k, s in tree_leaves(specs)}
+            state = init_train_state(unflatten(local), opt)
+            step = make_train_step(cfg, opt)
+            bi, nb = ctx.batch_shard()
+            for i in range(steps):
+                toks = data[f"tokens/{arch}"][i]
+                n = toks.shape[0] // nb
+                try:
+                    state, m = step(state, {"tokens": torch.from_numpy(
+                        toks[bi * n:(bi + 1) * n])})
+                except NotImplementedError as e:
+                    res["raised"] = str(e)
+                    break
+                res["losses"].append(m["loss"].item())
+                res["grad_norms"].append(m["grad_norm"].item())
+        res["params"] = {k: v.detach().clone()
+                         for k, v in tree_leaves(state["params"])}
+        out[name] = res
+    return out
+
+
+def compression(inputs: str, steps: int) -> dict:
+    """On a 4-rank data mesh: this rank's (q, scale) of its row of ``g``,
+    ``compressed_reduce_scatter`` and ``compressed_mean`` of it, then
+    ``steps`` error-feedback steps of ``make_compressed_allreduce`` on
+    grads every rank holds alike (``same``) and on each rank's own
+    (``own``); the dtype of every ``all_to_all_single`` input, recorded
+    through a wrapper."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import Mesh
+    from repro_torch.optim import compression as Q
+
+    data = dict(np.load(inputs))
+    r = dist.get_rank()
+    dm = DeviceMesh("cpu", torch.arange(4), mesh_dim_names=("data",))
+    group = Mesh.of(dm).group(("data",))
+    wire = []
+    real = dist.all_to_all_single
+
+    def recording(out, inp, *a, **kw):
+        wire.append(str(inp.dtype))
+        return real(out, inp, *a, **kw)
+
+    dist.all_to_all_single = recording
+    try:
+        g = torch.from_numpy(data["g"][r])
+        q, scale = Q.quantize_int8(g)
+        res = {"q": q, "scale": scale,
+               "rs": Q.compressed_reduce_scatter(g, group),
+               "mean": Q.compressed_mean(g, group)}
+        reduce = Q.make_compressed_allreduce(dm, ("data",))
+        for kind, rows in (("same", lambda t: data["same"][t]),
+                           ("own", lambda t: data["own"][t][r])):
+            err = torch.zeros(data[kind].shape[-1])
+            for t in range(steps):
+                m, err = reduce(torch.from_numpy(rows(t)), err)
+                res[f"{kind}/mean{t}"], res[f"{kind}/err{t}"] = m, err
+    finally:
+        dist.all_to_all_single = real
+    res["wire"] = wire
+    return res
+
+
+def restore(root: str, step: int, ports: list, arch: str, shape: list,
+            fsdp: bool) -> dict:
+    """A checkpoint of ``arch``'s reduced config restored over loopback
+    mirrors with ``shardings=sharding_tree(...)`` on a ``shape`` mesh built
+    by ``make_local_mesh``; this rank's local shards, their placements, the
+    ``full_tensor()`` of every leaf, ``plan_for_ctx`` and the mesh's
+    coordinate; the bytes the restore copied out into this rank's leaves;
+    ``distribute_tree`` / ``constrain`` / ``local_tree`` of the restored
+    full tree; and ``make_production_mesh``'s error here."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import manager, restore_checkpoint
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import activate, constrain
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.models.common import (distribute_tree, full_tree,
+                                           local_tree, sharding_tree)
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.transfer import Replica
+    from repro_torch.transfer.shard import plan_for_ctx
+
+    specs = model_specs(reduced_config(arch))
+    dm = make_local_mesh(*shape, device="cpu")
+    out = {"rank": dist.get_rank(), "coordinate": dm.get_coordinate()}
+    made = []
+
+    class Recorded(manager._StreamingRestore):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    with activate(dm, _rules(fsdp)):
+        shardings = sharding_tree(specs)
+        manager._StreamingRestore = Recorded
+        try:
+            tree, got = restore_checkpoint(
+                root, specs, step=step, device="cpu", shardings=shardings,
+                replicas=[Replica("127.0.0.1", p, "/ckpt") for p in ports])
+        finally:
+            manager._StreamingRestore = Recorded.__base__
+        out["landed_bytes"] = sum(s.landed_bytes for s in made)
+        flat = dict(tree_leaves(tree))
+        out["step"] = got
+        out["local"] = {k: t.to_local().clone() for k, t in flat.items()}
+        out["placements"] = {k: [repr(p) for p in t.placements]
+                             for k, t in flat.items()}
+        out["full"] = dict(tree_leaves(full_tree(tree)))
+        again = distribute_tree(full_tree(tree), shardings)
+        out["redistributed"] = dict(tree_leaves(local_tree(again)))
+        emb = flat["embed"]
+        out["constrained"] = constrain(emb, "vocab", None).full_tensor()
+        out["host"], plan = plan_for_ctx(4096)
+        out["n_hosts"] = plan.n_hosts
+    try:
+        make_production_mesh(device="cpu")
+    except ValueError as e:
+        out["production_error"] = str(e)
+    return out
+
+
+PROGRAMS = {"moe": moe, "dp_train": dp_train, "compression": compression,
+            "restore": restore}
+
+
+def _main(program: str, rank: int, world: int, init: str, out: str) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    with open(os.path.join(out, "args.json")) as f:
+        args = json.load(f)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DEADLINE))
+    try:
+        res = PROGRAMS[program](**args)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+          sys.argv[5])
