@@ -202,6 +202,22 @@ Phases (one JSON line each, ``"phase"`` names them):
    the CPU's arithmetic.  ``dist_gloo_two_ranks``: two gloo ranks spawned
    on the card (CUDA tensors), each with 32 of olmoe's experts, the MoE
    block's outputs and gradients against this process's 1-rank run.
+   ``dist_tp_qwen3``: qwen3-1.7b at full width and depth under
+   ``launch.dryrun.rules_for``, tensor parallel over two gloo ranks on
+   the card (a (1, 2) mesh: 8 of 16 query heads, 4 of 8 KV heads, 3,072
+   of 6,144 MLP columns, 75,968 of 151,936 vocabulary rows and the
+   vocab-parallel loss each), TP_STEPS steps of B 2 x S 2048 at bf16 and
+   of B 2 x S 512 at f32 with 2 layers, against this process's run of
+   the same batches on the 1-rank mesh: losses, step 0's gradient of
+   every leaf on each rank's block, launches exact on both ranks; ms a
+   step and peak memory per rank (gloo through the host, not NVLink).
+   ``dist_zero1_save``: four gloo ranks on a (2, 2) mesh, qwen3-1.7b at
+   full width with ZERO1_LAYERS layers, with ZeRO-1 moments
+   (``opt_rules_for``) and without: parameters bit-equal, moments halved,
+   the ZeRO-1 state saved through ``CheckpointManager(shardings=)``
+   byte-identical to this process's whole-state save of the blocks
+   assembled, and restored bit-exact through
+   ``restore_checkpoint(shardings=)`` on the (1, 1) mesh.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -3992,37 +4008,43 @@ def _gloo_moe_grads(torch, cfg, p, x, cot):
     return y.detach(), lb.item(), dict(zip(["x"] + keys, g))
 
 
-def gloo_rank(rank: int, out: str) -> int:
-    """``--gloo-rank``: one of two gloo ranks on the card (a (1, 2) mesh),
-    the MoE block through the a2a path; writes its results to ``out``."""
-    import datetime
-
-    import torch
-    import torch.distributed as dist
-
+def moe_rank(torch, K, dev, rank: int, out: str) -> dict:
+    """``--gloo-program moe``: one of two gloo ranks on the card (a (1, 2)
+    mesh), the MoE block through the a2a path."""
     from repro_torch.distributed import activate
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.moe import moe_specs
 
-    dev = torch.device("cuda", 0)
+    cfg, p, x, cot = _gloo_moe_case(torch, dev)
+    with activate(make_local_mesh(1, 2, device=dev)) as ctx:
+        specs = moe_specs(cfg)
+        blocks = {k: ctx.mesh.local_slices(ctx.spec(s.logical, s.shape),
+                                           s.shape)
+                  for k, s in specs.items()}
+        local = {k: p[k][blocks[k]].contiguous() for k in p}
+        blocks = {k: [(sl.start, sl.stop) for sl in v]
+                  for k, v in blocks.items()}
+        y, lb, g = _gloo_moe_grads(torch, cfg, local, x, cot)
+    return {"y": y.cpu(), "lb": lb, "blocks": blocks,
+            "grads": {k: v.cpu() for k, v in g.items()},
+            "device": str(y.device)}
+
+
+def gloo_rank(torch, K, rank: int, out: str, program: str) -> int:
+    """``--gloo-rank R --gloo-dir D --gloo-program P``: rank R of the gloo
+    program P (``GLOO_PROGRAMS``: its world size and function) on the
+    card; writes its result to ``D/rankR.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    world, fn = GLOO_PROGRAMS[program]
     dist.init_process_group(
         "gloo", init_method=f"file://{out}/rendezvous", rank=rank,
-        world_size=2, timeout=datetime.timedelta(seconds=300))
+        world_size=world, timeout=datetime.timedelta(seconds=600))
     try:
-        cfg, p, x, cot = _gloo_moe_case(torch, dev)
-        with activate(make_local_mesh(1, 2, device=dev)) as ctx:
-            specs = moe_specs(cfg)
-            blocks = {k: ctx.mesh.local_slices(ctx.spec(s.logical, s.shape),
-                                               s.shape)
-                      for k, s in specs.items()}
-            local = {k: p[k][blocks[k]].contiguous() for k in p}
-            blocks = {k: [(sl.start, sl.stop) for sl in v]
-                      for k, v in blocks.items()}
-            y, lb, g = _gloo_moe_grads(torch, cfg, local, x, cot)
-        torch.save({"y": y.cpu(), "lb": lb, "blocks": blocks,
-                    "grads": {k: v.cpu() for k, v in g.items()},
-                    "device": str(y.device)},
-                   os.path.join(out, f"rank{rank}.pt"))
+        res = fn(torch, K, torch.device("cuda", 0), rank, out)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
     return 0
@@ -4035,11 +4057,8 @@ def dist_gloo_phase(torch, dev, mesh) -> None:
     path uses); at capacity factor 64 their outputs and gradients match
     this process's 1-rank NCCL run of the same block within GLOO_TOL of
     each tensor's largest entry.  No kernel runs in the MoE block."""
-    import repro_torch
     from repro_torch.distributed import activate
 
-    src = os.path.dirname(os.path.dirname(os.path.abspath(
-        repro_torch.__file__)))
     out = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     try:
         # this process's run first, its results moved off the card, so the
@@ -4051,22 +4070,10 @@ def dist_gloo_phase(torch, dev, mesh) -> None:
         del p, x, cot
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--gloo-rank", str(r), "--gloo-dir", out,
-                                   "--src", src])
-                 for r in range(2)]
-        try:
-            rcs = [pr.wait(timeout=600) for pr in procs]
-        finally:
-            for pr in procs:
-                if pr.poll() is None:
-                    pr.kill()
-                    pr.wait()
+        ranks = _spawn_ranks(torch, "moe", 2, out)
         seconds = time.perf_counter() - t0
-        check(rcs == [0, 0], f"dist_gloo_two_ranks: ranks exited {rcs}")
         worst = {}
-        for r in range(2):
-            res = torch.load(os.path.join(out, f"rank{r}.pt"))
+        for r, res in enumerate(ranks):
             check(res["device"].startswith("cuda"),
                   f"dist_gloo_two_ranks: rank {r} ran on {res['device']}")
             pairs = [("y", res["y"], y1)] + [
@@ -4092,6 +4099,450 @@ def dist_gloo_phase(torch, dev, mesh) -> None:
 
 
 
+# ----------------------------------------------------- tensor parallelism
+
+#: dist_tp_qwen3: qwen3-1.7b at full width and depth on two gloo ranks of a
+#: (1, 2) mesh under rules_for(qwen3) (DEFAULT_RULES for this arch), B 2 x S
+#: 2048 at bf16 with the config's remat="full", TP_STEPS steps; held
+#: against this process's 1-rank NCCL run of the same batches: each loss
+#: within TP_LOSS_RTOL relative, step 0's gradient of every leaf at
+#: cosine > TP_COS on each rank's block; then at f32 with TP_F32_LAYERS
+#: layers and B 2 x S 512: losses, clip norms and step 0's gradients within
+#: TP_F32_TOL relative of each tensor's largest entry
+TP_SHAPE = (2, 2048)
+TP_STEPS = 3
+TP_LOSS_RTOL = 2e-3
+TP_COS = 0.999
+TP_F32_LAYERS = 2
+TP_F32_SHAPE = (2, 512)
+TP_F32_TOL = 1e-4
+#: dist_zero1_save: four gloo ranks of a (2, 2) mesh under rules_for +
+#: opt_rules_for, qwen3-1.7b at full width with its 28 layers cut to
+#: ZERO1_LAYERS (four ranks share the card and the time budget), global
+#: batch B 4 x S 2048, TP_STEPS steps with ZeRO-1 moments and without
+ZERO1_LAYERS = 8
+ZERO1_SHAPE = (4, 2048)
+
+
+def _tp_batches(torch, cfg, dev, shape, seed: int) -> list:
+    """TP_STEPS batches of the global shape, drawn on ``dev`` from
+    ``seed`` (every process draws the same)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, shape, device=dev,
+                          generator=gen) for _ in range(TP_STEPS)]
+
+
+def _sharded_train(torch, K, cfg, dev, mesh, opt, seed: int, batches: list):
+    """Parameters drawn whole on ``dev`` from ``seed`` (as every process
+    draws them), this rank's blocks cut under ``rules_for(cfg)``'s storage
+    rules, ``init_sharded_train_state`` and one train step per batch (this
+    rank's rows of it).  Returns the state, the leaves' slices, and a
+    record: losses, clip norms, ms per step, peak device bytes, the
+    kernels' launches and step 0's reduced gradients (on the host)."""
+    import repro_torch.train.step as train_step
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.weights import unflatten
+
+    _, storage = rules_for(cfg, False)
+    full = init_params(model_specs(cfg), torch.Generator(
+        device=dev).manual_seed(seed), cfg.torch_dtype, dev)
+    with activate(mesh, storage) as ctx:
+        specs = dict(tree_leaves(model_specs(cfg)))
+        slices = {k: ctx.mesh.local_slices(ctx.spec(s.logical, s.shape),
+                                           s.shape)
+                  for k, s in specs.items()}
+        local = unflatten({k: t[slices[k]].clone()
+                           for k, t in tree_leaves(full)})
+        del full
+        torch.cuda.empty_cache()
+        state = train_step.init_sharded_train_state(local, cfg, opt)
+        step = train_step.make_train_step(cfg, opt)
+        bi, nb = ctx.batch_shard()
+        real, seen = train_step.adamw_apply, []
+
+        def recording(grads, *a, **kw):
+            if not seen:
+                seen.append({k: g.detach().cpu()
+                             for k, g in tree_leaves(grads)})
+            return real(grads, *a, **kw)
+
+        rec = {"losses": [], "grad_norms": [], "ms": []}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(K)
+        train_step.adamw_apply = recording
+        try:
+            for b in batches:
+                n = b.shape[0] // nb
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, {"tokens": b[bi * n:(bi + 1) * n]})
+                rec["losses"].append(m["loss"].item())
+                rec["grad_norms"].append(m["grad_norm"].item())
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            train_step.adamw_apply = real
+        rec["launches"] = counts(K)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["moment_bytes"] = sum(
+            t.numel() * t.element_size()
+            for k in ("m", "v") for _, t in tree_leaves(state["opt"][k]))
+        rec["grads0"] = seen[0]
+        rec["device"] = str(tree_leaves(state["params"])[0][1].device)
+    return state, slices, rec
+
+
+def _per_step_launches(cfg) -> dict:
+    """Each kernel's launches a train step of a dense config with
+    remat="full": forward and recompute of every layer's attention and
+    its four norms (ln1, ln2, q_norm, k_norm), plus the final norm."""
+    return {"flash_attention": 2 * cfg.n_layers,
+            "rmsnorm": 2 * 4 * cfg.n_layers + 1}
+
+
+def _tp_configs():
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-1.7b")
+    return cfg, cfg.replace(n_layers=TP_F32_LAYERS, dtype="float32")
+
+
+def _tp_opt(steps: int, zero1: bool = True):
+    from repro_torch.optim.adamw import AdamWConfig
+
+    return AdamWConfig(lr=3e-4, warmup_steps=1, decay_steps=steps,
+                       zero1=zero1)
+
+
+def tp_rank(torch, K, dev, rank: int, out: str) -> dict:
+    """``--gloo-program tp``: one of two ranks of dist_tp_qwen3 (a (1, 2)
+    mesh); holds its runs against the 1-rank run's saved results."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg, cfg32 = _tp_configs()
+    mesh = make_local_mesh(1, 2, device=dev)
+    ref = torch.load(os.path.join(out, "ref.pt"), mmap=True)
+    res = {}
+    for tag, c, shape, seed in (("bf16", cfg, TP_SHAPE, 101),
+                                ("f32", cfg32, TP_F32_SHAPE, 103)):
+        state, slices, rec = _sharded_train(
+            torch, K, c, dev, mesh, _tp_opt(TP_STEPS), seed,
+            _tp_batches(torch, c, dev, shape, seed + 1))
+        del state
+        torch.cuda.empty_cache()
+        held = {}
+        for k, g in rec.pop("grads0").items():
+            want = ref[tag]["grads0"][k][slices[k]].float()
+            g = g.float()
+            if tag == "bf16":
+                held[k] = float(torch.nn.functional.cosine_similarity(
+                    g.reshape(-1), want.reshape(-1), dim=0))
+            else:
+                held[k] = float((g - want).abs().max()
+                                / want.abs().max().clamp_min(1e-30))
+        rec["held"] = held
+        res[tag] = rec
+    return res
+
+
+def zero1_rank(torch, K, dev, rank: int, out: str) -> dict:
+    """``--gloo-program zero1``: one of four ranks of dist_zero1_save (a
+    (2, 2) mesh): the run with ZeRO-1 moments, saved through an async
+    ``CheckpointManager`` with ``shardings=``, then without; this rank's
+    blocks go to ``out`` for the main process to assemble."""
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.train.step import train_state_shardings
+
+    cfg = _tp_configs()[0].replace(n_layers=ZERO1_LAYERS)
+    specs = dict(tree_leaves(model_specs(cfg)))
+    mesh = make_local_mesh(2, 2, device=dev)
+    batches = _tp_batches(torch, cfg, dev, ZERO1_SHAPE, 107)
+    res = {}
+    for zero1 in (True, False):
+        tag = "zero1" if zero1 else "plain"
+        state, slices, rec = _sharded_train(
+            torch, K, cfg, dev, mesh, _tp_opt(TP_STEPS, zero1), 105,
+            batches)
+        rec.pop("grads0")
+        blocks = {"params": {k: (slices[k], t.detach().cpu())
+                             for k, t in tree_leaves(state["params"])}}
+        if zero1:
+            with activate(mesh, rules_for(cfg, False)[1]):
+                shardings = train_state_shardings(cfg, state)
+                mgr = CheckpointManager(os.path.join(out, "ckpt"),
+                                        every_steps=TP_STEPS, keep=1)
+                t0 = time.perf_counter()
+                check(mgr.maybe_save(TP_STEPS, state, shardings=shardings),
+                      "dist_zero1_save: maybe_save did not save")
+                mgr.wait()
+                rec["save_s"] = time.perf_counter() - t0
+            rec["latest_step"] = latest_step(os.path.join(out, "ckpt"))
+            flat_sh = dict(tree_leaves(shardings["opt"]))
+            blocks["opt"] = {}
+            for k, t in tree_leaves(state["opt"]):
+                if k != "step":
+                    pl = flat_sh[k]
+                    blocks["opt"][k] = (pl.mesh.local_slices(
+                        pl.spec, specs[k.split("/", 1)[1]].shape), t.cpu())
+            blocks["steps"] = (state["opt"]["step"].cpu(),
+                               state["step"].cpu())
+        torch.save(blocks, os.path.join(out, f"{tag}_r{rank}.pt"))
+        del state, blocks
+        torch.cuda.empty_cache()
+        res[tag] = rec
+    return res
+
+
+def _spawn_ranks(torch, program: str, world: int, out: str) -> list:
+    """``world`` processes of this script, ``--gloo-program program``, one
+    gloo rank each on the card (this process has freed the card's memory
+    before); every rank's result, in rank order."""
+    import repro_torch
+
+    src = os.path.dirname(os.path.dirname(os.path.abspath(
+        repro_torch.__file__)))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--gloo-rank", str(r), "--gloo-dir", out,
+                               "--gloo-program", program, "--src", src])
+             for r in range(world)]
+    try:
+        rcs = [pr.wait(timeout=900) for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    check(rcs == [0] * world, f"{program} ranks exited {rcs}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _sum_launches(recs) -> dict:
+    out = {}
+    for rec in recs:
+        for k, n in rec["launches"].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def dist_tp_phase(torch, K, dev, mesh) -> dict:
+    """``dist_tp_qwen3``: qwen3-1.7b at full width and depth, tensor
+    parallel over two gloo ranks spawned on the card (8 of 16 query heads,
+    4 of 8 KV heads, 3,072 of 6,144 MLP columns and 75,968 of 151,936
+    vocabulary rows each; the vocab-parallel loss), against this
+    process's run of the same batches on the 1-rank NCCL (1, 1) mesh,
+    at bf16 (28 layers, B 2 x S 2048) and at f32 (2 layers, B 2 x S 512).
+    The ranks' collectives are gloo's, through the host, on one card: their
+    times are not NVLink's."""
+    cfg, cfg32 = _tp_configs()
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    one = {}
+    try:
+        ref = {}
+        for tag, c, shape, seed in (("bf16", cfg, TP_SHAPE, 101),
+                                    ("f32", cfg32, TP_F32_SHAPE, 103)):
+            state, _, rec = _sharded_train(
+                torch, K, c, dev, mesh, _tp_opt(TP_STEPS), seed,
+                _tp_batches(torch, c, dev, shape, seed + 1))
+            del state
+            torch.cuda.empty_cache()
+            ref[tag] = {"grads0": rec.pop("grads0")}
+            one[tag] = rec
+        torch.save(ref, os.path.join(out, "ref.pt"))
+        del ref
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(torch, "tp", 2, out)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    report = {}
+    for tag, c in (("bf16", cfg), ("f32", cfg32)):
+        want = {k: TP_STEPS * n for k, n in _per_step_launches(c).items()}
+        l1 = one[tag]["losses"]
+        for r, res in enumerate(ranks):
+            rec = res[tag]
+            check(rec["device"].startswith("cuda"),
+                  f"dist_tp_qwen3 {tag}: rank {r} ran on {rec['device']}")
+            for name, n in want.items():
+                check(rec["launches"][name] == n,
+                      f"dist_tp_qwen3 {tag}: rank {r} launched {name} "
+                      f"{rec['launches'][name]} times, expected {n}")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                         l1))
+            if tag == "bf16":
+                worst = min(rec["held"].items(), key=lambda kv: kv[1])
+                check(rel <= TP_LOSS_RTOL and worst[1] > TP_COS,
+                      f"dist_tp_qwen3 bf16: rank {r} losses {rec['losses']}"
+                      f" vs {l1}, least gradient cosine {worst}")
+            else:
+                worst = max(rec["held"].items(), key=lambda kv: kv[1])
+                gn = max(abs(a - b) / abs(b) for a, b in zip(
+                    rec["grad_norms"], one[tag]["grad_norms"]))
+                check(rel <= TP_F32_TOL and gn <= TP_F32_TOL
+                      and worst[1] <= TP_F32_TOL,
+                      f"dist_tp_qwen3 f32: rank {r} losses rel {rel}, clip "
+                      f"norms rel {gn}, worst gradient {worst}")
+            report.setdefault(tag, []).append({
+                "losses": rec["losses"], "ms_per_step": rec["ms"],
+                "peak_gb": rec["peak_gb"], "launches": rec["launches"],
+                "loss_rel_err": rel, "worst_leaf": worst,
+                "moment_gb": rec["moment_bytes"] / 1e9})
+        report[f"{tag}_one_rank"] = {
+            "losses": l1, "ms_per_step": one[tag]["ms"],
+            "peak_gb": one[tag]["peak_gb"],
+            "moment_gb": one[tag]["moment_bytes"] / 1e9}
+    emit("dist_tp_qwen3", arch=cfg.name, n_layers=cfg.n_layers,
+         batch=TP_SHAPE[0], seq=TP_SHAPE[1], steps=TP_STEPS, mesh=[1, 2],
+         backend="gloo (through the host, two ranks on one card, not "
+         "NVLink)", one_rank_backend="nccl (1, 1)", heads_per_rank=[
+             cfg.n_heads // 2, cfg.n_kv_heads // 2],
+         mlp_per_rank=cfg.d_ff // 2, vocab_per_rank=cfg.vocab_size // 2,
+         f32_layers=TP_F32_LAYERS, f32_shape=list(TP_F32_SHAPE),
+         loss_rtol=TP_LOSS_RTOL, cos_min=TP_COS, f32_tol=TP_F32_TOL,
+         spawn_s=seconds, **report)
+    return _sum_launches([res[t] for res in ranks for t in ("bf16", "f32")])
+
+
+def _same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(64 * MB), fb.read(64 * MB)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def dist_zero1_phase(torch, K, dev, mesh) -> dict:
+    """``dist_zero1_save``: qwen3-1.7b at full width with ZERO1_LAYERS
+    layers on four gloo ranks of a (2, 2) mesh, run with ZeRO-1 moments
+    (saved through ``CheckpointManager(shardings=)``) and without.  Here:
+    both runs' parameters assembled from the ranks' blocks are bit-equal;
+    the ZeRO-1 state assembled whole and saved by ``save_checkpoint`` has
+    the sharded save's bytes; the sharded save restores bit-exact through
+    ``restore_checkpoint(shardings=)`` on the (1, 1) mesh."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.train.step import train_state_shardings
+    from repro_torch.weights import unflatten
+
+    cfg = _tp_configs()[0].replace(n_layers=ZERO1_LAYERS)
+    specs = dict(tree_leaves(model_specs(cfg)))
+    out = tempfile.mkdtemp(prefix="chip_smoke_zero1_")
+    disk_gb = shutil.disk_usage(out).free / 1e9
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(torch, "zero1", 4, out)
+        seconds = time.perf_counter() - t0
+
+        def assemble(tag: str, part: str) -> dict:
+            full = {}
+            for r in range(4):
+                blocks = torch.load(os.path.join(out, f"{tag}_r{r}.pt"),
+                                    mmap=True, weights_only=False)[part]
+                for k, (sl, t) in blocks.items():
+                    shape = specs[k.split("/", 1)[1] if part == "opt"
+                                  else k].shape
+                    full.setdefault(k, torch.empty(shape, dtype=t.dtype))
+                    full[k][sl] = t
+            return full
+
+        z1, plain = assemble("zero1", "params"), assemble("plain", "params")
+        differ = [k for k in z1 if not torch.equal(z1[k], plain[k])]
+        del plain
+        flat = {f"params/{k}": t for k, t in z1.items()}
+        flat.update({f"opt/{k}": t for k, t in
+                     assemble("zero1", "opt").items()})
+        steps = torch.load(os.path.join(out, "zero1_r0.pt"),
+                           weights_only=False)["steps"]
+        flat["opt/step"], flat["step"] = steps
+        state = unflatten(flat)
+        for r in range(4):
+            for tag in ("zero1", "plain"):
+                os.remove(os.path.join(out, f"{tag}_r{r}.pt"))
+        t1 = time.perf_counter()
+        whole = save_checkpoint(os.path.join(out, "whole"), TP_STEPS, state)
+        whole_s = time.perf_counter() - t1
+        sharded = os.path.join(out, "ckpt", f"step_{TP_STEPS:010d}")
+        same = {f: _same_file(os.path.join(whole, f),
+                              os.path.join(sharded, f))
+                for f in ("data.bin", "manifest.json")}
+        nbytes = os.path.getsize(os.path.join(sharded, "data.bin"))
+        shutil.rmtree(whole)
+        with activate(mesh, rules_for(cfg, False)[1]):
+            shardings = train_state_shardings(cfg, state)
+            t1 = time.perf_counter()
+            tree, step = restore_checkpoint(os.path.join(out, "ckpt"), state,
+                                            device=dev, shardings=shardings)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t1
+        got = dict(tree_leaves(tree))
+        bad = [k for k, t in flat.items()
+               if not torch.equal(got[k].to_local().cpu()
+                                  if hasattr(got[k], "to_local")
+                                  else got[k].cpu(), t)]
+        del tree, got, state, flat
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    check(not differ, f"dist_zero1_save: ZeRO-1 parameters differ from the "
+          f"plain run's: {differ[:5]}")
+    check(all(same.values()), f"dist_zero1_save: the sharded save differs "
+          f"from the whole save: {same}")
+    check(step == TP_STEPS and not bad, f"dist_zero1_save: restore of step "
+          f"{step} not bit-exact: {bad[:5]}")
+    want = {k: TP_STEPS * n for k, n in _per_step_launches(cfg).items()}
+    per_rank = []
+    for r, res in enumerate(ranks):
+        z, p = res["zero1"], res["plain"]
+        check(z["latest_step"] == TP_STEPS, f"dist_zero1_save: rank {r} "
+              f"sees latest step {z['latest_step']}")
+        check(z["losses"] == p["losses"], f"dist_zero1_save: rank {r} "
+              f"losses {z['losses']} vs {p['losses']}")
+        ratio = z["moment_bytes"] / p["moment_bytes"]
+        check(0.5 <= ratio < 0.51, f"dist_zero1_save: rank {r}'s moments "
+              f"take {ratio} of the plain run's")
+        for rec in (z, p):
+            check(rec["device"].startswith("cuda"),
+                  f"dist_zero1_save: rank {r} ran on {rec['device']}")
+            for name, n in want.items():
+                check(rec["launches"][name] == n,
+                      f"dist_zero1_save: rank {r} launched {name} "
+                      f"{rec['launches'][name]} times, expected {n}")
+        per_rank.append({
+            "zero1": {"peak_gb": z["peak_gb"], "ms_per_step": z["ms"],
+                      "moment_gb": z["moment_bytes"] / 1e9,
+                      "save_s": z["save_s"]},
+            "plain": {"peak_gb": p["peak_gb"], "ms_per_step": p["ms"],
+                      "moment_gb": p["moment_bytes"] / 1e9},
+            "losses": z["losses"]})
+    emit("dist_zero1_save", arch=cfg.name, n_layers=cfg.n_layers,
+         batch=ZERO1_SHAPE[0], seq=ZERO1_SHAPE[1], steps=TP_STEPS,
+         mesh=[2, 2], backend="gloo (through the host, four ranks on one "
+         "card)", params_bit_equal=True, sharded_save_bytes=nbytes,
+         byte_identical=same, restore_bit_exact=True, restore_s=restore_s,
+         whole_save_s=whole_s, spawn_s=seconds, disk_free_gb=disk_gb,
+         ranks=per_rank)
+    return _sum_launches([res[t] for res in ranks
+                          for t in ("zero1", "plain")])
+
+
+#: --gloo-program -> (world size, the rank's function)
+GLOO_PROGRAMS = {"moe": (2, moe_rank), "tp": (2, tp_rank),
+                 "zero1": (4, zero1_rank)}
+
+
 def distributed_phase(torch, K, dev) -> dict:
     """The distributed phase's parts b-d and the two gloo ranks under one
     1-rank NCCL group and a (1, 1) mesh (part a runs inside the restore
@@ -4103,6 +4554,8 @@ def distributed_phase(torch, K, dev) -> dict:
         by_path["dist_compression"] = dist_compression_phase(torch, K, dev,
                                                              mesh)
         dist_gloo_phase(torch, dev, mesh)
+        by_path["dist_tp_qwen3"] = dist_tp_phase(torch, K, dev, mesh)
+        by_path["dist_zero1_save"] = dist_zero1_phase(torch, K, dev, mesh)
     return by_path
 
 
@@ -4140,6 +4593,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)     # the distributed phase's
     ap.add_argument("--gloo-dir", default=None,  # own rank processes
                     help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-program", default="moe",
+                    choices=("moe", "tp", "zero1"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -4160,7 +4615,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.gloo_rank is not None:
-        return gloo_rank(args.gloo_rank, args.gloo_dir)
+        return gloo_rank(torch, K, args.gloo_rank, args.gloo_dir,
+                         args.gloo_program)
     if args.rmsnorm_only:
         return rmsnorm_only(torch, K, dev, build)
     smi = nvidia_smi()

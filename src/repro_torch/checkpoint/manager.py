@@ -34,6 +34,16 @@ bytes; leaves without one land as plain tensors on ``device``.
 
 ``CheckpointManager`` saves every N steps from a host snapshot, on a
 thread, and keeps the last k steps.
+
+A **sharded state** (each rank holding its blocks, as the sharded train
+step does) saves with ``shardings=`` (``train.step.train_state_shardings``
+under the active mesh): each leaf is all-gathered, one at a time, over the
+group holding its blocks and moved to the host, so the extra memory is
+one leaf; process 0 writes the same format and bytes a whole-state save
+writes, and a barrier follows the commit, so ``latest_step`` on any rank
+sees it.  Every rank calls the save alike; the manager runs the
+collectives on the calling thread, in the same order on every rank, and
+only the writing on its thread (the barrier then comes at ``wait``).
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import bisect
 import contextlib
 import gc
 import json
+import math
 import mmap
 import os
 import shutil
@@ -51,8 +62,11 @@ from dataclasses import dataclass, replace as _dc_replace
 from typing import Any, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.context import process_index
 from repro_torch.models.common import tree_leaves
 from repro_torch.transfer.client import MDTPClient, NoTelemetryError, Replica
 from repro_torch.transfer.journal import ResumeJournal, claim_interval
@@ -93,9 +107,69 @@ def _raw_bytes(t: torch.Tensor) -> memoryview:
     return memoryview(flat.view(torch.uint8).numpy())
 
 
-def save_checkpoint(root: str, step: int, state: Any) -> str:
+def save_checkpoint(root: str, step: int, state: Any,
+                    shardings: Optional[Any] = None) -> str:
     """Blocking save of a nested dict of tensors.  Returns the committed
-    directory."""
+    directory.  With ``shardings`` (a tree of ``Placements``; ``None``
+    leaves are whole) the state holds this rank's blocks: they are
+    gathered (:func:`_gather_to_host`), process 0 writes, and every rank
+    waits at a barrier for the commit."""
+    if shardings is None:
+        return _write(root, step, state)
+    host = _gather_to_host(state, shardings)
+    d = _write(root, step, host) if process_index() == 0 else \
+        _step_dir(root, step)
+    dist.barrier()
+    return d
+
+
+def _gather_leaf(t: torch.Tensor, pl: Any) -> Optional[torch.Tensor]:
+    """The whole leaf laid out by ``pl`` as a host tensor on process 0
+    (``None`` elsewhere): ``t``, this rank's block, all-gathered over the
+    group holding the leaf's blocks."""
+    t = t.detach()
+    mesh = pl.mesh
+    entries = [() if e is None else e if isinstance(e, tuple) else (e,)
+               for e in pl.spec]
+    entries += [()] * (t.dim() - len(entries))
+    axes = [a for e in entries for a in e if mesh.shape[a] > 1]
+    if not axes:
+        return t.to("cpu", copy=True) if process_index() == 0 else None
+    shape = [n * math.prod(mesh.shape[a] for a in e)
+             for n, e in zip(t.shape, entries)]
+    got = C.all_gather_stacked(t, mesh.group(tuple(axes)))
+    if process_index() != 0:
+        return None
+    got = got.cpu()
+    full = torch.empty(shape, dtype=t.dtype)
+    for coord, blk in zip(mesh.member_coords(axes), got):
+        full[mesh.local_slices(pl.spec, shape, coord)] = blk
+    return full
+
+
+def _gather_to_host(state: Any, shardings: Any) -> Any:
+    """Every leaf of a state of local blocks (laid out as ``shardings``
+    says) whole on the host of process 0, leaf by leaf in key order (a
+    collective per split leaf, so every rank calls it alike); ``None``
+    leaves on the other processes."""
+    flat_s = dict(tree_leaves(shardings))
+
+    def walk(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in sorted(node.items())}
+        if node is None:
+            return None
+        pl = flat_s.get(prefix)
+        if pl is None:
+            return (node.detach().to("cpu", copy=True)
+                    if process_index() == 0 else None)
+        return _gather_leaf(node, pl)
+
+    return walk(state)
+
+
+def _write(root: str, step: int, state: Any) -> str:
     d = _step_dir(root, step)
     tmp = d + ".tmp"
     if os.path.exists(tmp):
@@ -386,13 +460,18 @@ def _tree_from_keys(like: Any, flat: dict[str, Optional[torch.Tensor]]
                     ) -> Any:
     """Rebuild ``like``'s nested-dict structure from "/"-joined keys (a
     leaf mapped to ``None`` stays ``None``)."""
-    def build(prefix: str, node: Any) -> Any:
-        if isinstance(node, dict):
-            return {k: build(f"{prefix}/{k}" if prefix else str(k), v)
-                    for k, v in node.items() if v is not None}
-        return flat[prefix]
+    return _build_tree("", like, flat)
 
-    return build("", like)
+
+def _build_tree(prefix: str, node: Any, flat: dict) -> Any:
+    # module-level, as ``models.common.tree_leaves``'s walk: a nested
+    # function calling itself is a cycle that would hold ``flat`` (every
+    # restored leaf) until the cycle collector runs
+    if isinstance(node, dict):
+        return {k: _build_tree(f"{prefix}/{k}" if prefix else str(k), v,
+                               flat)
+                for k, v in node.items() if v is not None}
+    return flat[prefix]
 
 
 def _finish_restore(stream: _StreamingRestore, jr, spool: Optional[str],
@@ -671,7 +750,9 @@ def _host_copy(t: Any) -> Any:
 
 @dataclass
 class CheckpointManager:
-    """Save every N steps with an async commit thread and keep-last-k GC."""
+    """Save every N steps with an async commit thread and keep-last-k GC.
+    ``maybe_save(..., shardings=)`` saves a state of local blocks (see
+    the module's docstring): every rank calls it and :meth:`wait` alike."""
 
     root: str
     every_steps: int = 100
@@ -681,24 +762,37 @@ class CheckpointManager:
     def __post_init__(self):
         os.makedirs(self.root, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False
 
-    def maybe_save(self, step: int, state: Any) -> bool:
+    def maybe_save(self, step: int, state: Any,
+                   shardings: Optional[Any] = None) -> bool:
         if step % self.every_steps != 0:
             return False
         self.wait()
-        # every leaf is copied to the host before the thread starts, so a
-        # step that mutates a card tensor in place cannot reach the bytes
-        host_state = _host_copy(state)
+        if shardings is None:
+            # every leaf is copied to the host before the thread starts, so
+            # a step that mutates a card tensor in place cannot reach the
+            # bytes
+            host_state = _host_copy(state)
+        else:
+            # the collectives here, on the calling thread, in key order
+            host_state = _gather_to_host(state, shardings)
+            self._barrier = True
+            if process_index() != 0:
+                if not self.async_save:
+                    self.wait()
+                return True
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._save_and_gc, args=(step, host_state), daemon=True)
             self._thread.start()
         else:
             self._save_and_gc(step, host_state)
+            self.wait()
         return True
 
     def _save_and_gc(self, step: int, state: Any) -> None:
-        save_checkpoint(self.root, step, state)
+        _write(self.root, step, state)
         steps = sorted(
             int(n.split("_")[1]) for n in os.listdir(self.root)
             if n.startswith("step_") and not n.endswith(".tmp")
@@ -707,5 +801,10 @@ class CheckpointManager:
             shutil.rmtree(_step_dir(self.root, s), ignore_errors=True)
 
     def wait(self) -> None:
+        """Join the commit thread; after a sharded save, then meet every
+        rank at a barrier (the commit is visible to all after it)."""
         if self._thread is not None and self._thread.is_alive():
             self._thread.join()
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()

@@ -1,5 +1,7 @@
 """Collectives with a stated backward, for model code that runs one rank's
-share of a sharded computation (the expert-parallel MoE block).
+share of a sharded computation (the expert-parallel MoE block, the
+tensor-parallel attention, MLP, embedding and logits, and the FSDP
+gathers of stored weights).
 
 JAX differentiates through ``shard_map`` collectives by their transposes.
 Here each collective is an ``autograd.Function`` whose backward is chosen
@@ -14,8 +16,17 @@ gradient on every model rank, with no model-axis all-reduce afterwards:
   this rank's block of the gradient (the computation after it is
   replicated, so every rank holds the same full gradient: ``torch.
   distributed.nn``'s all-gather would sum the copies);
-- :func:`gather_dim1`: the FSDP gather of expert weights along dim 1,
-  backward a reduce-scatter (sum) of the gradient;
+- :func:`gather_dim`: the FSDP gather of a stored weight along one dim
+  (an expert leaf's dim 1, a dense leaf's ``d`` dim), backward a
+  reduce-scatter (sum) of the gradient: every rank used the whole weight
+  on its own rows of the batch;
+- :func:`copy_to_model` and :func:`reduce_from_model`, Megatron's
+  conjugate pair around a tensor-parallel region: the first is the
+  identity forward and an all-reduce (sum) of the gradient backward, at
+  the entry of a column-parallel product (each rank's local heads or MLP
+  columns give a part of the input's gradient); the second an all-reduce
+  (sum) forward and the identity backward, at the exit of a row-parallel
+  product (each rank's local heads give a part of the output);
 - :func:`all_mean`: forward the group mean, backward the identity, so the
   data-parallel mean of per-rank gradients of a function of the global
   mean is that function's gradient.
@@ -29,13 +40,20 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_to_all", "split", "gather", "gather_dim1", "all_mean",
-           "all_gather_into"]
+__all__ = ["all_to_all", "split", "gather", "gather_dim", "all_mean",
+           "all_gather_into", "all_gather_stacked", "copy_to_model",
+           "reduce_from_model"]
 
 
 def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
     """Every rank's ``x`` stacked along dim 0 into ``out``."""
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+
+
+def all_gather_stacked(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` (at least 1-d) stacked on a new leading dim, in
+    group-rank order (no autograd)."""
+    return _gather0(x, group).view(-1, *x.shape)
 
 
 def _a2a(x: torch.Tensor, group) -> torch.Tensor:
@@ -69,6 +87,15 @@ class _AllToAll(torch.autograd.Function):
         return _a2a(g, ctx.group), None
 
 
+def _gather_at(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``."""
+    return _gather0(x.transpose(0, dim), group).transpose(0, dim)
+
+
+def _block_at(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return _block0(x.transpose(0, dim), group).transpose(0, dim)
+
+
 class _Split(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -82,28 +109,53 @@ class _Split(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _gather0(x, group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_at(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _block0(g, ctx.group), None
+        return _block_at(g, ctx.group, ctx.dim), None, None
 
 
-class _GatherDim1(torch.autograd.Function):
+class _GatherDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, group):
-        ctx.group = group
-        return _gather0(w.transpose(0, 1), group).transpose(0, 1)
+    def forward(ctx, w, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_at(w, group, dim)
 
     @staticmethod
     def backward(ctx, g):
         n = dist.get_world_size(ctx.group)
-        gt = g.transpose(0, 1).contiguous()
+        gt = g.transpose(0, ctx.dim).contiguous()
         out = gt.new_empty((gt.shape[0] // n, *gt.shape[1:]))
         dist.reduce_scatter_tensor(out, gt, group=ctx.group)
-        return out.transpose(0, 1), None
+        return out.transpose(0, ctx.dim), None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _AllMean(torch.autograd.Function):
@@ -129,14 +181,29 @@ def split(x: torch.Tensor, group) -> torch.Tensor:
     return _Split.apply(x, group)
 
 
-def gather(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0, in group-rank order."""
-    return _Gather.apply(x, group)
+def gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``, in group-rank order;
+    the computation after it is replicated over ``group``."""
+    return _Gather.apply(x, group, dim)
 
 
-def gather_dim1(w: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``w`` concatenated along dim 1 (FSDP storage shards)."""
-    return _GatherDim1.apply(w, group)
+def gather_dim(w: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``w`` concatenated along ``dim`` (FSDP storage
+    shards); the gradient is summed over ``group`` and each rank keeps its
+    block."""
+    return _GatherDim.apply(w, group, dim)
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; its gradient is summed over ``group`` (the entry of a
+    column-parallel region)."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``; the gradient passes
+    through (the exit of a row-parallel region)."""
+    return _ReduceFromModel.apply(x, group)
 
 
 def all_mean(x: torch.Tensor, group) -> torch.Tensor:

@@ -41,6 +41,8 @@ import torch
 
 __all__ = [
     "DEFAULT_RULES",
+    "FSDP_DIMS",
+    "TP_DIMS",
     "Mesh",
     "PartitionSpec",
     "Placements",
@@ -78,6 +80,19 @@ DEFAULT_RULES: dict[str, object] = {
     "frames": None,         # audio/vision source positions
     "fsdp": None,           # extra storage-only shard dim; "data" = FSDP
 }
+
+
+#: logical dims a dense leaf may split over ``model``: each rank computes
+#: with its block (heads, MLP columns, vocabulary rows)
+TP_DIMS = ("qheads", "kv_heads", "mlp", "vocab")
+#: logical ``d`` dims a dense leaf may be stored split over data axes
+#: (FSDP): gathered whole before use
+FSDP_DIMS = ("embed", "attn_in", "attn_out_d")
+
+
+def _axes(entry) -> tuple:
+    return () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
 
 
 class PartitionSpec(tuple):
@@ -181,6 +196,21 @@ class Mesh:
                     cache[axes] = g
         return cache[axes]
 
+    def member_coords(self, axes: Sequence[str]) -> list[dict]:
+        """The coordinates of the members of this rank's group over
+        ``axes`` (:meth:`group`), in group-rank order: this rank's
+        coordinate with ``axes`` run through row-major, the earlier mesh
+        axis major."""
+        me = self.coordinate()
+        axes = [a for a in self.axis_names if a in axes]
+        out = []
+        for i in range(math.prod(self.shape[a] for a in axes)):
+            c = dict(me)
+            for a in reversed(axes):
+                i, c[a] = divmod(i, self.shape[a])
+            out.append(c)
+        return out
+
     def local_slices(self, spec: Sequence, shape: Sequence[int],
                      coord: Optional[dict] = None) -> tuple:
         """The block of a ``shape`` leaf laid out by ``spec`` that the rank
@@ -246,6 +276,10 @@ class ShardingRules:
 class ShardingCtx:
     mesh: Mesh
     rules: ShardingRules
+    #: what is derived from this context once: each leaf's ``layout``
+    #: (asked for every block of every layer), the decode step's rule
+    #: check per config
+    memo: dict = field(default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self):
         self.mesh = Mesh.of(self.mesh)
@@ -344,6 +378,25 @@ class ShardingCtx:
             out[i + 1] = tuple(a for a in self.fsdp_axes()
                                if self.axis_size(a) > 1)
         return out
+
+    def layout(self, logical: Sequence[Optional[str]],
+               shape: Sequence[int]) -> list:
+        """Per dim of a leaf of this shape and these logical names, the mesh
+        axes of size > 1 that its storage spec (divisibility-masked) splits
+        it over, each in the spec's order; ``()`` for a whole dim."""
+        key = ("layout", tuple(logical), tuple(shape))
+        if key not in self.memo:
+            spec = self.spec(logical, shape)
+            out = [tuple(a for a in _axes(e) if self.axis_size(a) > 1)
+                   for e in spec]
+            self.memo[key] = out + [()] * (len(shape) - len(out))
+        return self.memo[key]
+
+    def model_group(self):
+        """The process group over ``model`` (``None`` without the axis)."""
+        if "model" not in self.mesh.axis_names:
+            return None
+        return self.mesh.group(("model",))
 
     def batch_shard(self) -> tuple[int, int]:
         """(this rank's index along the batch axes, their total size): the

@@ -7,8 +7,11 @@ trees (nested dicts of tensors) declared as ``ParamSpec`` leaves whose
 (``repro_torch.distributed``): ``sharding_tree`` gives each leaf's DTensor
 placements, ``distribute_tree`` turns full tensors into ``DTensor``s built
 from this rank's blocks, ``full_tree`` turns them back and ``local_tree``
-takes each rank's block as a plain tensor (the data-parallel train step's
-storage).
+takes each rank's block as a plain tensor (the sharded train step's
+storage).  ``fsdp_gather`` turns a block of such blocks into what the
+model computes with: each leaf's ``d`` dims that the rules store split
+over data axes (FSDP) gathered whole, its tensor-parallel dims left as
+this rank's block.
 """
 
 from __future__ import annotations
@@ -20,11 +23,12 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.distributed.context import active_ctx
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.context import FSDP_DIMS, active_ctx
 
 __all__ = ["ModelConfig", "ParamSpec", "init_params", "spec_tree_num_params",
            "tree_leaves", "tree_map", "sharding_tree", "distribute_tree",
-           "full_tree", "local_tree"]
+           "full_tree", "local_tree", "fsdp_gather"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -121,18 +125,22 @@ def tree_leaves(tree: Any) -> list[tuple[str, Any]]:
     a checkpoint's manifest lists leaves identically from either
     package.  Empty dicts and ``None`` contribute no leaves, as in JAX."""
     out: list[tuple[str, Any]] = []
-
-    def walk(prefix: str, node: Any) -> None:
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(f"{prefix}/{k}" if prefix else str(k), node[k])
-        else:
-            out.append((prefix, node))
-
-    walk("", tree)
+    _walk_leaves("", tree, out)
     return out
+
+
+def _walk_leaves(prefix: str, node: Any, out: list) -> None:
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle, which would keep ``out`` -- every leaf of the tree,
+    # a whole train state on the card -- alive until the cycle collector
+    # runs
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk_leaves(f"{prefix}/{k}" if prefix else str(k), node[k], out)
+    else:
+        out.append((prefix, node))
 
 
 def tree_map(fn, tree: Any, *rest: Any) -> Any:
@@ -217,3 +225,23 @@ def local_tree(tree: Any) -> Any:
 
     return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t,
                     tree)
+
+
+def fsdp_gather(tree: Any, specs: Any) -> Any:
+    """``tree`` (this rank's blocks of leaves declared by ``specs``, whose
+    ``layers`` dim, if any, is already sliced off) with every ``d`` dim
+    (``FSDP_DIMS``) that the active rules store split over data axes
+    all-gathered over them; the gradient of a gathered leaf is
+    reduce-scattered back to the block (``collectives.gather_dim``).
+    Without an active context, or with no such dim, the tree itself."""
+    ctx = active_ctx()
+    if ctx is None:
+        return tree
+
+    def one(t, s):
+        for dim, axes in enumerate(ctx.layout(s.logical, s.shape)):
+            if axes and s.logical[dim] in FSDP_DIMS:
+                t = C.gather_dim(t, ctx.mesh.group(axes), dim)
+        return t
+
+    return tree_map(one, tree, specs)

@@ -22,8 +22,22 @@ probabilities (its backward recomputes them block by block), so there it
 changes nothing.  ``norm_mult_dtype="compute"`` and ``norm_custom_bwd``
 are plain PyTorch, as in the reference (:func:`apply_norm`).
 
-Not ported: the ``attn_probs_dtype="compute"`` lever (it raises) and the
-reference's sharding hints.
+**Tensor parallelism.**  The reference's sharding hints (``constrain``
+on q, k, v, the heads and the MLP's hidden) let GSPMD split the heads and
+the MLP columns over ``model``.  Here the parameters a rank holds say it:
+a ``wq`` with fewer than ``cfg.n_heads`` heads, a ``wi`` with fewer than
+``cfg.d_ff`` columns, is this rank's block (``models.common.local_tree``
+under rules that split ``qheads`` / ``mlp`` over ``model``).  Such a
+region starts with ``copy_to_model`` (its input's gradient summed over
+``model``) and ends with ``reduce_from_model`` after the row-parallel
+``wo`` (the rank's partial output summed), Megatron's pair.  The head
+counts come from the local shapes.  Where the rules leave ``wk`` / ``wv``
+whole (``kv_heads`` masked to replicated: fewer KV heads than ranks), a
+rank cuts out the KV heads its query heads read (head ``h`` reads KV head
+``h // G``), so their gradients, and those of ``q_norm`` / ``k_norm``,
+are partial sums that the train step adds over ``model``.
+
+Not ported: the ``attn_probs_dtype="compute"`` lever (it raises).
 """
 
 from __future__ import annotations
@@ -35,6 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.context import active_ctx
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  flash_attention, rmsnorm, rmsnorm_plain)
 from repro_torch.models.common import ModelConfig, ParamSpec
@@ -237,6 +253,43 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
 
 
+def _heads_tp(p: dict, cfg: ModelConfig):
+    """(the model group, ``p``) when ``p`` holds this rank's block of the
+    query heads, with ``wk`` / ``wv`` / ``bk`` / ``bv`` cut to the KV heads
+    those query heads read where they are whole; ``(None, p)`` when ``p``
+    holds every head."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    h_loc, kv_loc = p["wq"].shape[1], p["wk"].shape[1]
+    if h_loc == H:
+        if kv_loc != KV:
+            raise NotImplementedError(
+                f"{cfg.name}: KV heads split over 'model' with the query "
+                f"heads whole")
+        return None, p
+    G = H // KV
+    ctx = active_ctx()
+    if kv_loc == KV:
+        # kv_heads masked to replicated: this rank's query heads
+        # [r h_loc, (r + 1) h_loc) read KV heads h // G
+        if h_loc % G and G % h_loc:
+            raise NotImplementedError(
+                f"{cfg.name}: {h_loc} query heads a rank and {G} per KV "
+                f"head: a rank's heads would read a ragged KV group")
+        kv0 = ctx.mesh.coordinate()["model"] * h_loc // G
+        n = max(h_loc // G, 1)
+        p = dict(p)
+        for k in ("wk", "wv"):
+            p[k] = p[k][:, kv0:kv0 + n]
+        for k in ("bk", "bv"):
+            if k in p:
+                p[k] = p[k][kv0:kv0 + n]
+    elif h_loc != kv_loc * G:
+        raise NotImplementedError(
+            f"{cfg.name}: {h_loc} query heads and {kv_loc} KV heads a rank "
+            f"(G {G})")
+    return ctx.model_group(), p
+
+
 def out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``[B, S, H, hd]`` heads times ``wo [H, hd, d]`` -> ``[B, S, d]``, as
     one product of the views ``[B, S, H*hd]`` and ``[H*hd, d]`` (both
@@ -282,6 +335,14 @@ def attention(
         raise NotImplementedError("attn_probs_dtype='compute' is not ported")
     B, Sq, _ = x.shape
     cross = kv_x is not None
+    group, p = _heads_tp(p, cfg)
+    if group is not None:
+        if cross:
+            raise NotImplementedError(
+                f"{cfg.name}: cross-attention with its heads split over "
+                f"'model' (tensor parallelism of whisper and llama-vision: "
+                f"ROADMAP Queue 1)")
+        x = C.copy_to_model(x, group)
     kv_x = x if kv_x is None else kv_x
     Sk = kv_x.shape[1]
     positions = torch.arange(Sq, dtype=torch.int32, device=x.device)
@@ -289,7 +350,9 @@ def attention(
 
     q, k, v = _qkv(p, cfg, x, kv_x, positions, kv_positions, use_rope,
                    rope=None if cross else rope, plain=plain)
-    KV, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    # this rank's heads (all of them without tensor parallelism)
+    H, KV, hd = q.shape[2], k.shape[2], cfg.hd
+    G = H // KV
     scale = cfg.attn_scale or 1.0 / math.sqrt(hd)
 
     if not plain and cross and Sq == 1 and not causal and window is None:
@@ -335,7 +398,8 @@ def attention(
                 else:
                     outs.append(_sdpa(qi, kb, vb, bias, scale))
             out = torch.cat(outs, dim=1)
-    return out_proj(out.reshape(B, Sq, cfg.n_heads, hd), p["wo"])
+    y = out_proj(out.reshape(B, Sq, H, hd), p["wo"])
+    return y if group is None else C.reduce_from_model(y, group)
 
 
 def attention_from_cache(
@@ -391,6 +455,13 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
 
 
 def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MLP; on this rank's block of its columns (``wi`` / ``wg``
+    column-parallel, ``wo`` row-parallel) when ``wi`` holds fewer than
+    ``cfg.d_ff``."""
+    group = None
+    if p["wi"].shape[-1] < cfg.d_ff:
+        group = active_ctx().model_group()
+        x = C.copy_to_model(x, group)
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
     if cfg.mlp_act == "swiglu":
         g = torch.einsum("bsd,df->bsf", x, p["wg"])
@@ -402,4 +473,5 @@ def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(cfg.mlp_act)
-    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+    y = torch.einsum("bsf,fd->bsd", h, p["wo"])
+    return y if group is None else C.reduce_from_model(y, group)

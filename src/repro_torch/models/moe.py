@@ -149,10 +149,10 @@ def _moe_a2a_local(cfg: ModelConfig, xt: torch.Tensor,
     ``[E / M, ...]`` this rank's experts (dim 1 FSDP-sharded over
     ``fsdp_group`` when given) -> ``[T_loc, d]``."""
     if fsdp_group is not None:
-        wi = C.gather_dim1(wi, fsdp_group)
-        wo = C.gather_dim1(wo, fsdp_group)
+        wi = C.gather_dim(wi, fsdp_group, 1)
+        wo = C.gather_dim(wo, fsdp_group, 1)
         if wg is not None:
-            wg = C.gather_dim1(wg, fsdp_group)
+            wg = C.gather_dim(wg, fsdp_group, 1)
 
     T_loc, d = xt.shape
     E, k, M = cfg.n_experts, cfg.top_k, n_shards

@@ -37,6 +37,21 @@ select the reference's norm variants (``layers.apply_norm``);
 (``layers.attention``); ``seq_shard_norms`` is a sharding hint that
 changes nothing on one card.  Serving and prefill run under
 ``inference_mode`` and never checkpoint.
+
+**Tensor parallelism** (under an active sharding context whose rules
+split the dense leaves over ``model``, ``models.common.local_tree``
+blocks): the attention heads and MLP columns as ``layers`` says; the
+embedding split over the vocabulary: each rank looks up the tokens in its
+rows (the rest read zeros) and ``reduce_from_model`` sums the ranks'
+rows; the logits are this rank's vocabulary block of the final hidden
+state (after ``copy_to_model``), which ``forward`` gathers whole and
+:func:`lm_loss` never does: its cross-entropy is vocab-parallel
+(:class:`_VocabParallelNLL`).  A tied embedding is one ``[V / M, d]``
+leaf for both uses, so autograd adds its two gradients.  Leaves the rules
+store split over data axes (FSDP) are gathered before each block
+(``models.common.fsdp_gather``), again in the recompute under ``remat``.
+The decode step under such rules raises (decode under a mesh: ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -46,13 +61,17 @@ import math
 from typing import Any, Optional, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.context import active_ctx
 from repro_torch.models import ssm
-from repro_torch.models.common import (ModelConfig, ParamSpec, init_params,
-                                       spec_tree_num_params, tree_map)
+from repro_torch.models.common import (ModelConfig, ParamSpec, fsdp_gather,
+                                       init_params, spec_tree_num_params,
+                                       tree_leaves, tree_map)
 from repro_torch.models.moe import moe_block, moe_specs
 from repro_torch.models.layers import (apply_norm, attention,
                                        attention_from_cache, attention_specs,
@@ -61,6 +80,7 @@ from repro_torch.models.layers import (apply_norm, attention,
 
 __all__ = ["program_for", "model_specs", "encode", "forward", "lm_loss",
            "prefill", "cache_specs", "init_cache", "decode_step",
+           "check_decode_rules",
            "num_params", "active_params", "Decoder"]
 
 
@@ -111,7 +131,10 @@ def _rotary(cfg: ModelConfig) -> bool:
     return cfg.family != "encdec"
 
 
+@functools.lru_cache(maxsize=None)
 def _block_specs(cfg: ModelConfig, kind: str) -> dict:
+    """One block's specs (cached: the FSDP gather reads them every layer;
+    callers copy before changing them)."""
     if kind in _ATTN_KINDS:
         return {"ln1": norm_spec(cfg), "attn": attention_specs(cfg),
                 "ln2": norm_spec(cfg), "mlp": mlp_specs(cfg)}
@@ -141,6 +164,10 @@ def _block_specs(cfg: ModelConfig, kind: str) -> dict:
     raise ValueError(kind)
 
 
+def _copy(specs: Any) -> Any:
+    return tree_map(lambda s: s, specs)
+
+
 def _stack(specs: Any, n: int) -> Any:
     """Prepend a stacked 'layers' dim to every ParamSpec in the tree."""
     return tree_map(lambda s: ParamSpec((n, *s.shape), ("layers", *s.logical),
@@ -161,13 +188,14 @@ def model_specs(cfg: ModelConfig) -> dict:
                            1.0 / math.sqrt(d)),
         "final_norm": norm_spec(cfg),
         "blocks": _stack(_group_specs(cfg, grp), n_groups),
-        "tail": {f"t{i}_{k}": _block_specs(cfg, k) for i, k in enumerate(rem)},
+        "tail": {f"t{i}_{k}": _copy(_block_specs(cfg, k))
+                 for i, k in enumerate(rem)},
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"),
                                      "normal", 1.0 / math.sqrt(d))
     if "shared_attn" in grp:
-        specs["shared_attn"] = _block_specs(cfg, "attn")
+        specs["shared_attn"] = _copy(_block_specs(cfg, "attn"))
     if cfg.family == "encdec":
         specs["encoder"] = {
             "blocks": _stack(_group_specs(cfg, ("attn_bidir",)),
@@ -230,6 +258,11 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Optional[dict],
         return attention(pa, cfg, t, rope=rope, plain=plain,
                          q_block=q_block, **kw)
 
+    if active_ctx() is not None:
+        if kind == "shared_attn":
+            shared = fsdp_gather(shared, _block_specs(cfg, "attn"))
+        else:
+            p = fsdp_gather(p, _block_specs(cfg, kind))
     if kind in _ATTN_KINDS:
         pp = shared if kind == "shared_attn" else p
         x = x + attend(pp["attn"], norm(pp["ln1"], x),
@@ -304,20 +337,65 @@ def _remat_wrap(cfg: ModelConfig, fn):
     return wrapped
 
 
+def _top(params: dict, cfg: ModelConfig) -> dict:
+    """The leaves outside the stack -- ``embed``, ``unembed``,
+    ``final_norm`` -- as the model computes with them (FSDP dims
+    gathered, ``models.common.fsdp_gather``); first, under a context,
+    the family check (:func:`_check_family_rules`)."""
+    top = {k: params[k] for k in ("embed", "unembed", "final_norm")
+           if k in params}
+    if active_ctx() is None:
+        return top
+    _check_family_rules(cfg)
+    specs = model_specs(cfg)
+    return fsdp_gather(top, {k: specs[k] for k in top})
+
+
+def _vocab_block(cfg: ModelConfig, embed: torch.Tensor):
+    """(model group, first row) of this rank's vocabulary block when
+    ``embed`` holds fewer than ``cfg.vocab_size`` rows, else ``None``."""
+    n = embed.shape[0]
+    if n == cfg.vocab_size:
+        return None
+    ctx = active_ctx()
+    return ctx.model_group(), ctx.mesh.coordinate()["model"] * n
+
+
 def _positions_embed(cfg: ModelConfig, params: dict,
                      tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens].to(cfg.torch_dtype)
+    emb = params["embed"]
+    vb = _vocab_block(cfg, emb)
+    if vb is None:
+        x = emb[tokens].to(cfg.torch_dtype)
+    else:
+        # this rank's rows; tokens outside them read zeros, and the sum
+        # over model holds each token's one row
+        group, v0 = vb
+        local = tokens.long() - v0
+        mine = (local >= 0) & (local < emb.shape[0])
+        x = emb[torch.where(mine, local, 0)] * mine[..., None].to(emb.dtype)
+        x = C.reduce_from_model(x.to(cfg.torch_dtype), group)
     if cfg.embed_scale != 1.0:
         x = x * torch.tensor(cfg.embed_scale, dtype=cfg.torch_dtype)
     return x
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-            plain: bool) -> torch.Tensor:
+            plain: bool, whole: bool = True) -> torch.Tensor:
+    """The logits of the final hidden state: all of them, or with
+    ``whole=False`` this rank's vocabulary block (the whole when the
+    vocabulary is not split)."""
     x = _norm(cfg, params["final_norm"], x, plain=plain)
+    vb = _vocab_block(cfg, params["embed"])
+    if vb is not None:
+        x = C.copy_to_model(x, vb[0])
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, params["unembed"])
+        logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, params["unembed"])
+    if vb is not None and whole:
+        logits = C.gather(logits, vb[0], dim=-1)
+    return logits
 
 
 def _layer(tree: dict, layer: int) -> dict:
@@ -364,7 +442,15 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     on-card reference the kernels are held against); ``q_block`` is its
     attention's query block (the reference's default 1024; above it the
     sequence must be a multiple of it)."""
-    x = _positions_embed(cfg, params, batch["tokens"])
+    top = _top(params, cfg)
+    x, aux = _hidden(params, cfg, batch, top, plain=plain, q_block=q_block)
+    return _logits(top, cfg, x, plain=plain), aux
+
+
+def _hidden(params: dict, cfg: ModelConfig, batch: dict, top: dict, *,
+            plain: bool, q_block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stack's output before the final norm, and the aux loss."""
+    x = _positions_embed(cfg, top, batch["tokens"])
     memory = encode(params, cfg, batch, plain=plain, q_block=q_block)
     grp, n_groups, rem = program_for(cfg)
     shared = params.get("shared_attn")
@@ -394,7 +480,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         x, aux = group(x, aux, _layer(params["blocks"], layer), shared)
     for i, kind in enumerate(rem):
         x, aux = run(kind, params["tail"][f"t{i}_{kind}"], x, aux)
-    return _logits(params, cfg, x, plain=plain), aux
+    return x, aux
 
 
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -412,10 +498,22 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict,
     elsewhere), without an f32 ``[B, S, V]`` one-hot.
     ``loss_dtype="compute"``: the label logit gathered from the
     compute-dtype logits, the log-sum-exp still in f32, as in the
-    reference.  ``plain`` and ``q_block`` as for :func:`forward`."""
-    logits, aux = forward(params, cfg, batch, plain=plain, q_block=q_block)
+    reference.  ``plain`` and ``q_block`` as for :func:`forward`.
+
+    With the vocabulary split over ``model`` the logits stay this rank's
+    block ``[B, S, V / M]`` and the cross-entropy is vocab-parallel
+    (:class:`_VocabParallelNLL`, either ``loss_dtype``): no rank holds the
+    whole ``[B, S, V]``."""
+    top = _top(params, cfg)
+    x, aux = _hidden(params, cfg, batch, top, plain=plain, q_block=q_block)
+    logits = _logits(top, cfg, x, plain=plain, whole=False)
     targets = batch["tokens"][:, 1:].long()[..., None]
     logits = logits[:, :-1]
+    vb = _vocab_block(cfg, top["embed"])
+    if vb is not None:
+        nll = _VocabParallelNLL.apply(logits, targets[..., 0], vb[1], vb[0],
+                                      cfg.loss_dtype == "compute")
+        return nll.mean() + aux_weight * aux
     if cfg.loss_dtype == "compute":
         lse = torch.logsumexp(logits.float(), dim=-1)
         label = torch.gather(logits, -1, targets)[..., 0].float()
@@ -424,6 +522,51 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict,
         lse = torch.logsumexp(logits, dim=-1)
         label = torch.gather(logits, -1, targets)[..., 0]
     return (lse - label).mean() + aux_weight * aux
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token ``lse - label logit`` (f32 ``[B, S]``) of logits split
+    over the vocabulary: ``logits`` ``[B, S, V / M]`` is this rank's block,
+    starting at row ``v0``.  The row max is all-reduced as a max (it
+    carries no gradient), the sum of exponentials as a sum, and the label
+    logit from the rank whose block holds the label (zero elsewhere) as a
+    sum, so every model rank returns the same values.  Backward: the local
+    softmax block minus the local one-hot block, times the incoming
+    gradient, in the logits' dtype; with ``compute`` (``loss_dtype=
+    "compute"``) the two terms are rounded to it apart, as the reference's
+    two cotangents are."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, v0, group, compute):
+        lf = logits.float()
+        m = lf.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        se = torch.exp(lf - m[..., None]).sum(dim=-1)
+        dist.all_reduce(se, group=group)
+        lse = m + torch.log(se)
+        local = targets - v0
+        mine = (local >= 0) & (local < logits.shape[-1])
+        local = torch.where(mine, local, 0)
+        label = torch.gather(lf, -1, local[..., None])[..., 0]
+        label = torch.where(mine, label, torch.zeros_like(label))
+        dist.all_reduce(label, group=group)
+        ctx.save_for_backward(logits, lse, local, mine)
+        ctx.compute = compute
+        return lse - label
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, mine = ctx.saved_tensors
+        soft = torch.exp(logits.float() - lse[..., None]) * g[..., None]
+        hot = torch.where(mine, g, torch.zeros_like(g))[..., None]
+        if ctx.compute:
+            grad = soft.to(logits.dtype)
+            grad.scatter_add_(-1, local[..., None],
+                              -hot.to(logits.dtype))
+        else:
+            grad = soft.scatter_add_(-1, local[..., None], -hot)
+            grad = grad.to(logits.dtype)
+        return grad, None, None, None, None
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -573,7 +716,11 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     and vlm read ``cache["memory"]``.
 
     ``plain=True`` runs the plain PyTorch versions of the kernels (the
-    on-card reference the kernels are held against)."""
+    on-card reference the kernels are held against).  Under an active
+    sharding context whose rules split a dense leaf over an axis larger
+    than one it raises ``NotImplementedError``: decode under a mesh is
+    ROADMAP Queue 1."""
+    check_decode_rules(cfg)
     x = _positions_embed(cfg, params, token)
     grp, n_groups, rem = program_for(cfg)
     shared = params.get("shared_attn")
@@ -599,6 +746,46 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         key = f"t{i}_{kind}"
         x = run(kind, params["tail"][key], cache["tail"][key], x)
     return _logits(params, cfg, x, plain=plain)[:, 0], cache
+
+
+def _split_dense(cfg: ModelConfig, ctx) -> list:
+    """The dense (non-expert) leaves of ``cfg`` that the context's rules
+    split over a mesh axis larger than one (once per context and
+    config: the decode step asks every call)."""
+    key = ("split_dense", cfg)
+    if key not in ctx.memo:
+        ctx.memo[key] = [k for k, s in tree_leaves(model_specs(cfg))
+                         if "expert" not in s.logical
+                         and any(ctx.layout(s.logical, s.shape))]
+    return ctx.memo[key]
+
+
+def check_decode_rules(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` where the active rules split a dense
+    (non-expert) leaf of ``cfg`` over a mesh axis larger than one: the
+    decode step and its captured graph run whole leaves only."""
+    ctx = active_ctx()
+    split = [] if ctx is None else _split_dense(cfg, ctx)
+    if split:
+        raise NotImplementedError(
+            f"{cfg.name}: decode under rules that split dense leaves "
+            f"({split[:3]}... over {ctx.mesh.shape}): decode under a "
+            f"mesh (cache_seq, decode_rules) is ROADMAP Queue 1 item 2")
+
+
+def _check_family_rules(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` where the active rules split a dense
+    leaf of a family whose tensor parallelism is not ported (only the
+    dense and MoE families split their heads, MLP and vocabulary)."""
+    ctx = active_ctx()
+    if ctx is None or cfg.family in ("dense", "moe"):
+        return
+    split = _split_dense(cfg, ctx)
+    if split:
+        raise NotImplementedError(
+            f"{cfg.name}: the rules split its dense leaves ({split[:3]}... "
+            f"over {ctx.mesh.shape}): tensor parallelism of the "
+            f"{cfg.family} family is ROADMAP Queue 1 item 2")
 
 
 # -------------------------------------------------------------------- module

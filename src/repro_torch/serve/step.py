@@ -18,7 +18,8 @@ import torch
 from repro_torch import kernels
 from repro_torch._device import resolve_device
 from repro_torch.models.common import ModelConfig, tree_leaves
-from repro_torch.models.transformer import decode_step, forward, init_cache
+from repro_torch.models.transformer import (check_decode_rules, decode_step,
+                                            forward, init_cache)
 
 __all__ = ["make_serve_step", "make_prefill_step", "CapturedServeStep"]
 
@@ -91,12 +92,16 @@ class CapturedServeStep:
 
     ``generator`` is the sampling generator (``temperature > 0``); it is
     registered with the graph, so each replay draws fresh numbers from it.
+    Under rules that split a dense leaf it raises ``NotImplementedError``
+    before it allocates anything (``models.transformer.check_decode_rules``).
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, batch: int,
                  s_max: int, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None, *,
                  device=None, mem_len: int = 0):
+        # before anything is allocated: rules that split a dense leaf raise
+        check_decode_rules(cfg)
         dev = resolve_device(device)
         if dev.type != "cuda":
             raise ValueError(f"CapturedServeStep: CUDA graphs need the card, "

@@ -15,21 +15,40 @@ accumulate as ``gacc + g.to(acc_dt) / n_mb``, microbatch by microbatch, in
 f32, or in bf16 for the ``moe`` family with ``microbatches > 1``
 (``accum_dtype`` overrides both); the loss is the mean over microbatches.
 
-**Data parallelism.**  Under an active sharding context
-(``repro_torch.distributed.activate`` with a ``DeviceMesh``) each rank
+**Distribution.**  Under an active sharding context
+(``repro_torch.distributed.activate`` with a ``DeviceMesh`` and the
+storage rules, e.g. ``launch.dryrun.rules_for(cfg, ...)[1]``) each rank
 runs the step on its own block of the global batch (its rows along the
-batch axes) and holds its own shards of the parameters and moments
-(``models.common.local_tree``): the expert leaves of MoE blocks split over
-``model`` (and over ``expert_mlp``'s data axes, FSDP), every other leaf
-whole.  Each rank differentiates its local mean loss; a leaf's gradient
-is then summed over the batch axes it is not stored over and divided by
-the batch axes' size, so every rank holds the gradient of the global
-mean loss for its shard (an FSDP leaf's sum over its data axes came from
-the reduce-scatter in the backward of its all-gather).  The clip norm
-counts each shard once; AdamW updates the local shards in place.  The
-reported loss is the mean over the batch axes.  Rules that split a dense
-leaf over an axis larger than one raise ``NotImplementedError``: tensor
-parallelism of the dense layers is ROADMAP Queue 1 item 2.
+batch axes) and holds its own blocks of the parameters and moments
+(``models.common.local_tree``; :func:`init_sharded_train_state`):
+
+- a dense leaf split over ``model`` on its heads, MLP or vocabulary dim
+  is tensor-parallel (``models.layers``, ``models.transformer``): the
+  rank computes with its block;
+- a dense leaf's ``d`` dims stored over data axes (FSDP: ``embed``,
+  ``attn_in``, ``attn_out_d``) are gathered before use, and the backward
+  reduce-scatters their gradient;
+- expert leaves split over ``model`` (expert parallelism) and over
+  ``expert_mlp``'s data axes (FSDP), as the MoE block says.
+
+Each rank differentiates its local mean loss.  A leaf's gradient is then
+summed over the batch axes it is not stored over, plus ``model`` where
+the leaf is whole over ``model`` but used inside a tensor-parallel region
+on this rank's heads only (``wk`` / ``wv`` / ``bk`` / ``bv`` with
+``kv_heads`` masked to replicated, ``q_norm`` / ``k_norm``), and divided
+by the batch axes' size, so every rank holds the gradient of the global
+mean loss for its block (an FSDP leaf's sum over its data axes came from
+the reduce-scatter).  The clip norm counts each element once; AdamW
+updates the local blocks in place, and with ZeRO-1 moments
+(``AdamWConfig.zero1``, moments split as ``launch.dryrun.opt_rules_for``
+says) only the moments' block of each, all-gathered after.  The reported
+loss is the mean over the batch axes.
+
+Rules the step cannot honour raise ``NotImplementedError`` before the
+first collective (:func:`check_train_rules`): tensor parallelism and
+FSDP of the hybrid, ssm, encdec and vlm families, a ``seq_sp`` rule
+(sequence-parallel norm segments) and a ``layers`` rule (pipeline
+stages) wait for later slices (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -41,13 +60,17 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.context import active_ctx
+from repro_torch.distributed.context import (FSDP_DIMS, TP_DIMS,
+                                             ShardingCtx, active_ctx)
+from repro_torch.launch.dryrun import opt_rules_for
 from repro_torch.models.common import ModelConfig, tree_leaves, tree_map
 from repro_torch.models.transformer import lm_loss, model_specs
-from repro_torch.optim.adamw import AdamWConfig, adamw_apply, adamw_init
+from repro_torch.optim.adamw import (AdamWConfig, adamw_apply, adamw_init,
+                                     zero1_layout)
 from repro_torch.weights import unflatten
 
-__all__ = ["TrainState", "init_train_state", "make_train_step"]
+__all__ = ["TrainState", "init_train_state", "init_sharded_train_state",
+           "train_state_shardings", "check_train_rules", "make_train_step"]
 
 TrainState = dict  # {"params": ..., "opt": ..., "step": int32}
 
@@ -59,6 +82,63 @@ def init_train_state(params: Any, opt_cfg: AdamWConfig) -> TrainState:
     dev = tree_leaves(params)[0][1].device
     return {"params": params, "opt": adamw_init(params, opt_cfg),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _opt_ctx(ctx) -> ShardingCtx:
+    """The moments' context: the mesh under ``opt_rules_for`` of the
+    active (storage) rules."""
+    return ShardingCtx(ctx.mesh, opt_rules_for(
+        ctx.rules, "pod" in ctx.mesh.axis_names))
+
+
+def _zero1(ctx, cfg: ModelConfig) -> dict:
+    return zero1_layout(ctx, model_specs(cfg), _opt_ctx(ctx).rules)
+
+
+def init_sharded_train_state(params: Any, cfg: ModelConfig,
+                             opt_cfg: AdamWConfig) -> TrainState:
+    """:func:`init_train_state` of this rank's parameter blocks under an
+    active sharding context: with ``opt_cfg.zero1`` each moment is this
+    rank's block under ``launch.dryrun.opt_rules_for`` of the active
+    rules (split further over the data axes on its ``d`` dims), else the
+    parameter block's shape."""
+    ctx = active_ctx()
+    if ctx is None:
+        raise RuntimeError("init_sharded_train_state needs an active "
+                           "sharding context")
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    blocks = ({k: z[0] for k, z in _zero1(ctx, cfg).items()}
+              if opt_cfg.zero1 else {})
+    dev = tree_leaves(params)[0][1].device
+    return {"params": params, "opt": adamw_init(params, opt_cfg, blocks),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def train_state_shardings(cfg: ModelConfig, state: TrainState) -> dict:
+    """Each leaf's ``Placements`` in a state of local blocks under the
+    active context (``save_checkpoint(shardings=)``,
+    ``restore_checkpoint(shardings=)``): the parameters' from the active
+    rules, each moment's from them or, where it is a ZeRO-1 block, from
+    ``opt_rules_for``; the steps are whole (``None``)."""
+    ctx = active_ctx()
+    if ctx is None:
+        raise RuntimeError("train_state_shardings needs an active sharding "
+                           "context")
+    octx = _opt_ctx(ctx)
+    specs = dict(tree_leaves(model_specs(cfg)))
+    flat_p = dict(tree_leaves(state["params"]))
+
+    def of(c, key):
+        return c.sharding(specs[key].logical, specs[key].shape)
+
+    def moments(tree):
+        return unflatten({k: of(ctx if m.shape == flat_p[k].shape else octx,
+                                k) for k, m in tree_leaves(tree)})
+
+    return {"params": unflatten({k: of(ctx, k) for k in flat_p}),
+            "opt": {"m": moments(state["opt"]["m"]),
+                    "v": moments(state["opt"]["v"]), "step": None},
+            "step": None}
 
 
 def _split_microbatches(batch: dict, n: int) -> dict:
@@ -101,27 +181,29 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                 loss = loss + l / n_mb
         return loss, unflatten(dict(zip(keys, grads)))
 
-    # the data-parallel layout of the last (ctx, params) seen: one per
-    # activate block and state, not one per step (weakly held: a step
-    # function keeps neither alive)
+    # the layout of the last (ctx, state) seen: one per activate block
+    # and state, not one per step (weakly held: a step function keeps
+    # neither alive)
     last: dict = {}
 
-    def layout_of(ctx, params):
+    def layout_of(ctx, state):
         if last.get("ctx", lambda: None)() is not ctx or \
-                last.get("params") != id(params):
-            last.update(ctx=weakref.ref(ctx), params=id(params),
-                        layout=_dp_layout(ctx, cfg, params))
+                last.get("params") != id(state["params"]):
+            last.update(ctx=weakref.ref(ctx), params=id(state["params"]),
+                        layout=_layout(ctx, cfg, opt_cfg, state))
         return last["layout"]
 
     def train_step(state: TrainState, batch: dict):
         ctx = active_ctx()
-        layout = None if ctx is None else layout_of(ctx, state["params"])
+        layout = None if ctx is None else layout_of(ctx, state)
         loss, grads = grads_of(state["params"], batch)
-        norm_groups = None
+        norm_groups = zero1 = None
         if ctx is not None:
-            loss, norm_groups = _data_parallel(ctx, layout, loss, grads)
+            reduce, zero1 = layout
+            loss, norm_groups = _reduce_grads(ctx, reduce, loss, grads)
         params, opt, om = adamw_apply(grads, state["opt"], state["params"],
-                                      opt_cfg, norm_groups=norm_groups)
+                                      opt_cfg, norm_groups=norm_groups,
+                                      zero1=zero1)
         metrics = {"loss": loss, **om}
         return {"params": params, "opt": opt,
                 "step": state["step"] + 1}, metrics
@@ -129,43 +211,127 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
-def _dp_layout(ctx, cfg: ModelConfig, params: Any) -> dict:
-    """Per leaf key: (the group its gradient is summed over, the group
-    holding its other shards or ``None``).  Raises before any work where
-    the rules split a leaf the step cannot hold, or a parameter is not this
-    rank's shard."""
+def _where(key: str) -> str:
+    return f"{key} (ROADMAP Queue 1 item 2)"
+
+
+def check_train_rules(ctx, cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` where the active rules lay out a leaf
+    of ``cfg`` as the step cannot hold it; runs no collective."""
+    rules = ctx.rules.rules
+    if rules.get("seq_sp") is not None:
+        raise NotImplementedError(_where(
+            f"{cfg.name}: a seq_sp rule ({rules['seq_sp']!r}): the "
+            f"sequence-parallel norm segments (seq_shard_norms) are not "
+            f"ported"))
+    if rules.get("layers") is not None:
+        raise NotImplementedError(_where(
+            f"{cfg.name}: layers={rules['layers']!r}: pipeline stages "
+            f"(distributed/pipeline.py, reference caveat b) are not "
+            f"ported"))
+    if ctx.axis_size("model") > 1 and "model" in ctx.batch_axes():
+        raise NotImplementedError(_where(
+            f"{cfg.name}: the batch split over 'model' and tensor "
+            f"parallelism over it at once"))
+    flat = dict(tree_leaves(model_specs(cfg)))
+    for key, s in flat.items():
+        split = ctx.layout(s.logical, s.shape)
+        if "expert" in s.logical:
+            if split != ctx.expert_split(s.logical):
+                raise NotImplementedError(_where(
+                    f"{key}: the rules split it as {split}; an expert "
+                    f"leaf splits over 'model' on its expert dim and over "
+                    f"expert_mlp's axes on the next"))
+            continue
+        for name, axes in zip(s.logical, split):
+            if not axes:
+                continue
+            if cfg.family not in ("dense", "moe"):
+                raise NotImplementedError(_where(
+                    f"{key}: the rules split its {name!r} dim over "
+                    f"{axes}: tensor parallelism and FSDP of the "
+                    f"{cfg.family} family ({cfg.name}) are not ported"))
+            if name in TP_DIMS and axes == ("model",):
+                continue
+            if name in FSDP_DIMS and "model" not in axes and list(axes) \
+                    == [a for a in ctx.mesh.axis_names if a in axes]:
+                continue
+            raise NotImplementedError(_where(
+                f"{key}: the rules split its {name!r} dim over {axes}; "
+                f"the step splits heads, MLP columns and vocabulary over "
+                f"'model' only, and stores d dims over data axes (in mesh "
+                f"order)"))
+        if key.endswith("/wq"):
+            wk = flat[key[:-2] + "wk"]
+            q = ctx.layout(s.logical, s.shape)[s.logical.index("qheads")]
+            kv = ctx.layout(wk.logical, wk.shape)[wk.logical.index(
+                "kv_heads")]
+            G = cfg.n_heads // cfg.n_kv_heads
+            h_loc = cfg.n_heads // ctx.axis_size("model")
+            if kv and not q:
+                raise NotImplementedError(_where(
+                    f"{key}: KV heads split over 'model' with the query "
+                    f"heads whole"))
+            if q and not kv and h_loc % G and G % h_loc:
+                raise NotImplementedError(_where(
+                    f"{key}: {h_loc} query heads a rank and {G} per KV "
+                    f"head: a rank's heads would read a ragged KV group"))
+
+
+def _partial_over_model(ctx, flat: dict, key: str, stored: set) -> bool:
+    """Whether the leaf at ``key``, whole over ``model``, is used on this
+    rank's heads only: a leaf of an attention whose query heads are split
+    over ``model``."""
+    wq = flat.get(key.rpartition("/")[0] + "/wq")
+    if wq is None or "model" in stored:
+        return False
+    q = ctx.layout(wq.logical, wq.shape)[wq.logical.index("qheads")]
+    return "model" in q
+
+
+def _layout(ctx, cfg: ModelConfig, opt_cfg: AdamWConfig,
+            state: TrainState) -> tuple[dict, dict]:
+    """(per leaf key: (the group its gradient is summed over, the group
+    holding its other blocks or ``None``), the ZeRO-1 layout of the
+    moments that are blocks of their parameter's block).  Raises before
+    any collective where the rules lay out a leaf the step cannot hold,
+    or a parameter or moment is not this rank's block."""
+    check_train_rules(ctx, cfg)
     mesh = ctx.mesh
-    size = mesh.shape
     batch = ctx.batch_axes()
-    flat_p = dict(tree_leaves(params))
-    layout = {}
-    for key, s in tree_leaves(model_specs(cfg)):
+    flat = dict(tree_leaves(model_specs(cfg)))
+    flat_p = dict(tree_leaves(state["params"]))
+    flat_m = dict(tree_leaves(state["opt"]["m"]))
+    zero1 = _zero1(ctx, cfg) if opt_cfg.zero1 else {}
+    reduce = {}
+    for key, s in flat.items():
         spec = ctx.spec(s.logical, s.shape)
-        split = [tuple(a for a in ((e,) if isinstance(e, str) else e or ())
-                       if size[a] > 1) for e in spec]
-        split += [()] * (len(s.shape) - len(split))
-        if split != ctx.expert_split(s.logical):
-            raise NotImplementedError(
-                f"{key}: the rules split it as {spec} over {mesh.shape}; the "
-                f"data-parallel step keeps dense leaves whole and splits "
-                f"expert leaves over 'model' and expert_mlp's axes only "
-                f"(tensor parallelism of the dense layers: ROADMAP Queue 1 "
-                f"item 2)")
         local = tuple(sl.stop - sl.start for sl in mesh.local_slices(
             spec, s.shape, {a: 0 for a in mesh.axis_names}))
         if tuple(flat_p[key].shape) != local:
             raise ValueError(
                 f"{key}: this rank holds {tuple(flat_p[key].shape)}, its "
-                f"shard is {local} (models.common.local_tree of "
+                f"block is {local} (models.common.local_tree of "
                 f"distribute_tree(params, sharding_tree(specs)))")
-        stored = {a for part in split for a in part}
-        layout[key] = (mesh.group(tuple(a for a in batch if a not in stored)),
+        m = tuple(flat_m[key].shape)
+        if m != local and (key not in zero1 or m != tuple(
+                sl.stop - sl.start for sl in zero1[key][0])):
+            raise ValueError(
+                f"{key}: its moments are {m}, neither the parameter's "
+                f"block {local} nor its ZeRO-1 block "
+                f"(init_sharded_train_state)")
+        stored = {a for part in ctx.layout(s.logical, s.shape)
+                  for a in part}
+        axes = [a for a in batch if a not in stored]
+        if _partial_over_model(ctx, flat, key, stored):
+            axes.append("model")
+        reduce[key] = (mesh.group(tuple(axes)),
                        mesh.group(tuple(stored)) if stored else None)
-    return layout
+    return reduce, zero1
 
 
-def _data_parallel(ctx, layout: dict, loss: torch.Tensor,
-                   grads: Any) -> tuple[torch.Tensor, dict]:
+def _reduce_grads(ctx, layout: dict, loss: torch.Tensor,
+                  grads: Any) -> tuple[torch.Tensor, dict]:
     """Reduce this rank's gradients in place to the global mean loss's;
     returns the mean loss over the batch axes and the clip norm's groups."""
     n_data = math.prod(ctx.axis_size(a) for a in ctx.batch_axes())

@@ -113,6 +113,53 @@ def dp_train(data: dict, cases: list) -> dict:
     return out
 
 
+def tp_train(data: dict, cases: list) -> dict:
+    """``make_train_step`` jitted under ``activate`` with the compute rules
+    of ``repro.launch.dryrun.rules_for`` per (name, arch, D, M, steps,
+    loss_dtype, remat): the loss and clip norm of each step, the final
+    parameters, and the gradients of the first batch's ``lm_loss``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    # the launch module adds forced host devices to XLA_FLAGS when it is
+    # imported: the backend starts first, with this process's count
+    jax.devices()
+    from repro.configs import reduced_config
+    from repro.distributed.context import activate
+    from repro.launch.dryrun import rules_for
+    from repro.launch.mesh import make_local_mesh
+    from repro.models.transformer import lm_loss
+    from repro.optim.adamw import AdamWConfig
+    from repro.train.step import init_train_state, make_train_step
+
+    out = {}
+    for name, arch, D, M, steps, loss_dtype, remat in cases:
+        cfg = reduced_config(arch).replace(dtype="float32", remat=remat,
+                                           loss_dtype=loss_dtype)
+        # the registry arch's rules (_FSDP_ARCHS names full configs)
+        rules, _ = rules_for(cfg.replace(name=arch), False)
+        params = _nest({k[len(arch) + 1:]: jnp.asarray(v)
+                        for k, v in data.items() if k.startswith(arch + "/")})
+        opt = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=1,
+                          decay_steps=steps)
+        toks = data[f"tokens/{arch}"]
+        with activate(make_local_mesh(D, M), rules):
+            grads = jax.jit(jax.grad(lambda p, t: lm_loss(p, cfg, {
+                "tokens": t})))(params, jnp.asarray(toks[0]))
+            state = init_train_state(params, opt)
+            step = jax.jit(make_train_step(cfg, opt))
+            for i in range(steps):
+                state, m = step(state, {"tokens": jnp.asarray(toks[i])})
+                out[f"{name}/loss{i}"] = np.asarray(m["loss"])
+                out[f"{name}/grad_norm{i}"] = np.asarray(m["grad_norm"])
+        for k, v in _flat(grads).items():
+            out[f"{name}/grads/{k}"] = np.asarray(v)
+        for k, v in _flat(state["params"]).items():
+            out[f"{name}/params/{k}"] = np.asarray(v)
+    return out
+
+
 def compression(data: dict, steps: int) -> dict:
     """On a (4,) data mesh: each device's (q, scale),
     ``compressed_reduce_scatter`` and ``compressed_mean`` of its row of
@@ -186,8 +233,8 @@ def slices(data: dict, cases: list) -> dict:
     return out
 
 
-PROGRAMS = {"moe": moe, "dp_train": dp_train, "compression": compression,
-            "slices": slices}
+PROGRAMS = {"moe": moe, "dp_train": dp_train, "tp_train": tp_train,
+            "compression": compression, "slices": slices}
 
 
 def main(program: str, n: int, inp: str, outp: str, args: str) -> None:

@@ -6,6 +6,13 @@ tree, docstrings stripped, must equal the reference's; the reference is
 read as source text, never imported.  The copied simulator must also give
 the reference's results for each policy.
 
+One partial copy, named in ``PARTIAL``: ``launch/dryrun.py``, whose
+rules (``_FSDP_ARCHS``, ``rules_for``, ``opt_rules_for``,
+``decode_rules``) the port copies; the rest of the reference's module
+(the cell accounting, the HLO walk) is not ported yet.  Those names'
+syntax trees are compared one by one, and the port's module holds nothing
+else but its imports and ``__all__``.
+
 One translation, named in ``TRANSLATED``: the port's ``plan_for_ctx``
 (``transfer/shard.py``) takes the process index from its own
 ``distributed.context.process_index``, where the reference imports JAX
@@ -48,6 +55,12 @@ TRANSLATED = {"transfer/shard.py": [
      "import jax\n"),
     ("host = process_index() %", "host = jax.process_index() %"),
 ]}
+
+
+#: module -> the top-level names the port copies of it (the rest of the
+#: reference's module is not ported)
+PARTIAL = {"launch/dryrun.py": ("_FSDP_ARCHS", "rules_for", "opt_rules_for",
+                                "decode_rules")}
 
 
 class _Normalize(ast.NodeTransformer):
@@ -166,3 +179,38 @@ def test_copied_simulator_gives_the_reference_result(policy, seed):
     a, b = dataclasses.asdict(a), dataclasses.asdict(b)
     assert a == b
     assert b["total_time"] > 0 and sum(b["bytes_per_server"]) == size
+
+
+def _top_names(node) -> list:
+    if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+        return [node.name]
+    if isinstance(node, ast.Assign):
+        return [t.id for t in node.targets if isinstance(t, ast.Name)]
+    return []
+
+
+def _named(pkg: str, rel: str, names) -> dict:
+    tree = ast.parse(_source(pkg, rel), os.path.join(_SRC, pkg, rel))
+    out = {}
+    for node in tree.body:
+        for name in _top_names(node):
+            if name in names:
+                mod = ast.Module(body=[node], type_ignores=[])
+                out[name] = ast.dump(_Normalize().visit(mod))
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(PARTIAL))
+def test_partial_copy_is_ast_equal_where_it_copies(rel):
+    names = PARTIAL[rel]
+    port, ref = _named("repro_torch", rel, names), _named("repro", rel, names)
+    assert sorted(port) == sorted(names) == sorted(ref)
+    for name in names:
+        assert port[name] == ref[name], (
+            f"{name} of src/repro_torch/{rel} no longer matches "
+            f"src/repro/{rel}")
+    tree = ast.parse(_source("repro_torch", rel))
+    rest = [n for n in tree.body[1:]
+            if not isinstance(n, (ast.Import, ast.ImportFrom))
+            and set(_top_names(n)) - {"__all__"} - set(names)]
+    assert rest == [], "the port's partial copy holds more than its names"

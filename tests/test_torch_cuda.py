@@ -896,3 +896,86 @@ def test_a2a_at_one_rank_matches_the_one_hot_path(card, nccl_mesh, dtype):
             if o.abs().max() > 0:
                 cos = torch.nn.functional.cosine_similarity(a, o, dim=0)
                 assert cos > 0.999, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_collectives_on_one_rank_on_the_card(card, nccl_mesh, dtype):
+    """The tensor-parallel collectives over the 1-rank model group on CUDA
+    tensors (NCCL): each forward and its stated backward is the identity
+    on one rank, and every result stays on the card."""
+    from repro_torch.distributed import activate
+    from repro_torch.distributed import collectives as C
+
+    x = _randn((2, 6, 4), dtype, card, 31)
+    cot = _randn((2, 6, 4), dtype, card, 32)
+    with activate(nccl_mesh) as ctx:
+        group = ctx.model_group()
+        ops = {"copy_to_model": lambda t: C.copy_to_model(t, group),
+               "reduce_from_model": lambda t: C.reduce_from_model(t, group)}
+        ops["split"] = lambda t: C.split(t, group)
+        for dim in (0, 1, 2):
+            ops[f"gather_{dim}"] = lambda t, d=dim: C.gather(t, group, d)
+            ops[f"gather_dim_{dim}"] = lambda t, d=dim: C.gather_dim(
+                t, group, d)
+        for name, op in ops.items():
+            t = x.clone().requires_grad_(True)
+            y = op(t)
+            (g,) = torch.autograd.grad(y, t, cot)
+            assert y.is_cuda and g.is_cuda, name
+            assert torch.equal(y, x) and torch.equal(g, cot), name
+        stacked = C.all_gather_stacked(x, group)
+        assert stacked.shape == (1, *x.shape) and torch.equal(stacked[0], x)
+
+
+@pytest.mark.parametrize("loss_dtype", ["float32", "compute"])
+def test_vocab_parallel_loss_on_one_rank_matches_the_plain_loss(
+        card, nccl_mesh, loss_dtype):
+    """``_VocabParallelNLL`` over the 1-rank model group on the card (one
+    block holding the whole vocabulary) against the plain log-sum-exp
+    minus the gathered label logit: values and gradients within f32
+    rounding (bf16 logits: their gradient within one bf16 ulp)."""
+    from repro_torch.distributed import activate
+    from repro_torch.models.transformer import _VocabParallelNLL
+
+    logits = _randn((2, 16, 96), torch.bfloat16, card, 33) * 4
+    targets = torch.randint(0, 96, (2, 16), device=card,
+                            generator=torch.Generator(card).manual_seed(34))
+    with activate(nccl_mesh) as ctx:
+        a = logits.clone().requires_grad_(True)
+        nll = _VocabParallelNLL.apply(a, targets, 0, ctx.model_group(),
+                                      loss_dtype == "compute")
+        (ga,) = torch.autograd.grad(nll.mean(), a)
+    b = logits.clone().requires_grad_(True)
+    lf = b.float()
+    want = torch.logsumexp(lf, -1) - torch.gather(
+        lf, -1, targets[..., None])[..., 0]
+    (gb,) = torch.autograd.grad(want.mean(), b)
+    torch.testing.assert_close(nll, want, atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(ga.float(), gb.float(), atol=2e-5, rtol=1e-2)
+
+
+def test_sharded_save_on_one_rank_is_the_whole_save(card, nccl_mesh,
+                                                    tmp_path):
+    """A reduced qwen3 train state on the card saved with ``shardings=``
+    under the 1-rank NCCL mesh (every leaf gathered over its one-rank
+    group, moved to the host) has the bytes of the whole-state save."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (init_sharded_train_state,
+                                        train_state_shardings)
+
+    cfg = _card_config("qwen3-1.7b", "bfloat16")
+    params = init_params(model_specs(cfg), torch.Generator(card).manual_seed(5),
+                         cfg.torch_dtype, card)
+    with activate(nccl_mesh, rules_for(cfg, False)[1]):
+        state = init_sharded_train_state(params, cfg, AdamWConfig())
+        a = save_checkpoint(str(tmp_path / "sharded"), 1, state,
+                            shardings=train_state_shardings(cfg, state))
+    b = save_checkpoint(str(tmp_path / "whole"), 1, state)
+    for f in ("data.bin", "manifest.json"):
+        with open(f"{a}/{f}", "rb") as fa, open(f"{b}/{f}", "rb") as fb:
+            assert fa.read() == fb.read(), f

@@ -52,7 +52,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.data", "repro_torch.data.pipeline",
                  "repro_torch.distributed", "repro_torch.distributed.context",
                  "repro_torch.distributed.collectives",
-                 "repro_torch.launch.mesh", "repro_torch.optim.compression"):
+                 "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                 "repro_torch.optim.compression"):
         assert name in mods
     code = (
         "import sys\n"

@@ -1,0 +1,311 @@
+"""Tensor parallelism of the dense and MoE families: the port's train step
+under the reference's production rules against the JAX reference's
+GSPMD step on the same mesh.
+
+The rules are ``launch.dryrun.rules_for``'s, the port's copy of the
+reference's: the port activates the storage rules (each rank holds its
+blocks: heads, MLP columns and vocabulary rows over ``model``, the ``d``
+dims of qwen2.5's and kimi's attention and embedding over ``data``,
+expert leaves over ``model`` and ``data``), the reference its compute
+rules (``constrain`` hints for GSPMD).  Cases, all reduced configs at
+f32, three AdamW steps (lr 1e-2, eps 1e-3, so that near-zero gradients
+do not turn into sign noise) of B 4 x S 16:
+
+- qwen3 (tied embedding, q/k norm): (1, 2) with both head dims split,
+  under both ``loss_dtype``s; (1, 4), where its 2 KV heads are masked to
+  replicated and each rank reads the KV head of its one query head;
+  (2, 2) with ``remat="full"`` (the recompute re-issues the collectives)
+  and ZeRO-1 moments;
+- gemma3 (attention replicated over ``model`` by its override, MLP and
+  vocabulary split, sliding window): (1, 2);
+- nemotron (untied, relu2): (1, 2);
+- qwen2.5 (q/k/v biases, dense FSDP storage, ``remat="full"``): (2, 2);
+- olmoe and kimi (the MoE a2a with tensor-parallel attention, expert
+  FSDP; kimi's dense FSDP too): (2, 2).
+
+Each case compares the losses and clip norms of the three steps, the
+gradients AdamW received at step 0 (each rank's block against the
+reference's full gradient) and the final parameters (per block); the
+tolerance is 1e-5 relative to each tensor's largest entry (losses and
+norms: 1e-5 relative).  The ranks are spawned gloo processes
+(``tests/torch_ranks.py``), the reference one process with four forced
+host devices (``tests/jax_dist_ref.py``).
+
+In process, with a shape-only mesh (no process group, so a collective
+would fail): the step raises ``NotImplementedError`` before any
+collective for the families whose tensor parallelism waits (zamba2,
+xlstm, whisper, llama-vision; ``forward`` too), for a ``seq_sp`` rule
+and for ``layers="pod"``; ``decode_step`` and ``CapturedServeStep`` raise under
+rules that split a dense leaf.  The port's ``rules_for`` /
+``opt_rules_for`` / ``decode_rules`` equal the reference's for every
+registry arch.
+"""
+
+import itertools
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, list_archs, reduced_config
+from repro_torch.distributed import Mesh, ShardingRules, activate
+from repro_torch.launch import dryrun
+from repro_torch.models.common import init_params, tree_leaves
+from repro_torch.models.transformer import (decode_step, init_cache,
+                                            model_specs)
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.weights import unflatten
+from test_torch_dp_train import numpy_params
+from torch_ranks import (collect, collect_reference, spawn_ranks,
+                         spawn_reference)
+
+B, S, STEPS = 4, 16, 3
+TOL = 1e-5
+#: name, arch, D, M, steps, loss_dtype, remat, zero1, save
+CASES = [
+    ("qwen3_1x2", "qwen3-1.7b", 1, 2, STEPS, "float32", "none", True, False),
+    ("qwen3_1x2_compute", "qwen3-1.7b", 1, 2, STEPS, "compute", "none",
+     True, False),
+    ("gemma3_1x2", "gemma3-1b", 1, 2, STEPS, "float32", "none", True, False),
+    ("nemotron_1x2", "nemotron-4-15b", 1, 2, STEPS, "float32", "none", True,
+     False),
+    ("qwen3_1x4", "qwen3-1.7b", 1, 4, STEPS, "float32", "none", True, False),
+    ("qwen3_2x2", "qwen3-1.7b", 2, 2, STEPS, "float32", "full", True, False),
+    ("qwen25_2x2", "qwen2.5-14b", 2, 2, STEPS, "float32", "full", True,
+     False),
+    ("olmoe_2x2", "olmoe-1b-7b", 2, 2, STEPS, "float32", "none", True,
+     False),
+    ("kimi_2x2", "kimi-k2-1t-a32b", 2, 2, STEPS, "float32", "none", True,
+     False),
+]
+NAMES = [c[0] for c in CASES]
+REF_PROCS = 3
+ARCHS = sorted({c[1] for c in CASES})
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp_train")
+    rng = np.random.default_rng(23)
+    data = {}
+    for arch in ARCHS:
+        cfg = reduced_config(arch).replace(dtype="float32")
+        for k, v in numpy_params(model_specs(cfg), rng).items():
+            data[f"{arch}/{k}"] = v
+        data[f"tokens/{arch}"] = rng.integers(
+            0, cfg.vocab_size, (STEPS, B, S)).astype(np.int32)
+    inputs = os.path.join(str(tmp), "inputs.npz")
+    np.savez(inputs, **data)
+    cases = [list(c) for c in CASES]
+    # the reference compiles two programs a case: three processes share
+    # the cases, so its wall time is about the port's ranks'
+    refs = [spawn_reference("tp_train", 4, tmp, inputs,
+                            cases=[c[:7] for c in cases[i::REF_PROCS]])
+            for i in range(REF_PROCS)]
+    two = spawn_ranks("tp_train", 2, tmp, inputs=inputs, cases=cases,
+                      root=str(tmp))
+    four = spawn_ranks("tp_train", 4, tmp, inputs=inputs, cases=cases,
+                       root=str(tmp))
+    ranks = {}
+    for res in collect(two) + collect(four):
+        for name, r in res.items():
+            ranks.setdefault(name, []).append(r)
+    ref = {}
+    for r in refs:
+        ref.update(collect_reference(r))
+    return data, ref, ranks
+
+
+def _close(got: torch.Tensor, want: np.ndarray, what: str) -> None:
+    peak = float(np.abs(want).max()) if want.size else 0.0
+    err = float(np.abs(got.numpy() - want).max()) if want.size else 0.0
+    assert got.shape == want.shape and err <= TOL * max(peak, 1e-30), (
+        f"{what}: off by {err}, largest entry {peak}")
+
+
+def _block(r, k):
+    return tuple(slice(a, b) for a, b in r["slices"][k])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_tp_step_matches_the_reference(runs, name):
+    _, ref, ranks = runs
+    D, M = next((c[2], c[3]) for c in CASES if c[0] == name)
+    assert len(ranks[name]) == D * M
+    for r in ranks[name]:
+        for i in range(STEPS):
+            np.testing.assert_allclose(r["losses"][i],
+                                       float(ref[f"{name}/loss{i}"]),
+                                       rtol=TOL)
+            np.testing.assert_allclose(r["grad_norms"][i],
+                                       float(ref[f"{name}/grad_norm{i}"]),
+                                       rtol=TOL)
+        for k, g in r["grads0"].items():
+            _close(g, ref[f"{name}/grads/{k}"][_block(r, k)],
+                   f"{name} step-0 gradient {k}")
+        for k, p in r["params"].items():
+            _close(p, ref[f"{name}/params/{k}"][_block(r, k)],
+                   f"{name} parameter {k}")
+
+
+@pytest.mark.parametrize("name", ["qwen3_1x2", "qwen3_1x4", "qwen3_2x2",
+                                  "gemma3_1x2", "qwen25_2x2", "kimi_2x2"])
+def test_each_rank_holds_its_blocks(runs, name):
+    """The layouts the cases are meant to exercise: heads, MLP columns
+    and vocabulary rows over ``model`` (KV heads whole at (1, 4); gemma3's
+    attention whole), and qwen2.5's / kimi's ``d`` dims over ``data``."""
+    data, _, ranks = runs
+    arch = next(c[1] for c in CASES if c[0] == name)
+    cfg = reduced_config(arch)
+    D, M = next((c[2], c[3]) for c in CASES if c[0] == name)
+    r = ranks[name][0]
+    shape = {k: r["params"][k].shape for k in r["params"]}
+    full = {k[len(arch) + 1:]: v.shape for k, v in data.items()
+            if k.startswith(arch + "/")}
+    attn = "blocks/b0_moe/attn" if cfg.family == "moe" else (
+        "blocks/b0_attn_local/attn" if arch.startswith("gemma3")
+        else "blocks/b0_attn/attn")
+    heads_split = not arch.startswith("gemma3")
+    assert shape[f"{attn}/wq"][2] == cfg.n_heads // (M if heads_split
+                                                      else 1)
+    kv_split = heads_split and cfg.n_kv_heads % M == 0
+    assert shape[f"{attn}/wk"][2] == cfg.n_kv_heads // (M if kv_split
+                                                         else 1)
+    assert shape["embed"][0] == cfg.vocab_size // M
+    if cfg.family != "moe":
+        mlp = attn.rsplit("/", 1)[0] + "/mlp/wi"
+        assert shape[mlp][2] == cfg.d_ff // M
+    fsdp = arch in dryrun._FSDP_ARCHS
+    assert shape[f"{attn}/wq"][1] == full[f"{attn}/wq"][1] // (D if fsdp
+                                                              else 1)
+    assert shape["embed"][1] == cfg.d_model // (D if fsdp else 1)
+
+
+def test_labels_fall_in_every_rank_vocabulary_block(runs):
+    """The vocab-parallel loss cases take the label logit from every
+    rank's block."""
+    data, _, _ = runs
+    toks = data["tokens/qwen3-1.7b"][:, :, 1:]
+    V = reduced_config("qwen3-1.7b").vocab_size
+    for M in (2, 4):
+        blocks = set((toks // (V // M)).reshape(-1).tolist())
+        assert blocks == set(range(M))
+
+
+# ----------------------------------------------------------- raises
+
+def _shape_only(D, M):
+    return Mesh((D, M), ("data", "model"))
+
+
+def _step_raises(cfg, rules, D=1, M=2):
+    specs = model_specs(cfg)
+    params = dict(tree_leaves(init_params(
+        specs, torch.Generator().manual_seed(0), torch.float32, "cpu")))
+    with activate(_shape_only(D, M), rules) as ctx:
+        local = {k: params[k][ctx.mesh.local_slices(
+            ctx.spec(s.logical, s.shape), s.shape,
+            {"data": 0, "model": 0})].clone() for k, s in tree_leaves(specs)}
+        state = init_train_state(unflatten(local), AdamWConfig())
+        step = make_train_step(cfg, AdamWConfig())
+        batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32)}
+        with pytest.raises(NotImplementedError) as e:
+            step(state, batch)
+    return str(e.value)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m",
+                                  "whisper-large-v3",
+                                  "llama-3.2-vision-11b"])
+def test_families_that_wait_raise_before_any_collective(arch):
+    """The train step, and ``forward`` under the same rules."""
+    from repro_torch.models.transformer import forward
+
+    cfg = reduced_config(arch).replace(dtype="float32")
+    _, storage = dryrun.rules_for(cfg, False)
+    msg = _step_raises(cfg, storage)
+    assert cfg.family in msg and "ROADMAP Queue 1 item 2" in msg
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    with activate(_shape_only(1, 2), storage):
+        with pytest.raises(NotImplementedError, match=cfg.family):
+            forward(params, cfg, {"tokens": torch.zeros((1, 4),
+                                                        dtype=torch.long)})
+
+
+@pytest.mark.parametrize("what", ["seq_sp", "pod_layers"])
+def test_seq_sp_and_pipeline_rules_raise(what):
+    cfg = reduced_config("qwen3-1.7b").replace(dtype="float32")
+    if what == "seq_sp":
+        _, rules = dryrun.rules_for(cfg.replace(seq_shard_norms=1), False)
+        assert rules.rules["seq_sp"] == "model"
+    else:
+        _, rules = dryrun.rules_for(cfg, False, pp=True)
+        assert rules.rules["layers"] == "pod"
+    msg = _step_raises(cfg, rules)
+    assert ("seq_sp" if what == "seq_sp" else "pipeline") in msg
+    assert "ROADMAP Queue 1 item 2" in msg
+
+
+def test_decode_under_rules_that_split_a_dense_leaf_raises():
+    from repro_torch.serve.step import CapturedServeStep
+
+    cfg = reduced_config("qwen3-1.7b").replace(dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    cache = init_cache(cfg, 1, 8, "cpu")
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    pos = torch.zeros((), dtype=torch.int32)
+    with activate(_shape_only(1, 2), dryrun.rules_for(cfg, False)[1]):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            decode_step(params, cfg, cache, tok, pos)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            CapturedServeStep(cfg, params, 1, 8, device="cpu")
+    # on a (1, 1) mesh nothing is split: the step decodes
+    with activate(_shape_only(1, 1), dryrun.rules_for(cfg, False)[1]):
+        logits, _ = decode_step(params, cfg, cache, tok, pos)
+    assert logits.shape == (1, cfg.vocab_size)
+
+
+# ------------------------------------------------ the rules are copies
+
+def _reference_dryrun():
+    """``repro.launch.dryrun``, whose import adds 512 forced host devices
+    to ``XLA_FLAGS``: the variable is put back at once (it is read when
+    JAX's backend starts, which the import does not do)."""
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        import repro.launch.dryrun as ref
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    return ref
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_rules_equal_the_reference(arch):
+    import repro.configs as jax_configs
+
+    ref = _reference_dryrun()
+    cfg, jcfg = get_config(arch), jax_configs.get_config(arch)
+    for multi_pod, scope, pp in itertools.product(
+            (False, True), ("all", "attn"), (False, True)):
+        mine = dryrun.rules_for(cfg, multi_pod, scope, pp)
+        theirs = ref.rules_for(jcfg, multi_pod, scope, pp)
+        assert [r.rules for r in mine] == [r.rules for r in theirs]
+        assert dryrun.opt_rules_for(mine[1], multi_pod).rules == \
+            ref.opt_rules_for(theirs[1], multi_pod).rules
+        for batch, model_axis in itertools.product((1, 8, 16, 64), (2, 16)):
+            assert dryrun.decode_rules(
+                cfg, mine[0], batch, model_axis).rules == ref.decode_rules(
+                jcfg, theirs[0], batch, model_axis).rules
+
+
+def test_rules_take_the_ports_rules_type():
+    _, storage = dryrun.rules_for(get_config("qwen2.5-14b"), False)
+    assert isinstance(storage, ShardingRules)
+    assert storage.rules["attn_in"] == ("data",)

@@ -268,6 +268,112 @@ def dp_train(inputs: str, cases: list) -> dict:
     return out
 
 
+def tp_train(inputs: str, cases: list, root: str) -> dict:
+    """The port's train step per case (name, arch, D, M, steps, loss_dtype,
+    remat, zero1, save) whose mesh has this world's size, under the
+    storage rules of ``launch.dryrun.rules_for`` (tensor parallelism, the
+    dense FSDP of its archs, expert FSDP), from
+    ``init_sharded_train_state`` (ZeRO-1 moments with ``zero1``): each
+    step's loss and clip norm, the gradients AdamW received at step 0,
+    the moments' bytes and the final blocks with their slices.  With
+    ``save``: the state saved through an async ``CheckpointManager``
+    under ``root/NAME``, the step ``latest_step`` then sees, this rank's
+    moment blocks and their slices, the two step counters, and whether
+    ``restore_checkpoint(shardings=)`` gives back this rank's blocks bit
+    for bit."""
+    import torch.distributed as dist
+
+    import repro_torch.train.step as train_step
+    from repro_torch.checkpoint import (CheckpointManager, latest_step,
+                                        restore_checkpoint)
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models.common import local_tree
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.weights import unflatten
+
+    data = dict(np.load(inputs))
+    out = {}
+    real = train_step.adamw_apply
+    for name, arch, D, M, steps, loss_dtype, remat, zero1, save in cases:
+        if D * M != dist.get_world_size():
+            continue
+        cfg = reduced_config(arch).replace(dtype="float32", remat=remat,
+                                           loss_dtype=loss_dtype)
+        opt = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=1,
+                          decay_steps=steps, zero1=zero1)
+        full = {k[len(arch) + 1:]: v for k, v in data.items()
+                if k.startswith(arch + "/")}
+        res = {"losses": [], "grad_norms": []}
+        # the registry arch's rules (_FSDP_ARCHS names full configs)
+        _, storage = rules_for(cfg.replace(name=arch), False)
+        with activate(_mesh((D, M)), storage) as ctx:
+            specs = model_specs(cfg)
+            res["slices"] = {
+                k: [(sl.start, sl.stop) for sl in ctx.mesh.local_slices(
+                    ctx.spec(s.logical, s.shape), s.shape)]
+                for k, s in tree_leaves(specs)}
+            state = train_step.init_sharded_train_state(
+                unflatten(_local(ctx, specs, full)), cfg, opt)
+            step = train_step.make_train_step(cfg, opt)
+            bi, nb = ctx.batch_shard()
+            seen = []
+
+            def recording(grads, *a, **kw):
+                if not seen:
+                    seen.append({k: g.detach().clone()
+                                 for k, g in tree_leaves(grads)})
+                return real(grads, *a, **kw)
+
+            train_step.adamw_apply = recording
+            try:
+                for i in range(steps):
+                    toks = data[f"tokens/{arch}"][i]
+                    n = toks.shape[0] // nb
+                    state, m = step(state, {"tokens": torch.from_numpy(
+                        toks[bi * n:(bi + 1) * n])})
+                    res["losses"].append(m["loss"].item())
+                    res["grad_norms"].append(m["grad_norm"].item())
+            finally:
+                train_step.adamw_apply = real
+            res["grads0"] = seen[0]
+            res["moment_bytes"] = sum(
+                t.numel() * t.element_size()
+                for k in ("m", "v") for _, t in tree_leaves(state["opt"][k]))
+            if save:
+                shardings = train_step.train_state_shardings(cfg, state)
+                d = os.path.join(root, name)
+                mgr = CheckpointManager(d, every_steps=steps, keep=1)
+                assert mgr.maybe_save(steps, state, shardings=shardings)
+                mgr.wait()
+                res["latest_step"] = latest_step(d)
+                res["steps"] = (state["opt"]["step"].clone(),
+                                state["step"].clone())
+                flat_sh = dict(tree_leaves(shardings["opt"]))
+                res["opt"] = {k: t.detach().clone() for k, t in
+                              tree_leaves(state["opt"]) if k != "step"}
+                res["opt_slices"] = {}
+                for k, t in res["opt"].items():
+                    pl = flat_sh[k]
+                    shape = full[k.split("/", 1)[1]].shape
+                    res["opt_slices"][k] = [
+                        (sl.start, sl.stop) for sl in pl.mesh.local_slices(
+                            pl.spec, shape)]
+                back, got = restore_checkpoint(d, state, device="cpu",
+                                               shardings=shardings)
+                back = dict(tree_leaves(local_tree(back)))
+                res["restored_step"] = got
+                res["restored_bit_exact"] = all(
+                    torch.equal(back[k], t.detach())
+                    for k, t in tree_leaves(state))
+        res["params"] = {k: v.detach().clone()
+                         for k, v in tree_leaves(state["params"])}
+        out[name] = res
+    return out
+
+
 def compression(inputs: str, steps: int) -> dict:
     """On a 4-rank data mesh: this rank's (q, scale) of its row of ``g``,
     ``compressed_reduce_scatter`` and ``compressed_mean`` of it, then
@@ -372,8 +478,8 @@ def restore(root: str, step: int, ports: list, arch: str, shape: list,
     return out
 
 
-PROGRAMS = {"moe": moe, "dp_train": dp_train, "compression": compression,
-            "restore": restore}
+PROGRAMS = {"moe": moe, "dp_train": dp_train, "tp_train": tp_train,
+            "compression": compression, "restore": restore}
 
 
 def _main(program: str, rank: int, world: int, init: str, out: str) -> None:
