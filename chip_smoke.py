@@ -218,6 +218,30 @@ Phases (one JSON line each, ``"phase"`` names them):
    byte-identical to this process's whole-state save of the blocks
    assembled, and restored bit-exact through
    ``restore_checkpoint(shardings=)`` on the (1, 1) mesh.
+21. Decode under a mesh (``launch.dryrun.serve_rules``), last in the
+   distributed phase.  ``serve_graph_mesh``: qwen3-1.7b's captured step
+   under the rules on the 1-rank NCCL mesh, tokens equal to the eager
+   step's with and without the mesh.  ``dist_decode_qwen3``: qwen3-1.7b
+   at full width and depth on four gloo ranks of a (2, 2) mesh, B 1 over
+   32768 keys (split by sequence over ``data``: each rank attends over its
+   block through ``decode_attention_partials``, the ranks all-gather the
+   partials and merge them with ``decode_attention_merge``) and B 4 (split
+   by batch), DECODE_STEPS steps from a cache whose earlier keys are
+   seeded random K / V; ``dist_decode_gemma3`` (B 4 over 1024 keys split
+   by sequence over ``model``, the window of 512 across the boundary) and
+   ``dist_decode_olmoe`` (32 of 64 experts a rank, the one-hot MoE path
+   across ranks) on two ranks of (1, 2).  Each against this process's
+   one-rank runs of the same weights and cache: f32 greedy tokens equal
+   and logits within DECODE_F32_TOL; bf16 teacher-forced, within
+   DECODE_BF16_FACTOR times the one-rank bf16 run's distance from f32
+   (olmoe's bf16 run reported, not held: its router reorders near-tied
+   experts); launches a step exact; ms a step and peak a rank.  The bf16
+   limit is read against a fault (DECODE_FAULTS): qwen3's B 1 run again
+   with block 1 of the keys left out of every merge must exceed it.  The kernel phase holds the partials mode on 2 and 4 blocks
+   against the whole-cache kernel and the plain version
+   (``decode_partials_phase``; bf16 within one bf16 ulp of the largest
+   entry, PARTIALS_BF16_REL), and checks that the hold fails when the
+   block holding ``pos`` is left out of the merge.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -235,6 +259,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -244,6 +269,7 @@ from contextlib import nullcontext
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MB = 1 << 20
+T0 = time.perf_counter()
 
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, dense
 #: bf16 tensor-core and f32 (non-tensor) flop/s
@@ -393,7 +419,10 @@ class CheckFailed(Exception):
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started (where
+    the time limit goes)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2213,7 +2242,7 @@ def counts(K) -> dict:
 
 
 def reset_counts(K) -> None:
-    for name in KERNELS:
+    for name in KERNELS + MESH_KERNELS:
         getattr(K, name).launches = 0
 
 
@@ -2951,7 +2980,8 @@ def xlstm_phase(torch, K, dev) -> dict:
         prof = device_profile(
             torch, lambda: decode_step(params, cfg, plain_cache, tok, p),
             KERNELS)
-    check(long_step.launches == per, f"xlstm long step {long_step.launches}")
+    check(long_step.launches == {**per, **dict.fromkeys(MESH_KERNELS, 0)},
+          f"xlstm long step {long_step.launches}")
     state_bytes = sum(t.numel() * t.element_size()
                       for _, t in tree_leaves(long_step.cache))
     by_path["xlstm_long_decode"] = {k: n * long_step.replays
@@ -4118,9 +4148,10 @@ TP_F32_SHAPE = (2, 512)
 TP_F32_TOL = 1e-4
 #: dist_zero1_save: four gloo ranks of a (2, 2) mesh under rules_for +
 #: opt_rules_for, qwen3-1.7b at full width with its 28 layers cut to
-#: ZERO1_LAYERS (four ranks share the card and the time budget), global
-#: batch B 4 x S 2048, TP_STEPS steps with ZeRO-1 moments and without
-ZERO1_LAYERS = 8
+#: ZERO1_LAYERS (four ranks share the card and the time budget; 8 until
+#: decode under a mesh joined the script), global batch B 4 x S 2048,
+#: TP_STEPS steps with ZeRO-1 moments and without
+ZERO1_LAYERS = 4
 ZERO1_SHAPE = (4, 2048)
 
 
@@ -4538,9 +4569,608 @@ def dist_zero1_phase(torch, K, dev, mesh) -> dict:
                           for t in ("zero1", "plain")])
 
 
+# ----------------------------------------------------- decode under a mesh
+
+#: the wrappers of decode_attention's partials mode (decode under a mesh),
+#: counted beside KERNELS
+MESH_KERNELS = ("decode_attention_partials", "decode_attention_merge")
+#: the partials mode held and timed on one card: (label, B, KV, G, hd, S,
+#: pos, window), the cache cut into 2 and 4 blocks of keys (qwen3-1.7b's
+#: B 1 x 32768 keys, pos in the second half; gemma3-1b's hd 256 with its
+#: window of 512 across a block boundary)
+PARTIALS_CASES = (
+    ("qwen3-1.7b B 1 x 32768", 1, 8, 2, 128, 32768, 20000, None),
+    ("gemma3-1b B 4 x 1024, window 512", 4, 1, 4, 256, 1024, 600, 512),
+)
+#: the partials mode merged at bf16 is held within one bf16 ulp (2^-7 of
+#: the value) of the case's largest entry: each output is an f32 value
+#: rounded once, so two right answers differ by at most that; f32 at TOL
+PARTIALS_BF16_REL = 2.0 ** -7
+
+
+def partials_close(torch, got, ref, dtype: str, peak: float) -> bool:
+    """A partials hold: f32 as allclose at TOL, bf16 within
+    PARTIALS_BF16_REL of ``peak``, the reference's largest entry."""
+    if dtype == "bfloat16":
+        return (got - ref).abs().max().item() <= PARTIALS_BF16_REL * peak
+    return torch.allclose(got, ref, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+#: decode steps a run of the dist_decode phases takes
+DECODE_STEPS = 32
+#: dist_decode_qwen3, four gloo ranks on a (2, 2) mesh: (tag, B, S_max,
+#: first position) -- B 1 over 32768 keys split by sequence over data
+#: (and KV heads over model), the steps crossing the block boundary at
+#: 16384; B 4 split by batch over data and heads over model.  Keys below
+#: the first position hold seeded random K / V.
+DECODE_QWEN3_RUNS = (("b1", 1, 32768, 16368), ("b4", 4, 2048, 1000))
+#: dist_decode_gemma3 / dist_decode_olmoe, two gloo ranks on (1, 2):
+#: (arch, B, S_max, first position) -- gemma3-1b's 1024 keys split by
+#: sequence over model, positions 600-631 whose window of 512 straddles
+#: the boundary at 512; olmoe-1b-7b with 32 of its 64 experts a rank
+#: (the one-hot path across ranks) and 8 of its 16 KV heads
+DECODE_PAIR_RUNS = (("gemma3-1b", 4, 1024, 600),
+                    ("olmoe-1b-7b", 4, 2048, 1000))
+DECODE_SEED = 251
+#: f32 holds: greedy tokens equal, each step's logits within this of their
+#: largest entry (the sharded sums run in another order)
+DECODE_F32_TOL = 1e-4
+#: bf16 holds, teacher-forced on the one-rank bf16 run's tokens: against
+#: the f32 one-rank run forced on the same tokens (the same weights and
+#: cache, rounded), each step's largest logit difference relative to the
+#: step's largest entry stays within DECODE_BF16_FACTOR times the one-rank
+#: bf16 run's own (the sharded sums round at other places; a bf16 run of
+#: a random 28-layer model differs from f32 by percents, so no absolute
+#: limit tells a fault from rounding -- the kernel path's holds use the
+#: same rule, ``hold_kernel_path``)
+DECODE_BF16_FACTOR = 1.5
+#: dist_decode_qwen3's faulted run, which reads that limit against a
+#: fault: the B 1 bf16 run again with block 1 of the keys (16384 on: none
+#: before the boundary, up to 16 after it) left out of every layer's
+#: merge, which must exceed the limit (at a factor of 2 it passed; block
+#: 0, all but the newest keys, misses by far more: PERF.md)
+DECODE_FAULTS = (("qwen3-1.7b/bfloat16/b1", (1,)),)
+
+
+def mesh_counts(K) -> dict:
+    return {**counts(K), **{n: getattr(K, n).launches for n in MESH_KERNELS}}
+
+
+def decode_partials_phase(torch, K, dev, ptxas) -> dict:
+    """decode_attention's partials mode on one card: the cache of each
+    PARTIALS_CASES shape cut into 2 and 4 blocks, each block's partials
+    (``decode_attention_partials`` at its key offset) merged by
+    ``decode_attention_merge``, held against the whole-cache kernel and
+    against the plain version (and the plain partials merged), at f32 and
+    bf16; then one block's partials launch and the merge of its blocks
+    timed beside the plain partials and the bound.  Returns the summary
+    entry (launches filled in from the gloo phases)."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = dict.fromkeys(dtypes, 0.0)
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dtypes[dt])
+
+    timed = []
+    for label, B, KV, G, hd, S, pos, window in PARTIALS_CASES:
+        for dt in dtypes:
+            q = randn((B, 1, KV * G, hd), dt)
+            k, v = randn((B, S, KV, hd), dt), randn((B, S, KV, hd), dt)
+            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+            whole = K.decode_attention(q, k, v, p, window=window).float()
+            plain = K.decode_attention_plain(q, k, v, p, window=window)
+            peak = plain.float().abs().max().item()
+            for nb in (2, 4):
+                per = S // nb
+                blocks = [(k[:, i * per:(i + 1) * per].contiguous(),
+                           v[:, i * per:(i + 1) * per].contiguous(), i * per)
+                          for i in range(nb)]
+                parts = torch.stack([K.decode_attention_partials(
+                    q, kb, vb, p, k_off=off, window=window)
+                    for kb, vb, off in blocks])
+                got = K.decode_attention_merge(parts, q, KV).float()
+                pparts = torch.stack([K.decode_attention_partials_plain(
+                    q, kb, vb, p, k_off=off, window=window)
+                    for kb, vb, off in blocks])
+                got_plain = K.decode_attention_merge_plain(pparts, q, KV)
+                # the fault the hold must see: the block holding pos left
+                # out of the merge
+                own = pos // per
+                faulted = K.decode_attention_merge(torch.cat(
+                    [parts[:own], parts[own + 1:]]), q, KV).float()
+                torch.cuda.synchronize()
+                tol = PARTIALS_BF16_REL * peak if dt == "bfloat16" \
+                    else TOL[dt]
+                for what, ref in (("whole-cache kernel", whole),
+                                  ("plain", plain.float()),
+                                  ("plain partials merged",
+                                   got_plain.float())):
+                    err = (got - ref).abs().max().item()
+                    ok = partials_close(torch, got, ref, dt, peak)
+                    print(json.dumps({
+                        "case": f"decode_attention_partials {dt} {label} "
+                                f"{nb} blocks vs {what}",
+                        "max_abs_err": err, "peak": peak, "tol": tol,
+                        "ok": ok}), flush=True)
+                    check(ok, f"decode_attention_partials {dt} {label} {nb} "
+                          f"blocks vs {what}: max abs err {err} over {tol}")
+                    worst[dt] = max(worst[dt], err)
+                err = (faulted - plain.float()).abs().max().item()
+                caught = not partials_close(torch, faulted, plain.float(), dt,
+                                            peak)
+                print(json.dumps({
+                    "case": f"decode_attention_partials {dt} {label} {nb} "
+                            f"blocks, block {own} dropped (a fault) vs plain",
+                    "max_abs_err": err, "peak": peak, "tol": tol,
+                    "caught": caught}), flush=True)
+                check(caught, f"decode_attention_partials {dt} {label}: the "
+                      f"hold does not see block {own} dropped ({err}, tol "
+                      f"{tol})")
+                if dt == "bfloat16" and nb == 2:
+                    timed.append(_partials_time(torch, K, dev, label, q,
+                                                blocks, p, window, pos))
+            del q, k, v
+            torch.cuda.empty_cache()
+    t = timed[0]
+    return {"name": "decode_attention_partials", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:92",
+            "launches": None, "max_abs_err": max(worst.values()),
+            "max_abs_err_by_dtype": worst,
+            "tol": {"float32": TOL["float32"],
+                    "bfloat16": f"{PARTIALS_BF16_REL} x the largest entry"},
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "merge_ms": t["merge_ms"],
+            "whole_cache_ms": t["whole_cache_ms"],
+            "timed_shape": t["shape"], "shapes": timed,
+            "ptxas": ptxas_of(ptxas, "decode_attention")}
+
+
+def _partials_time(torch, K, dev, label, q, blocks, p, window, pos) -> dict:
+    """One rank's share at a bf16 PARTIALS_CASES shape cut into two blocks:
+    the partials launch over the block holding ``pos`` (plan_splits'
+    slices, no merge), the merge over both blocks' partials, the plain
+    partials, and the whole-cache kernel, each with CUDA events over a
+    graph of calls.  The bound: the block's visible keys' K and V read
+    once, q read and the partials written once.  No PyTorch call computes
+    the partials (m, l and the unnormalised accumulator), so no library
+    time."""
+    kb, vb, off = next(b for b in reversed(blocks) if b[2] <= pos)
+    B, _, H, hd = q.shape
+    KV = kb.shape[2]
+    parts = torch.stack([K.decode_attention_partials(
+        q, b[0], b[1], p, k_off=b[2], window=window) for b in blocks])
+    ms, _ = cuda_time_ms(torch, lambda: K.decode_attention_partials(
+        q, kb, vb, p, k_off=off, window=window), 50)
+    merge_ms, _ = cuda_time_ms(
+        torch, lambda: K.decode_attention_merge(parts, q, KV), 50)
+    # the plain version reads pos on the host: given as an int, its
+    # calls can be captured
+    plain_ms, _ = cuda_time_ms(
+        torch, lambda: K.decode_attention_partials_plain(
+            q, kb, vb, pos, k_off=off, window=window), 5)
+    whole_k = torch.cat([b[0] for b in blocks], dim=1)
+    whole_v = torch.cat([b[1] for b in blocks], dim=1)
+    whole_ms, _ = cuda_time_ms(torch, lambda: K.decode_attention(
+        q, whole_k, whole_v, p, window=window), 50)
+    lo = max(off, pos - window + 1 if window else 0)
+    keys = max(0, min(pos, off + kb.shape[1] - 1) - lo + 1)
+    n_split = parts.shape[1] // (B * KV * (H // KV) * (hd + 2))
+    nbytes = (2 * B * KV * keys * hd + B * H * hd) * 2 \
+        + B * H * n_split * (hd + 2) * 4
+    bnd, by = bound_ms(nbytes, 4.0 * B * H * keys * hd, "bfloat16")
+    out = dict(path=label, shape=f"{label}: one of 2 blocks, keys {off}-"
+                                 f"{off + kb.shape[1] - 1}, pos {pos} bf16",
+               ms=ms, merge_ms=merge_ms, plain_ms=plain_ms,
+               whole_cache_ms=whole_ms, bound_ms=bnd, bound_by=by,
+               bytes=nbytes, keys_read=keys, slices_per_block=n_split)
+    emit("kernel_time", kernel="decode_attention_partials", **out)
+    del whole_k, whole_v, parts
+    return out
+
+
+def _decode_draw(torch, cfg, dev, dtype, ctx=None):
+    """``cfg``'s parameters drawn on the card from DECODE_SEED as
+    ``init_params`` draws them, leaf by leaf; under ``ctx`` each leaf is
+    cut to this rank's block as soon as it is drawn (a whole f32 olmoe
+    does not fit twice beside the other rank's)."""
+    from repro_torch.models.common import _init_leaf, tree_map
+    from repro_torch.models.transformer import model_specs
+
+    gen = torch.Generator(device=dev).manual_seed(DECODE_SEED)
+    dt = getattr(torch, dtype)
+
+    def one(s):
+        t = _init_leaf(s, dt, dev, gen)
+        if ctx is None:
+            return t
+        return t[ctx.mesh.local_slices(ctx.spec(s.logical, s.shape),
+                                       s.shape)].clone()
+
+    return tree_map(one, model_specs(cfg))
+
+
+def _fill_prefix(torch, cfg, cache, B, s_max, p0, ctx=None) -> None:
+    """Seeded random K / V at the positions below ``p0`` of every KV leaf
+    (drawn whole on the card layer by layer, in the cache's key order);
+    under ``ctx`` each rank copies its block of them."""
+    from repro_torch.models.common import tree_leaves
+
+    blk = None if ctx is None else ctx.kv_block(
+        (B, s_max, cfg.n_kv_heads, cfg.hd))
+    i = 0
+    for key, leaf in tree_leaves(cache):
+        if key.rsplit("/", 1)[-1] not in ("k", "v"):
+            continue
+        layers = leaf if leaf.dim() == 5 else leaf[None]
+        for layer in layers:
+            g = torch.Generator(device=leaf.device).manual_seed(
+                DECODE_SEED + 1 + i)
+            i += 1
+            whole = torch.randn((B, p0, cfg.n_kv_heads, cfg.hd), generator=g,
+                                device=leaf.device).to(leaf.dtype)
+            if blk is None:
+                layer[:, :p0] = whole
+                continue
+            k0, k1 = blk.keys.start, min(blk.keys.stop, p0)
+            if k1 > k0:
+                layer[:, :k1 - k0] = whole[blk.rows, k0:k1, blk.heads]
+
+
+def _decode_run(torch, K, cfg, params, dev, B, s_max, p0, first,
+                forced=None, ctx=None) -> dict:
+    """DECODE_STEPS serve steps from position ``p0`` over a cache whose
+    keys below it are random (``_fill_prefix``): greedy from ``first``
+    ``[B, 1]``, or teacher-forced on ``forced`` ``[B, DECODE_STEPS + 1]``.
+    The tokens, every step's logits (f32, on the host), ms a step (host
+    clock to a synchronize), the launches and the peak memory."""
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serve.step import make_serve_step
+
+    step = make_serve_step(cfg)
+    with torch.inference_mode():
+        cache = init_cache(cfg, B, s_max, dev)
+        _fill_prefix(torch, cfg, cache, B, s_max, p0, ctx)
+        toks, logits, ms = [first], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(K)
+        for i in range(DECODE_STEPS):
+            tok = toks[-1] if forced is None else forced[:, i:i + 1]
+            pos = torch.tensor(p0 + i, dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            nxt, lg, _ = step(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(nxt)
+            logits.append(lg.cpu())
+        launches = mesh_counts(K)
+    return {"tokens": torch.cat(toks, dim=1).cpu(), "logits": logits,
+            "ms": ms, "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _rel_err(torch, got: list, want: list) -> float:
+    """The largest over steps of a step's largest absolute difference
+    relative to the step's largest entry."""
+    return max((g - w).abs().max().item() / w.abs().max().item()
+               for g, w in zip(got, want))
+
+
+def _decode_hold(torch, got: dict, ref: dict, dtype: str) -> dict:
+    """A rank's run against the one-rank runs: f32, greedy tokens equal and
+    logits within DECODE_F32_TOL of each step's largest entry; bf16
+    (teacher-forced), its distance from the f32 run forced on the same
+    tokens within DECODE_BF16_FACTOR times the one-rank bf16 run's.  The
+    numbers, and ``ok``."""
+    want = ref["logits"] if dtype == "float32" else ref["f32_logits"]
+    err = _rel_err(torch, got["logits"], want)
+    cos = min(torch.nn.functional.cosine_similarity(
+        g.reshape(1, -1), w.reshape(1, -1)).item()
+        for g, w in zip(got["logits"], want))
+    agree = sum(int((g.argmax(-1) == w.argmax(-1)).sum())
+                for g, w in zip(got["logits"], want))
+    equal = torch.equal(got["tokens"], ref["tokens"])
+    if dtype == "float32":
+        ok = equal and err <= DECODE_F32_TOL
+    else:
+        ok = err <= DECODE_BF16_FACTOR * ref["one_rank_err"]
+    n = len(got["logits"]) * got["logits"][0].shape[0]
+    return {"ok": bool(ok), "max_rel_err": err, "least_cosine": cos,
+            "argmax_agree": f"{agree}/{n}", "tokens_equal": equal,
+            "one_rank_err": ref.get("one_rank_err"),
+            "ms_per_step": statistics.median(got["ms"][1:]),
+            "peak_gb": got["peak_gb"], "launches": got["launches"]}
+
+
+def _decode_one_rank(torch, K, dev, runs, out: str) -> dict:
+    """The one-rank runs (no mesh) of ``runs``, (arch, dtype, tag, B,
+    S_max, first position, held), arch by arch from one f32 draw (bf16
+    its rounding): greedy from seeded first tokens, and for each bf16 run
+    the f32 model forced on its tokens.  What the ranks hold against goes
+    to ``out/ref.pt``; the runs' numbers are returned."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+
+    ref, mine = {}, {}
+    for arch in dict.fromkeys(r[0] for r in runs):
+        cfg = get_config(arch)
+        p32 = _decode_draw(torch, cfg.replace(dtype="float32"), dev,
+                           "float32")
+        for dtype in ("float32", "bfloat16"):
+            params = p32 if dtype == "float32" else tree_map(
+                lambda t: t.to(torch.bfloat16), p32)
+            c = cfg.replace(dtype=dtype)
+            for a, dt, tag, B, s_max, p0, _ in runs:
+                if (a, dt) != (arch, dtype):
+                    continue
+                first = torch.randint(0, c.vocab_size, (B, 1), device=dev,
+                                      generator=torch.Generator(device=dev)
+                                      .manual_seed(DECODE_SEED))
+                r = _decode_run(torch, K, c, params, dev, B, s_max, p0,
+                                first)
+                key = f"{arch}/{dtype}/{tag}"
+                ref[key] = {"tokens": r["tokens"], "logits": r["logits"]}
+                if dtype == "bfloat16":
+                    toks = r["tokens"].to(dev)
+                    f32 = _decode_run(torch, K, cfg.replace(dtype="float32"),
+                                      p32, dev, B, s_max, p0, toks[:, :1],
+                                      toks)
+                    ref[key] = {"tokens": r["tokens"],
+                                "f32_logits": f32["logits"],
+                                "one_rank_err": _rel_err(
+                                    torch, r["logits"], f32["logits"])}
+                mine[key] = {
+                    "ms_per_step": statistics.median(r["ms"][1:]),
+                    "peak_gb": r["peak_gb"], "launches": r["launches"],
+                    "err_from_f32": ref[key].get("one_rank_err")}
+            del params
+        del p32
+        torch.cuda.empty_cache()
+    torch.save(ref, os.path.join(out, "ref.pt"))
+    return mine
+
+
+class _DroppedBlock:
+    """While entered, the decode step's merge leaves out block ``i`` of
+    the all-gathered partials (a fault for DECODE_FAULTS)."""
+
+    def __init__(self, torch, i: int):
+        from repro_torch.models import layers
+
+        self.torch, self.i, self.layers = torch, i, layers
+        self.real = layers.decode_attention_merge
+
+    def __enter__(self):
+        torch, i, real = self.torch, self.i, self.real
+        self.layers.decode_attention_merge = lambda parts, q, kv: real(
+            torch.cat([parts[:i], parts[i + 1:]]), q, kv)
+
+    def __exit__(self, *exc):
+        self.layers.decode_attention_merge = self.real
+
+
+def _decode_ranks(torch, K, dev, runs, shape, out: str,
+                  faults: tuple = ()) -> dict:
+    """This rank's runs of ``runs`` on a ``shape`` (data, model) mesh under
+    ``launch.dryrun.serve_rules``, each held against the one-rank runs in
+    ``ref.pt`` (``_decode_hold``); bf16 runs are forced on the one-rank
+    bf16 run's tokens.  ``faults``: (run key, dropped blocks) -- that run
+    again with each block left out of the merge (``_DroppedBlock``), its
+    distance from f32 recorded beside the sound run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import serve_rules
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(*shape, device=dev)
+    ref = torch.load(os.path.join(out, "ref.pt"), mmap=True)
+    res, params, drawn = {}, None, None
+    for arch, dtype, tag, B, s_max, p0, held in runs:
+        cfg = get_config(arch).replace(dtype=dtype)
+        with activate(mesh, serve_rules(cfg, mesh, B)) as ctx:
+            if drawn != (arch, dtype):
+                params = None
+                torch.cuda.empty_cache()
+                params = _decode_draw(torch, cfg, dev, dtype, ctx)
+                drawn = (arch, dtype)
+            r = ref[f"{arch}/{dtype}/{tag}"]
+            toks = r["tokens"].to(dev)
+            got = _decode_run(torch, K, cfg, params, dev, B, s_max, p0,
+                              toks[:, :1], None if dtype == "float32"
+                              else toks, ctx)
+            blk = ctx.kv_block((B, s_max, cfg.n_kv_heads, cfg.hd))
+            faulted = {}
+            for drop in dict(faults).get(f"{arch}/{dtype}/{tag}", ()):
+                with _DroppedBlock(torch, drop):
+                    bad = _decode_run(torch, K, cfg, params, dev, B, s_max,
+                                      p0, toks[:, :1], toks, ctx)
+                faulted[drop] = _rel_err(torch, bad["logits"],
+                                         r["f32_logits"])
+        rec = _decode_hold(torch, got, r, dtype)
+        rec["faulted"] = faulted
+        rec.update(held=held, block=[(sl.start, sl.stop) for sl in
+                                     (blk.rows, blk.keys, blk.heads)],
+                   seq_axes=blk.seq_axes, batch_axes=blk.batch_axes,
+                   device=str(dev))
+        res[f"{arch}/{dtype}/{tag}"] = rec
+    return res
+
+
+def _decode_runs_qwen3():
+    return [("qwen3-1.7b", dt, tag, B, s_max, p0, True)
+            for dt in ("float32", "bfloat16")
+            for tag, B, s_max, p0 in DECODE_QWEN3_RUNS]
+
+
+def _decode_runs_pair():
+    # olmoe's bf16 run is timed, not held: a one-ulp change of its router
+    # input reorders near-tied experts (PERF.md, PR 20's MoEProbe)
+    return [(arch, dt, "b4", B, s_max, p0,
+             dt == "float32" or not arch.startswith("olmoe"))
+            for arch, B, s_max, p0 in DECODE_PAIR_RUNS
+            for dt in ("float32", "bfloat16")]
+
+
+def decode_qwen3_rank(torch, K, dev, rank: int, out: str) -> dict:
+    """``--gloo-program decode_qwen3``: one of four ranks of
+    dist_decode_qwen3 (a (2, 2) mesh)."""
+    return _decode_ranks(torch, K, dev, _decode_runs_qwen3(), (2, 2), out,
+                         DECODE_FAULTS)
+
+
+def decode_pair_rank(torch, K, dev, rank: int, out: str) -> dict:
+    """``--gloo-program decode_pair``: one of two ranks of
+    dist_decode_gemma3 and dist_decode_olmoe (a (1, 2) mesh)."""
+    return _decode_ranks(torch, K, dev, _decode_runs_pair(), (1, 2), out)
+
+
+def _per_step(arch: str, B: int, s_max: int, shape) -> dict:
+    """Each kernel's launches a decode step of a rank: the attention
+    through the partials mode where the cache splits by sequence, the
+    whole-cache kernel elsewhere; four norms a layer and the final one."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
+    from repro_torch.launch.dryrun import serve_rules
+
+    cfg = get_config(arch)
+    mesh = Mesh(shape, ("data", "model"))
+    ctx = ShardingCtx(mesh, serve_rules(cfg, mesh, B))
+    lay = ctx.layout(KV_CACHE_LOGICAL, (B, s_max, cfg.n_kv_heads, cfg.hd))
+    L = cfg.n_layers
+    seq = bool(lay[1])
+    return {"decode_attention": 0 if seq else L,
+            "decode_attention_partials": L if seq else 0,
+            "decode_attention_merge": L if seq else 0,
+            "rmsnorm": 4 * L + 1}
+
+
+def dist_decode_phase(torch, K, dev, mesh) -> dict:
+    """Decode under a mesh on the card: ``serve_graph_mesh`` (the captured
+    step under ``serve_rules`` on the 1-rank NCCL mesh against the eager
+    step), then ``dist_decode_qwen3`` (four gloo ranks, (2, 2)) and
+    ``dist_decode_gemma3`` / ``dist_decode_olmoe`` (two gloo ranks, (1,
+    2)), each rank's runs held against this process's one-rank runs of
+    the same weights and cache.  The ranks' collectives are gloo's,
+    through the host, four (two) processes on one card: their times are
+    not NVLink's.  Returns the launches by path."""
+    by_path = {"serve_graph_mesh": serve_graph_mesh_phase(torch, K, dev,
+                                                          mesh)}
+    for program, world, shape, runs, phases in (
+            ("decode_qwen3", 4, (2, 2), _decode_runs_qwen3(),
+             ("dist_decode_qwen3",)),
+            ("decode_pair", 2, (1, 2), _decode_runs_pair(),
+             ("dist_decode_gemma3", "dist_decode_olmoe"))):
+        out = tempfile.mkdtemp(prefix="chip_smoke_decode_")
+        try:
+            one = _decode_one_rank(torch, K, dev, runs, out)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = _spawn_ranks(torch, program, world, out)
+            seconds = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        for phase in phases:
+            arch = {"dist_decode_qwen3": "qwen3-1.7b",
+                    "dist_decode_gemma3": "gemma3-1b",
+                    "dist_decode_olmoe": "olmoe-1b-7b"}[phase]
+            report, recs = {}, []
+            for a, dtype, tag, B, s_max, p0, held in runs:
+                if a != arch:
+                    continue
+                key = f"{arch}/{dtype}/{tag}"
+                want = {k: DECODE_STEPS * n for k, n in _per_step(
+                    arch, B, s_max, shape).items()}
+                rows = []
+                for r, res in enumerate(ranks):
+                    rec = res[key]
+                    check(rec["device"].startswith("cuda"),
+                          f"{phase} {key}: rank {r} ran on {rec['device']}")
+                    for name, n in want.items():
+                        check(rec["launches"][name] == n,
+                              f"{phase} {key}: rank {r} launched {name} "
+                              f"{rec['launches'][name]} times, expected {n}")
+                    numbers = {k: rec[k] for k in (
+                        "tokens_equal", "max_rel_err", "one_rank_err",
+                        "least_cosine", "argmax_agree")}
+                    check(rec["ok"] or not held, f"{phase} {key}: rank {r} "
+                          f"against one rank: {numbers}")
+                    limit = DECODE_BF16_FACTOR * (rec["one_rank_err"] or 0)
+                    for drop, err in rec["faulted"].items():
+                        check(err > limit, f"{phase} {key}: rank {r}'s bf16 "
+                              f"limit {limit} does not see block {drop} "
+                              f"dropped ({err})")
+                    rows.append({k: rec[k] for k in (
+                        "ok", "held", "tokens_equal", "max_rel_err",
+                        "one_rank_err", "least_cosine", "argmax_agree",
+                        "ms_per_step", "peak_gb", "block", "seq_axes",
+                        "batch_axes", "faulted")})
+                    recs.append(rec)
+                report[f"{dtype}/{tag}"] = {
+                    "batch": B, "s_max": s_max, "positions": [
+                        p0, p0 + DECODE_STEPS - 1], "ranks": rows,
+                    "launches_a_rank": recs[-1]["launches"],
+                    "one_rank": one[key]}
+            emit(phase, arch=arch, mesh=list(shape), ranks=world,
+                 backend="gloo (through the host, ranks sharing one card, "
+                 "not NVLink)", steps=DECODE_STEPS,
+                 f32_tol=DECODE_F32_TOL, bf16_factor=DECODE_BF16_FACTOR,
+                 spawn_s=seconds, **report)
+            by_path[phase] = _sum_launches(recs)
+    return by_path
+
+
+def serve_graph_mesh_phase(torch, K, dev, mesh) -> dict:
+    """``serve_graph_mesh``: qwen3-1.7b at full size (random weights from
+    DECODE_SEED), ``generate`` under ``serve_rules`` on the 1-rank NCCL
+    (1, 1) mesh, every step a replay of the captured step, against the
+    same ``generate`` run eagerly under the mesh and without it: tokens
+    identical; launches per replay exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import serve_rules
+    from repro_torch.launch.serve import generate
+
+    cfg = get_config("qwen3-1.7b")
+    B, S0, gen = LARGE_GENERATE
+    params = _decode_draw(torch, cfg, dev, cfg.dtype)
+    prompt = prompt_for(torch, cfg, LARGE_GENERATE, dev, DECODE_SEED)
+    plain = generate(cfg, params, prompt, gen, device=dev, capture=False)
+    with activate(mesh, serve_rules(cfg, mesh, B)):
+        eager = generate(cfg, params, prompt, gen, device=dev, capture=False)
+        reset_counts(K)
+        log = []
+        t0 = time.perf_counter()
+        captured = generate(cfg, params, prompt, gen, device=dev,
+                            step_log=log)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    step = log[0]
+    per = {"decode_attention": cfg.n_layers, "rmsnorm": 4 * cfg.n_layers + 1}
+    for name, n in per.items():
+        check(step.launches[name] == n, f"serve_graph_mesh {name}: "
+              f"{step.launches[name]} launches a replay, expected {n}")
+    check(torch.equal(captured, eager) and torch.equal(eager, plain),
+          "serve_graph_mesh: the captured step's tokens under the mesh differ "
+          "from the eager step's")
+    launches = {name: step.launches[name] * step.replays for name in KERNELS}
+    emit("serve_graph_mesh", arch=cfg.name, batch=B, prompt=S0, generated=gen,
+         mesh=[1, 1], backend="nccl", replays=step.replays,
+         launches_a_replay={k: step.launches[k] for k in KERNELS},
+         seconds=seconds, tokens_equal=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 #: --gloo-program -> (world size, the rank's function)
 GLOO_PROGRAMS = {"moe": (2, moe_rank), "tp": (2, tp_rank),
-                 "zero1": (4, zero1_rank)}
+                 "zero1": (4, zero1_rank),
+                 "decode_qwen3": (4, decode_qwen3_rank),
+                 "decode_pair": (2, decode_pair_rank)}
 
 
 def distributed_phase(torch, K, dev) -> dict:
@@ -4556,6 +5186,7 @@ def distributed_phase(torch, K, dev) -> dict:
         dist_gloo_phase(torch, dev, mesh)
         by_path["dist_tp_qwen3"] = dist_tp_phase(torch, K, dev, mesh)
         by_path["dist_zero1_save"] = dist_zero1_phase(torch, K, dev, mesh)
+        by_path.update(dist_decode_phase(torch, K, dev, mesh))
     return by_path
 
 
@@ -4594,7 +5225,7 @@ def main() -> int:
     ap.add_argument("--gloo-dir", default=None,  # own rank processes
                     help=argparse.SUPPRESS)
     ap.add_argument("--gloo-program", default="moe",
-                    choices=("moe", "tp", "zero1"), help=argparse.SUPPRESS)
+                    choices=tuple(GLOO_PROGRAMS), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -4630,6 +5261,7 @@ def main() -> int:
              library=os.path.relpath(b.path, ROOT), ptxas=list(b.ptxas))
 
         summary = kernel_phase(torch, K, dev, b.ptxas)
+        summary.append(decode_partials_phase(torch, K, dev, b.ptxas))
         geometry_phase(torch, dev)
 
         cfg = get_config("qwen3-1.7b")
@@ -4663,7 +5295,10 @@ def main() -> int:
         entry["launches_by_path"] = {p: n.get(name, 0)
                                      for p, n in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["launches"] == 0:
+        if name == "decode_attention_partials":     # and its merge launches
+            entry["merge_launches"] = sum(
+                n.get("decode_attention_merge", 0) for n in by_path.values())
+        if entry["launches"] == 0 or entry.get("merge_launches") == 0:
             print(f"chip_smoke: FAILED: {name} never launched on the main "
                   f"paths", file=sys.stderr)
             return 1

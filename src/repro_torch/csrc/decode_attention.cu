@@ -40,6 +40,17 @@
 // accumulator to scratch the wrapper allocates, and a second launch from
 // the same entry point merges the slices.  An empty slice writes
 // m = -inf, l = 0.
+//
+// Partials mode (decode_attention_partials_launch), for a cache split by
+// sequence across ranks: the caches are one rank's block of keys and the
+// pos the kernel reads is the global position minus the block's first key
+// (the wrapper subtracts it on the device), so the same cut to
+// [max(0, pos - window + 1), min(pos, S - 1)] keeps the block's valid
+// keys, across block boundaries too, and a block wholly past pos is
+// empty.  Every slice writes its partials, at n_split 1 too, and no merge
+// runs: the ranks all-gather their partials, and
+// decode_attention_merge_launch runs the same merge kernel over the
+// n_ranks x n_split slices.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -306,7 +317,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   }
   cp_async_wait<0>();
 
-  if (n_split == 1) {
+  if (scratch == nullptr) {  // n_split 1 outside the partials mode
     if (d < HD) {
       T* ob = out + ((size_t)b * H + (size_t)h * G) * HD;
 #pragma unroll
@@ -335,25 +346,34 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 // One block per (b, kv head): combines the n_split slices' (m, l, acc) of
 // each query row of the group, o = sum_s acc_s e^(m_s - M) / sum_s l_s
 // e^(m_s - M) with M the largest m_s; empty slices (m = -inf) weigh 0.
+// Over n_ranks buffers of partials rank_stride floats apart (the ranks'
+// blocks of keys, in the blocks' order, as the all-gather lays them out),
+// the slices are each rank's n_split in turn; one buffer at the split-K
+// merge.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) decode_attention_merge_kernel(
     const float* __restrict__ scratch, T* __restrict__ out, int bkv_total,
-    int n_split, int G, int HD) {
-  const Partials part(const_cast<float*>(scratch), bkv_total, n_split, G);
+    int n_split, int G, int HD, int n_ranks, size_t rank_stride) {
   const int bkv = blockIdx.x;
   for (int i = threadIdx.x; i < G * HD; i += kThreads) {
     const int g = i / HD, d = i % HD;
     float M = -INFINITY;
-    for (int s = 0; s < n_split; ++s)
-      M = fmaxf(M, part.m[((size_t)bkv * n_split + s) * G + g]);
+    for (int r = 0; r < n_ranks; ++r) {
+      const Partials part(const_cast<float*>(scratch) + r * rank_stride, bkv_total, n_split, G);
+      for (int s = 0; s < n_split; ++s)
+        M = fmaxf(M, part.m[((size_t)bkv * n_split + s) * G + g]);
+    }
     float L = 0.f, o = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const size_t r = ((size_t)bkv * n_split + s) * G + g;
-      const float ms = part.m[r];
-      if (ms == -INFINITY) continue;
-      const float w = expf(ms - M);
-      L = fmaf(part.l[r], w, L);
-      o = fmaf(part.acc[r * HD + d], w, o);
+    for (int r = 0; r < n_ranks; ++r) {
+      const Partials part(const_cast<float*>(scratch) + r * rank_stride, bkv_total, n_split, G);
+      for (int s = 0; s < n_split; ++s) {
+        const size_t row = ((size_t)bkv * n_split + s) * G + g;
+        const float ms = part.m[row];
+        if (ms == -INFINITY) continue;
+        const float w = expf(ms - M);
+        L = fmaf(part.l[row], w, L);
+        o = fmaf(part.acc[row * HD + d], w, o);
+      }
     }
     out[((size_t)bkv * G + g) * HD + d] = from_f<T>(o / fmaxf(L, 1e-30f));
   }
@@ -362,7 +382,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_merge_kernel(
 template <typename T, int HD, int GMAX>
 int launch_g(const void* q, const void* k, const void* v, const void* pos,
              void* out, void* scratch, int B, int S, int KV, int G,
-             float scale, int window, int n_split, cudaStream_t stream) {
+             float scale, int window, int n_split, bool merge, cudaStream_t stream) {
   const dim3 grid((unsigned)(B * KV), (unsigned)n_split);
   constexpr int smem = smem_bytes<T, HD>();
   // keys per slice: whole tiles, from the cache length (never from pos)
@@ -383,9 +403,9 @@ int launch_g(const void* q, const void* k, const void* v, const void* pos,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(pos), op, sp, S, KV, G, scale, window, n_split, per);
   const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_split == 1) return (int)e;
+  if (e != cudaSuccess || n_split == 1 || !merge) return (int)e;
   decode_attention_merge_kernel<T><<<B * KV, kThreads, 0, stream>>>(
-      sp, op, B * KV, n_split, G, HD);
+      sp, op, B * KV, n_split, G, HD, 1, 0);
   return (int)cudaGetLastError();
 }
 
@@ -395,17 +415,17 @@ int launch_g(const void* q, const void* k, const void* v, const void* pos,
 template <typename T, int HD>
 int launch_hd(const void* q, const void* k, const void* v, const void* pos,
               void* out, void* scratch, int B, int S, int KV, int G,
-              float scale, int window, int n_split, cudaStream_t stream) {
+              float scale, int window, int n_split, bool merge, cudaStream_t stream) {
   if (G <= 2)
     return launch_g<T, HD, 2>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split,
-                              stream);
+                              merge, stream);
   if (G <= 4)
     return launch_g<T, HD, 4>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split,
-                              stream);
+                              merge, stream);
   if constexpr (HD <= 128) {
     if (G <= 16)
       return launch_g<T, HD, 16>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window,
-                                 n_split, stream);
+                                 n_split, merge, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -413,12 +433,12 @@ int launch_hd(const void* q, const void* k, const void* v, const void* pos,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* pos,
            void* out, void* scratch, int B, int S, int KV, int G, int hd,
-           float scale, int window, int n_split, cudaStream_t stream) {
+           float scale, int window, int n_split, bool merge, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch_hd<T, 64>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
-    case 112: return launch_hd<T, 112>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
-    case 128: return launch_hd<T, 128>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
-    case 256: return launch_hd<T, 256>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, stream);
+    case 64: return launch_hd<T, 64>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, merge, stream);
+    case 112: return launch_hd<T, 112>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, merge, stream);
+    case 128: return launch_hd<T, 128>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, merge, stream);
+    case 256: return launch_hd<T, 256>(q, k, v, pos, out, scratch, B, S, KV, G, scale, window, n_split, merge, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -428,7 +448,7 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
 // dtype codes: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
 // pos points at one int32 in device memory.  n_split >= 1 slices of the
 // key range; above 1, scratch holds B*KV*n_split*G*(hd + 2) floats and a
-// merge launch follows (scratch may be null at n_split 1).  Returns
+// merge launch follows (scratch is ignored at n_split 1).  Returns
 // cudaGetLastError() after the launches (cudaErrorInvalidValue for an
 // unsupported hd, G, dtype or split).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
@@ -440,10 +460,58 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   if (B <= 0 || S <= 0 || KV <= 0 || G <= 0 || n_split < 1 || n_split > 65535 ||
       (n_split > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (n_split == 1) scratch = nullptr;  // the block writes the output itself
   if (dtype == 0)
-    return launch<float>(q, k, v, pos, out, scratch, B, S, KV, G, hd, scale, window, n_split, s);
+    return launch<float>(q, k, v, pos, out, scratch, B, S, KV, G, hd, scale, window, n_split,
+                         true, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, pos, out, scratch, B, S, KV, G, hd, scale, window,
-                                 n_split, s);
+                                 n_split, true, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The partials mode: the same kernel over a block of keys, pos already the
+// position relative to the block's first key (it may be negative, or past
+// the block).  scratch receives B*KV*n_split*G*(hd + 2) floats: m
+// [B*KV, n_split, G], l [B*KV, n_split, G], acc [B*KV, n_split, G, hd];
+// no output and no merge.
+extern "C" int decode_attention_partials_launch(const void* q, const void* k, const void* v,
+                                                const void* pos, void* scratch, int B, int S,
+                                                int KV, int G, int hd, float scale, int window,
+                                                int n_split, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || KV <= 0 || G <= 0 || n_split < 1 || n_split > 65535 ||
+      scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float>(q, k, v, pos, nullptr, scratch, B, S, KV, G, hd, scale, window,
+                         n_split, false, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, pos, nullptr, scratch, B, S, KV, G, hd, scale,
+                                 window, n_split, false, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The merge of n_ranks buffers of partials, each as the partials mode
+// writes it (n_split slices per (b, kv head)) and rank_stride floats after
+// the one before (the all-gathered [n_ranks, rank_stride] buffer, read in
+// place), into out [B, 1, KV*G, hd].
+extern "C" int decode_attention_merge_launch(const void* scratch, void* out, int bkv,
+                                             int n_ranks, long long rank_stride, int n_split,
+                                             int G, int hd, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bkv <= 0 || n_ranks < 1 || n_split < 1 || G <= 0 || hd <= 0 || scratch == nullptr ||
+      rank_stride < (long long)bkv * n_split * G * (hd + 2))
+    return (int)cudaErrorInvalidValue;
+  const float* sp = static_cast<const float*>(scratch);
+  const size_t stride = (size_t)rank_stride;
+  if (dtype == 0)
+    decode_attention_merge_kernel<float><<<bkv, kThreads, 0, s>>>(
+        sp, static_cast<float*>(out), bkv, n_split, G, hd, n_ranks, stride);
+  else if (dtype == 1)
+    decode_attention_merge_kernel<__nv_bfloat16><<<bkv, kThreads, 0, s>>>(
+        sp, static_cast<__nv_bfloat16*>(out), bkv, n_split, G, hd, n_ranks, stride);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

@@ -2,12 +2,12 @@
 against a ``torch.distributed`` device mesh, and the collectives the
 expert-parallel MoE block differentiates through."""
 
-from .context import (DEFAULT_RULES, Mesh, PartitionSpec, Placements,
+from .context import (DEFAULT_RULES, KVBlock, Mesh, PartitionSpec, Placements,
                       ShardingCtx, ShardingRules, activate, active_ctx,
                       constrain, logical_to_spec, named_sharding,
                       process_index)
 
-__all__ = ["DEFAULT_RULES", "Mesh", "PartitionSpec", "Placements",
+__all__ = ["DEFAULT_RULES", "KVBlock", "Mesh", "PartitionSpec", "Placements",
            "ShardingCtx", "ShardingRules", "activate", "active_ctx",
            "constrain", "logical_to_spec", "named_sharding",
            "process_index"]

@@ -33,6 +33,12 @@ gradient on every model rank, with no model-axis all-reduce afterwards:
 
 A group of one rank makes each an identity that still issues its
 collective.
+
+Forward-only, for the decode step (which raises under grad):
+:func:`all_gather_stacked` gathers the ranks' attention partials over a
+cache's sequence group, :func:`all_gather_cat` the logits' vocabulary
+blocks over ``model`` and the batch rows over the batch axes, for
+sampling.
 """
 
 from __future__ import annotations
@@ -41,8 +47,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_to_all", "split", "gather", "gather_dim", "all_mean",
-           "all_gather_into", "all_gather_stacked", "copy_to_model",
-           "reduce_from_model"]
+           "all_gather_cat", "all_gather_into", "all_gather_stacked",
+           "copy_to_model", "reduce_from_model"]
 
 
 def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
@@ -54,6 +60,12 @@ def all_gather_stacked(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``x`` (at least 1-d) stacked on a new leading dim, in
     group-rank order (no autograd)."""
     return _gather0(x, group).view(-1, *x.shape)
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``, in group-rank order
+    (no autograd)."""
+    return _gather_at(x, group, dim)
 
 
 def _a2a(x: torch.Tensor, group) -> torch.Tensor:

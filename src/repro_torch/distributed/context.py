@@ -11,6 +11,16 @@ the data-parallel train step) discover the topology.  With no active
 context everything degrades to a no-op, so the same model code runs
 anywhere.
 
+Decode under a mesh: :meth:`ShardingCtx.kv_block` gives a KV cache
+leaf's block (``KV_CACHE_LOGICAL``) under the active rules -- this rank's
+batch rows, keys (their first is the block's global key offset) and KV
+heads, and the mesh axes each is split over -- and remembers it by the
+global batch and the block's local shape, so the decode step, which is
+given the whole batch's tokens, finds the layout of the cache
+``models.transformer.init_cache`` allocated (:meth:`ShardingCtx.
+kv_block_of`).  Two caches that would share that key with different
+layouts raise when the second is allocated.
+
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (ranks exist,
 collectives run) or a shape-only :class:`Mesh` (axis names and sizes, the
 counterpart of JAX's ``AbstractMesh``: enough to plan specs and restore
@@ -42,7 +52,9 @@ import torch
 __all__ = [
     "DEFAULT_RULES",
     "FSDP_DIMS",
+    "KV_CACHE_LOGICAL",
     "TP_DIMS",
+    "KVBlock",
     "Mesh",
     "PartitionSpec",
     "Placements",
@@ -88,6 +100,9 @@ TP_DIMS = ("qheads", "kv_heads", "mlp", "vocab")
 #: logical ``d`` dims a dense leaf may be stored split over data axes
 #: (FSDP): gathered whole before use
 FSDP_DIMS = ("embed", "attn_in", "attn_out_d")
+#: logical dims of a KV cache leaf ``[B, S_max, KV, hd]`` (the reference's
+#: ``_block_cache_specs``)
+KV_CACHE_LOGICAL = ("batch", "cache_seq", "kv_heads", "head_dim")
 
 
 def _axes(entry) -> tuple:
@@ -164,7 +179,10 @@ class Mesh:
         return self.device_mesh
 
     def coordinate(self) -> dict[str, int]:
-        """This rank's index along each axis."""
+        """This rank's index along each axis (a shape-only mesh of one
+        device has its one coordinate)."""
+        if self.device_mesh is None and math.prod(self.axis_sizes) == 1:
+            return dict.fromkeys(self.axis_names, 0)
         coord = self._ranks().get_coordinate()
         if coord is None:
             raise RuntimeError("this rank is not in the mesh")
@@ -234,6 +252,32 @@ class Mesh:
             step = n // parts
             out.append(slice(idx * step, (idx + 1) * step))
         return tuple(out)
+
+
+@dataclass(frozen=True)
+class KVBlock:
+    """This rank's block of a KV cache leaf of global ``shape`` ``[B,
+    S_max, KV, hd]``: its batch ``rows``, its ``keys`` (``k_off``, the
+    first, is the block's global key offset) and its KV ``heads``, and the
+    mesh axes (of size > 1, in the spec's order) each dim is split over."""
+
+    shape: tuple
+    rows: slice
+    keys: slice
+    heads: slice
+    batch_axes: tuple
+    seq_axes: tuple
+    head_axes: tuple
+
+    @property
+    def k_off(self) -> int:
+        return self.keys.start
+
+    @property
+    def local_shape(self) -> tuple:
+        return (self.rows.stop - self.rows.start,
+                self.keys.stop - self.keys.start,
+                self.heads.stop - self.heads.start, self.shape[3])
 
 
 @dataclass(frozen=True)
@@ -391,6 +435,57 @@ class ShardingCtx:
                    for e in spec]
             self.memo[key] = out + [()] * (len(shape) - len(out))
         return self.memo[key]
+
+    def kv_block(self, shape: Sequence[int]) -> KVBlock:
+        """This rank's block of a KV cache leaf of global ``shape`` under
+        the rules (its spec over ``KV_CACHE_LOGICAL``, divisibility-masked
+        and deduped as the reference's), remembered by the global batch
+        and its local shape for :meth:`kv_block_of`.  Raises
+        ``NotImplementedError`` where an entry names its axes out of the
+        mesh's order (the gathers over a group take the earlier mesh axis
+        as major), and ``ValueError`` where another block of the same
+        global batch and local shape was made under this context (the
+        decode step could not tell the two caches apart)."""
+        shape = tuple(int(n) for n in shape)
+        key = ("kv_block", shape)
+        if key not in self.memo:
+            spec = self.spec(KV_CACHE_LOGICAL, shape)
+            for entry in spec:
+                axes = list(_axes(entry))
+                if axes != [a for a in self.mesh.axis_names if a in axes]:
+                    raise NotImplementedError(
+                        f"cache spec entry {entry!r} out of the mesh's order "
+                        f"{self.mesh.axis_names}")
+            rows, keys, heads, _ = self.mesh.local_slices(spec, shape)
+            lay = self.layout(KV_CACHE_LOGICAL, shape)
+            block = KVBlock(shape, rows, keys, heads, *lay[:3])
+            local = ("kv_local", shape[0], block.local_shape)
+            other = self.memo.get(local)
+            if other is not None and other != block:
+                raise ValueError(
+                    f"a KV cache of {shape} has blocks of local shape "
+                    f"{block.local_shape}, as the cache of {other.shape} "
+                    f"already made under this context does, with another "
+                    f"layout: decode the two under separate contexts")
+            self.memo[key] = block
+            self.memo[local] = block
+        return self.memo[key]
+
+    def kv_block_of(self, batch: int,
+                    local_shape: Sequence[int]) -> KVBlock:
+        """The block of a cache of global ``batch`` whose local shape is
+        ``local_shape``, as :meth:`kv_block` made it (``init_cache`` under
+        this context); on a mesh of one device, the whole leaf."""
+        local_shape = tuple(int(n) for n in local_shape)
+        block = self.memo.get(("kv_local", int(batch), local_shape))
+        if block is not None:
+            return block
+        if math.prod(self.mesh.axis_sizes) == 1:
+            return self.kv_block(local_shape)
+        raise ValueError(
+            f"no KV cache block of local shape {local_shape} for a batch of "
+            f"{batch} was allocated under this context: make the cache "
+            f"with models.transformer.init_cache inside it")
 
     def model_group(self):
         """The process group over ``model`` (``None`` without the axis)."""

@@ -136,6 +136,12 @@ def library() -> ctypes.CDLL:
     lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                             f, i, i, i, p]
     lib.decode_attention_launch.restype = i
+    lib.decode_attention_partials_launch.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                     i, f, i, i, i, p]
+    lib.decode_attention_partials_launch.restype = i
+    lib.decode_attention_merge_launch.argtypes = [p, p, i, i, ctypes.c_int64,
+                                                  i, i, i, i, p]
+    lib.decode_attention_merge_launch.restype = i
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
                                            i, i, i, p]
     lib.flash_attention_launch.restype = i

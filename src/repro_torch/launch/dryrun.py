@@ -6,16 +6,18 @@
 the data axes on their ``d`` dims) and ``decode_rules`` the decode cache's.
 The functions and ``_FSDP_ARCHS`` are copies of the reference's, with
 the imports rewritten to the port's ``ShardingRules`` and ``ModelConfig``.
+``serve_rules`` composes them for a decode cell as the reference's
+``run_cell`` does.
 
 The rest of the reference's module -- the cell accounting (``run_cell``,
 ``main``), the HLO walk and the TPU roofline constants -- is not ported
 yet: it waits for the port's shape and cost tooling (ROADMAP Queue 1).
 """
 
-from repro_torch.distributed.context import ShardingRules
+from repro_torch.distributed.context import Mesh, ShardingRules
 from repro_torch.models.common import ModelConfig
 
-__all__ = ["rules_for", "opt_rules_for", "decode_rules"]
+__all__ = ["rules_for", "opt_rules_for", "decode_rules", "serve_rules"]
 
 
 #: archs whose attention heads don't tile the 16-way model axis (40H, 20H,
@@ -83,3 +85,24 @@ def decode_rules(cfg: ModelConfig, rules: ShardingRules,
     if cfg.n_kv_heads % model_axis != 0:
         return rules.override(cache_seq="model", kv_heads=None)
     return rules
+
+
+def serve_rules(cfg: ModelConfig, mesh, batch: int,
+                multi_pod: bool = False) -> ShardingRules:
+    """The rules of a decode cell on ``mesh`` (a ``Mesh`` or a
+    ``DeviceMesh`` with named dims) at batch ``batch``, as the reference's
+    ``run_cell`` composes them: the parameters under the storage rules of
+    ``rules_for``, the cache and the step under ``decode_rules`` of its
+    compute rules with the mesh's ``model`` size.  One rules object holds
+    both, ``decode_rules`` applied to the storage rules: the two differ
+    only in the FSDP ``d`` dims (storage) and in ``cache_seq`` /
+    ``kv_heads`` (decode), and ``kv_heads=None`` is set only where the
+    model size does not divide the KV heads, where the storage spec masks
+    ``wk`` / ``wv`` to replicated already.  Activate it for
+    ``restore_checkpoint(shardings=...)``, ``init_cache`` and the decode
+    step alike."""
+    from repro_torch.distributed.context import Mesh
+
+    _, storage = rules_for(cfg, multi_pod)
+    return decode_rules(cfg, storage, batch,
+                        model_axis=Mesh.of(mesh).shape.get("model", 1))

@@ -26,6 +26,13 @@ or the encoder output / projected patches passed as ``memory``.
 
 ``--device cpu`` runs the plain PyTorch path on the CPU (use with
 ``--reduced``).
+
+Under an active sharding context (decode under a mesh; rules from
+``launch.dryrun.serve_rules``) ``generate`` allocates this rank's block of
+the cache, each step runs the rank's batch rows, and every rank returns
+the same tokens.  On a gloo mesh of more than one rank ask for
+``capture=False``: ``capture=True`` raises there
+(``serve.step.check_capturable``).
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.models.transformer import Decoder, init_cache
-from repro_torch.serve.step import CapturedServeStep, make_serve_step
+from repro_torch.serve.step import (CapturedServeStep, check_capturable,
+                                    make_serve_step)
 
 __all__ = ["main", "generate"]
 
@@ -64,7 +72,13 @@ def generate(cfg, params: Union[dict, Decoder], prompt: torch.Tensor,
 
     encdec and vlm read ``memory`` ``[B, M, d]`` (the encoder's output or
     the projected patches), written into the cache before the first step;
-    without it, the reference's stub: 8 rows of zeros."""
+    without it, the reference's stub: 8 rows of zeros.
+
+    Under an active sharding context ``params`` are this rank's blocks and
+    ``prompt`` the whole batch; ``capture=True`` raises on a mesh whose
+    collectives cannot be captured (gloo's), on the CPU too."""
+    if capture:
+        check_capturable()
     dev = resolve_device(device)
     if isinstance(params, Decoder):
         params = params.tree()

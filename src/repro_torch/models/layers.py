@@ -37,6 +37,19 @@ rank cuts out the KV heads its query heads read (head ``h`` reads KV head
 ``h // G``), so their gradients, and those of ``q_norm`` / ``k_norm``,
 are partial sums that the train step adds over ``model``.
 
+**Decode under a mesh** (:func:`attention_from_cache` with a cache
+``block``, ``distributed.context.KVBlock``): the caches are this rank's
+block of keys and KV heads.  The new key and value are written only by
+the rank whose block holds ``pos``.  Where the cache holds more KV heads
+than this rank's query heads read (``kv_heads`` replicated while the
+query heads split over ``model``), the rank attends with every query
+head, gathered over ``model``, and keeps its own after the attention.
+Over a cache split by sequence, each rank computes the partials of its
+block of keys (``decode_attention_partials``), the ranks all-gather them
+over the block's sequence group and each merges them all
+(``decode_attention_merge``); the out-projection is row-parallel, as in
+:func:`attention`.
+
 Not ported: the ``attn_probs_dtype="compute"`` lever (it raises).
 """
 
@@ -51,8 +64,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.context import active_ctx
-from repro_torch.kernels import (decode_attention, decode_attention_plain,
-                                 flash_attention, rmsnorm, rmsnorm_plain)
+from repro_torch.kernels import (decode_attention, decode_attention_merge,
+                                 decode_attention_merge_plain,
+                                 decode_attention_partials,
+                                 decode_attention_partials_plain,
+                                 decode_attention_plain, flash_attention,
+                                 rmsnorm, rmsnorm_plain)
 from repro_torch.models.common import ModelConfig, ParamSpec
 
 __all__ = [
@@ -414,6 +431,7 @@ def attention_from_cache(
     use_rope: bool = True,
     rope=None,
     plain: bool = False,
+    block=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode: x ``[B, 1, d]``; caches ``[B, S_max, KV, hd]``;
     pos an int32 scalar tensor on x's device.
@@ -426,8 +444,15 @@ def attention_from_cache(
     through the PV product, as the TPU kernel does; the reference's XLA
     path casts them to the compute dtype first, so bf16 results differ
     within bf16 tolerance.  ``rope``: the (sin, cos) of ``pos``
-    (``rope_sin_cos``), computed here when not given."""
+    (``rope_sin_cos``), computed here when not given.
+
+    ``block`` (a ``KVBlock``, under a mesh): x holds the block's batch
+    rows and the caches are the block (module docstring)."""
     positions = pos.reshape(1)
+    if block is not None:
+        return _attention_from_block(p, cfg, x, k_cache, v_cache, pos,
+                                     block, window=window, use_rope=use_rope,
+                                     rope=rope, plain=plain)
     q, k_new, v_new = _qkv(p, cfg, x, x, positions, positions, use_rope,
                            rope=rope, plain=plain)
     idx = positions.to(torch.long)
@@ -437,6 +462,70 @@ def attention_from_cache(
     attend = decode_attention_plain if plain else decode_attention
     out = attend(q, k_cache, v_cache, pos, scale=scale, window=window)
     return out_proj(out, p["wo"]), k_cache, v_cache
+
+
+def _write_block(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 block) -> None:
+    """Write ``new`` ``[B, 1, KV, hd]`` at the global position ``pos``
+    into a block of keys starting at ``block.k_off``, in place and on the
+    device: a rank whose block does not hold ``pos`` writes its row at the
+    clamped index back unchanged."""
+    if not block.seq_axes:
+        cache.index_copy_(1, pos.reshape(1).to(torch.long),
+                          new.to(cache.dtype))
+        return
+    local = pos.reshape(1).to(torch.long) - block.k_off
+    owns = ((local >= 0) & (local < cache.shape[1])).view(1, 1, 1, 1)
+    idx = local.clamp(0, cache.shape[1] - 1)
+    kept = cache.index_select(1, idx)
+    cache.index_copy_(1, idx, torch.where(owns, new.to(cache.dtype), kept))
+
+
+def _attention_from_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                          k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          pos: torch.Tensor, block, *,
+                          window: Optional[int], use_rope: bool, rope,
+                          plain: bool):
+    """:func:`attention_from_cache` on this rank's block of the cache
+    (decode under a mesh; forward only)."""
+    ctx = active_ctx()
+    H, G = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+    h_loc, kv_c = p["wq"].shape[1], k_cache.shape[2]
+    if p["wk"].shape[1] != kv_c or kv_c * G < h_loc:
+        raise NotImplementedError(
+            f"{cfg.name}: {h_loc} query heads and {p['wk'].shape[1]} KV "
+            f"heads a rank against a cache block of {kv_c} KV heads")
+    group = ctx.model_group() if h_loc < H else None
+    positions = pos.reshape(1)
+    q, k_new, v_new = _qkv(p, cfg, x, x, positions, positions, use_rope,
+                           rope=rope, plain=plain)
+    _write_block(k_cache, k_new, pos, block)
+    _write_block(v_cache, v_new, pos, block)
+    # the cache holds every KV head while this rank holds some query
+    # heads: attend with all of them, keep this rank's after
+    every_head = kv_c * G > h_loc
+    if every_head:
+        q = C.all_gather_cat(q.contiguous(), group, dim=2)
+    q = q.contiguous()
+    scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.hd)
+    if block.seq_axes:
+        partials = (decode_attention_partials_plain if plain
+                    else decode_attention_partials)
+        merge = decode_attention_merge_plain if plain else \
+            decode_attention_merge
+        parts = partials(q, k_cache, v_cache, pos, k_off=block.k_off,
+                         scale=scale, window=window)
+        parts = C.all_gather_stacked(parts, ctx.mesh.group(block.seq_axes))
+        out = merge(parts, q, kv_c)
+    else:
+        attend = decode_attention_plain if plain else decode_attention
+        out = attend(q, k_cache, v_cache, pos, scale=scale, window=window)
+    if every_head:
+        h0 = ctx.mesh.coordinate()["model"] * h_loc
+        out = out[:, :, h0:h0 + h_loc]
+    y = out_proj(out.contiguous(), p["wo"])
+    return (y if group is None else C.reduce_from_model(y, group)), \
+        k_cache, v_cache
 
 
 # ---------------------------------------------------------------- MLP

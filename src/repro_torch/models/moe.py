@@ -18,6 +18,18 @@ axes, FSDP, all-gathered inside the block).  The collectives are
 ``repro_torch.distributed.collectives`` functions whose backwards give
 every leaf replicated over ``model`` its full gradient on every model rank.
 
+**The one-hot path on a mesh of more than one rank** (decode under a
+mesh, where S = 1 never meets the a2a rule for M > 1; forward only, it
+raises under grad): the ranks gather the tokens of the batch axes, so
+each routes the global batch (capacity, dropped pairs and the
+load-balance means are the reference's), runs its expert shards on the
+pairs routed to them and reduces the activations, never the weights:
+under FSDP expert storage (dim 1 of ``wi`` / ``wg`` over the data axes,
+that is ``d``, and of ``wo``, that is ``f``) the partial hidden ``h``
+over those axes before the activation, then the partial output over
+them and over ``model``.  Each rank keeps its rows
+(:func:`_moe_one_hot_ranks`).
+
 The one-hot einsum costs O(T * E * cap * d): at a 4096-token prefill of 64
 experts that is petaflops of multiplications by zero.  The port computes
 both paths' functions by index.  The running count of each expert over the
@@ -39,6 +51,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as C
@@ -107,33 +120,58 @@ def _slots(gate_idx: torch.Tensor, n_experts: int,
 
 
 def _expert_mlp(cfg: ModelConfig, xs: torch.Tensor, wi: torch.Tensor,
-                wg: Optional[torch.Tensor], wo: torch.Tensor) -> torch.Tensor:
-    """xs ``[E, C, d]`` -> ``[E, C, d]`` through each expert."""
-    h = torch.bmm(xs, wi)
+                wg: Optional[torch.Tensor], wo: torch.Tensor,
+                part: Optional[tuple] = None) -> torch.Tensor:
+    """xs ``[E, C, d]`` -> ``[E, C, d]`` through each expert.  ``part``
+    (FSDP expert storage on a mesh, forward only): ``(group, d block,
+    f block)``, where wi / wg hold the d block of their rows and wo the
+    f block of its rows: xs is whole, the hidden is summed over ``group``
+    before the activation, and the output is this rank's partial sum over
+    f (the caller reduces it)."""
+    def up(w):
+        if part is None:
+            return torch.bmm(xs, w)
+        h = torch.bmm(xs[..., part[1]], w)               # partial over d
+        dist.all_reduce(h, group=part[0])
+        return h
+
+    h = up(wi)
     if wg is not None:
-        h = F.silu(torch.bmm(xs, wg)) * h
+        h = F.silu(up(wg)) * h
     elif cfg.mlp_act == "relu2":
         h = torch.square(F.relu(h))
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
+    if part is not None:
+        h = h[..., part[2]].contiguous()
     return torch.bmm(h, wo)
 
 
 def _moe_indexed(cfg: ModelConfig, xt: torch.Tensor, gate_vals: torch.Tensor,
-                 gate_idx: torch.Tensor, wi, wg, wo) -> torch.Tensor:
+                 gate_idx: torch.Tensor, wi, wg, wo, *,
+                 experts: Optional[slice] = None,
+                 part: Optional[tuple] = None) -> torch.Tensor:
     """The one-hot path's function by index.  xt ``[T, d]``, gate_vals
-    ``[T, k]`` in the compute dtype -> ``[T, d]``."""
+    ``[T, k]`` in the compute dtype -> ``[T, d]``.  ``experts``: the
+    experts wi / wg / wo hold (all by default); pairs routed elsewhere
+    add nothing, so on a mesh the output is this rank's share of the sum
+    (``part``: :func:`_expert_mlp`)."""
     T, d = xt.shape
     E, k = cfg.n_experts, cfg.top_k
+    e0, e1 = (0, E) if experts is None else (experts.start, experts.stop)
     cap = capacity(cfg, T)
     row, keep = _slots(gate_idx, E, cap)
-    spare = E * cap                               # where dropped pairs go
+    if (e0, e1) != (0, E):
+        keep = keep & (row >= e0 * cap) & (row < e1 * cap)
+        row = row - e0 * cap
+    spare = (e1 - e0) * cap                       # where dropped pairs go
     dest = torch.where(keep, row, spare)
     src = torch.arange(T * k, device=xt.device) // k          # pair's token
     buf = xt.new_zeros((spare + 1, d))
     buf.index_copy_(0, dest, xt[src])
-    ye = _expert_mlp(cfg, buf[:spare].view(E, cap, d), wi, wg, wo)
+    ye = _expert_mlp(cfg, buf[:spare].view(e1 - e0, cap, d), wi, wg, wo,
+                     part)
     sel = ye.reshape(spare, d)[torch.where(keep, row, 0)]
     sel = sel * keep[:, None].to(xt.dtype)
     out = sel * gate_vals.reshape(-1)[:, None]
@@ -192,8 +230,9 @@ def _moe_a2a_local(cfg: ModelConfig, xt: torch.Tensor,
     return (sel * weights[:, None]).reshape(T_loc, k, d).sum(dim=1)
 
 
-def moe_block(p: dict, cfg: ModelConfig,
-              x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              batch_axes: Optional[tuple] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, d]`` -> (y ``[B, S, d]``, load-balance loss, f32 scalar).
 
     Without an active sharding context (or with too few tokens for the
@@ -201,30 +240,26 @@ def moe_block(p: dict, cfg: ModelConfig,
     rank's block of the global batch (its rows along the batch axes,
     replicated over ``model``) and the expert leaves are this rank's
     shards (``ShardingCtx.expert_split``); the reference's rule reads the
-    global batch, B times the batch axes' size.  Where the rule picks the
-    one-hot path under a mesh of more than one rank, this raises
-    ``NotImplementedError``: that path routes over every expert and takes
-    its capacity and load-balance means over the global batch, while a
-    rank holds its shards and its rows (the reference runs it on global
-    arrays)."""
+    global batch, B times the batch axes' size.  ``batch_axes``: the axes
+    ``x``'s rows are split over, where they are not the rules' (a decode
+    batch too small to split: ``()``).  Where the rule picks the one-hot
+    path under a mesh of more than one rank, :func:`_moe_one_hot_ranks`
+    (forward only)."""
     B, S, d = x.shape
     ctx = active_ctx()
     wi, wo, wg = p["wi"], p["wo"], p.get("wg")
 
     use_a2a = False
     if ctx is not None:
+        if batch_axes is None:
+            batch_axes = ctx.batch_axes()
         M = ctx.axis_size("model")
-        n_batch = math.prod(ctx.axis_size(a) for a in ctx.batch_axes())
+        n_batch = math.prod(ctx.axis_size(a) for a in batch_axes)
         use_a2a = S % max(M, 1) == 0 and B * n_batch * S >= 4 * M
 
     if not use_a2a:
         if ctx is not None and math.prod(ctx.mesh.axis_sizes) > 1:
-            raise NotImplementedError(
-                f"the one-hot MoE path on a {ctx.mesh.shape} mesh (B {B} x "
-                f"S {S} a rank; the a2a path needs S % model == 0 and "
-                f"B * S >= 4 * model over the global batch): it routes over "
-                f"every expert and the global batch, a rank holds its "
-                f"expert shards and its batch rows")
+            return _moe_one_hot_ranks(p, cfg, x, ctx, batch_axes)
         xt = x.reshape(B * S, d)
         gate_vals, gate_idx, lb = _gates(cfg, xt, p["router"])
         y = _moe_indexed(cfg, xt, gate_vals.to(x.dtype), gate_idx, wi, wg,
@@ -236,7 +271,7 @@ def moe_block(p: dict, cfg: ModelConfig,
     model_group = mesh.group(("model",))
     xt = x.reshape(B * S, d)
     gate_vals, gate_idx, lb = _gates(cfg, xt, p["router"],
-                                     mesh.group(ctx.batch_axes()))
+                                     mesh.group(batch_axes))
     # this rank's tokens: block m of its batch rows, which is block
     # (batch index) * M + m of the global tokens, as P((*batch, "model"))
     xt_loc = C.split(xt, model_group)
@@ -246,3 +281,45 @@ def moe_block(p: dict, cfg: ModelConfig,
         cfg, xt_loc, gv_loc, gi_loc, wi, wg, wo, model_group=model_group,
         n_shards=M, fsdp_group=mesh.group(fsdp_axes) if fsdp_axes else None)
     return C.gather(yt, model_group).reshape(B, S, d), lb
+
+
+def _moe_one_hot_ranks(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx,
+                       batch_axes: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """The one-hot path on a mesh of more than one rank, forward only.
+    ``x`` ``[B, S, d]`` is this rank's rows (split over ``batch_axes``,
+    replicated over the rest), the expert leaves its shards; the router is
+    whole.  Every rank routes the global tokens, :func:`_moe_indexed`
+    gives its experts' share of each pair it keeps, and the shares are
+    summed over the axes the experts are split over."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in p.values())):
+        raise NotImplementedError(
+            f"the one-hot MoE path on a {ctx.mesh.shape} mesh under grad "
+            f"(B {x.shape[0]} x S {x.shape[1]} a rank: below the a2a rule "
+            f"S % model == 0 and B * S >= 4 * model): it is forward only "
+            f"(decode under a mesh); training there waits, ROADMAP Queue "
+            f"1 item 2")
+    B, S, d = x.shape
+    mesh = ctx.mesh
+    xt = x.reshape(B * S, d)
+    batch_group = mesh.group(batch_axes) if batch_axes else None
+    if batch_group is not None:
+        xt = C.all_gather_cat(xt, batch_group)           # every rank's rows
+    gate_vals, gate_idx, lb = _gates(cfg, xt, p["router"])
+    # this rank's experts, and its blocks of d (wi, wg) and f (wo)
+    specs = moe_specs(cfg)
+    sl_i = mesh.local_slices(ctx.spec(specs["wi"].logical, specs["wi"].shape),
+                             specs["wi"].shape)
+    sl_o = mesh.local_slices(ctx.spec(specs["wo"].logical, specs["wo"].shape),
+                             specs["wo"].shape)
+    split = ctx.layout(specs["wi"].logical, specs["wi"].shape)
+    part = (mesh.group(split[1]), sl_i[1], sl_o[1]) if split[1] else None
+    y = _moe_indexed(cfg, xt, gate_vals.to(x.dtype), gate_idx, p["wi"],
+                     p.get("wg"), p["wo"], experts=sl_i[0], part=part)
+    axes = split[0] + split[1]
+    if axes:
+        dist.all_reduce(y, group=mesh.group(axes))
+    if batch_group is not None:
+        i = dist.get_rank(batch_group)
+        y = y[i * B * S:(i + 1) * B * S]
+    return y.reshape(B, S, d), lb

@@ -50,8 +50,22 @@ state (after ``copy_to_model``), which ``forward`` gathers whole and
 leaf for both uses, so autograd adds its two gradients.  Leaves the rules
 store split over data axes (FSDP) are gathered before each block
 (``models.common.fsdp_gather``), again in the recompute under ``remat``.
-The decode step under such rules raises (decode under a mesh: ROADMAP
-Queue 1).
+
+**Decode under a mesh** (the dense and MoE families, under rules such as
+``launch.dryrun.serve_rules``'s): :func:`init_cache` allocates this rank's
+block of every cache leaf (``ShardingCtx.kv_block``: batch rows, keys
+and KV heads), never the whole cache.  :func:`decode_step` takes the
+global ``token`` ``[B, 1]``, runs the block's batch rows through the
+layers (FSDP leaves gathered per layer, heads, MLP columns and
+vocabulary over ``model``, attention over the cache block as
+``layers.attention_from_cache`` says, the MoE one-hot path over every
+rank's tokens as ``models.moe`` says) and gathers the logits over the
+vocabulary and the batch rows, so every rank returns the same ``[B, V]``.
+It is forward-only (it raises with grad enabled on parameters that
+require it).  The other families still raise where the rules split their
+dense leaves (their tensor parallelism: ROADMAP Queue 1 item 2); where
+the rules split none (a data-only mesh), their cache stays whole and
+every rank decodes the whole batch.
 """
 
 from __future__ import annotations
@@ -67,7 +81,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.context import active_ctx
+from repro_torch.distributed.context import KV_CACHE_LOGICAL, active_ctx
 from repro_torch.models import ssm
 from repro_torch.models.common import (ModelConfig, ParamSpec, fsdp_gather,
                                        init_params, spec_tree_num_params,
@@ -80,8 +94,12 @@ from repro_torch.models.layers import (apply_norm, attention,
 
 __all__ = ["program_for", "model_specs", "encode", "forward", "lm_loss",
            "prefill", "cache_specs", "init_cache", "decode_step",
-           "check_decode_rules",
+           "check_family_rules",
            "num_params", "active_params", "Decoder"]
+
+#: the families whose tensor parallelism, and decode under a mesh with the
+#: cache cut to each rank's block, are ported
+MESH_DECODE_FAMILIES = ("dense", "moe")
 
 
 # ------------------------------------------------------------------ programs
@@ -341,12 +359,12 @@ def _top(params: dict, cfg: ModelConfig) -> dict:
     """The leaves outside the stack -- ``embed``, ``unembed``,
     ``final_norm`` -- as the model computes with them (FSDP dims
     gathered, ``models.common.fsdp_gather``); first, under a context,
-    the family check (:func:`_check_family_rules`)."""
+    the family check (:func:`check_family_rules`)."""
     top = {k: params[k] for k in ("embed", "unembed", "final_norm")
            if k in params}
     if active_ctx() is None:
         return top
-    _check_family_rules(cfg)
+    check_family_rules(cfg)
     specs = model_specs(cfg)
     return fsdp_gather(top, {k: specs[k] for k in top})
 
@@ -643,11 +661,26 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                mem_len: int = 0) -> dict:
     """Zeroed cache tree on ``device``: KV caches, conv windows and the
     memory in the compute dtype, recurrent states (``_CACHE_F32``) in
-    f32.  The caller writes ``memory`` (encdec, vlm) before decoding."""
+    f32.  The caller writes ``memory`` (encdec, vlm) before decoding.
+
+    Under an active sharding context, for the families that decode under
+    a mesh (:data:`MESH_DECODE_FAMILIES`), each KV leaf is this rank's
+    block of the ``batch x s_max`` cache as ``ShardingCtx.kv_block`` gives
+    it, which the decode step then finds by the batch and its local shape.
+    The other families' caches stay whole: their decode step runs the
+    whole batch on every rank."""
+    ctx = active_ctx()
+    if cfg.family not in MESH_DECODE_FAMILIES:
+        ctx = None
+
+    def shape_of(leaf: ParamSpec) -> tuple:
+        if ctx is None or tuple(leaf.logical[-4:]) != KV_CACHE_LOGICAL:
+            return leaf.shape
+        return (*leaf.shape[:-4], *ctx.kv_block(leaf.shape[-4:]).local_shape)
 
     def mk(node: Any) -> Any:
         return {name: mk(leaf) if isinstance(leaf, dict) else torch.zeros(
-                    leaf.shape, device=device,
+                    shape_of(leaf), device=device,
                     dtype=torch.float32 if name in _CACHE_F32
                     else cfg.torch_dtype)
                 for name, leaf in node.items()}
@@ -658,15 +691,17 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 def _decode_block(cfg: ModelConfig, kind: str, p: Optional[dict],
                   x: torch.Tensor, cache: dict, pos: torch.Tensor,
                   memory: Optional[torch.Tensor], shared: Optional[dict],
-                  rope, *, plain: bool) -> torch.Tensor:
+                  rope, *, plain: bool, block=None) -> torch.Tensor:
     """One block; writes this block's cache in place.  ``rope`` is the
-    (sin, cos) of ``pos`` (``None`` for the encdec family)."""
+    (sin, cos) of ``pos`` (``None`` for the encdec family); ``block`` the
+    KV cache's ``KVBlock`` under a mesh."""
     def norm(pn, t):
         return _norm(cfg, pn, t, plain=plain)
 
     def self_attend(pa, t, **kw):
         y, _, _ = attention_from_cache(pa, cfg, t, cache["k"], cache["v"],
-                                       pos, rope=rope, plain=plain, **kw)
+                                       pos, rope=rope, plain=plain,
+                                       block=block, **kw)
         return y
 
     def cross_attend(pa, t):
@@ -679,7 +714,8 @@ def _decode_block(cfg: ModelConfig, kind: str, p: Optional[dict],
                             window=_window(cfg, kind), use_rope=_rotary(cfg))
         h = norm(pp["ln2"], x)
         if kind == "moe":
-            return x + moe_block(p["moe"], cfg, h)[0]
+            return x + moe_block(p["moe"], cfg, h, batch_axes=None
+                                 if block is None else block.batch_axes)[0]
         return x + mlp(pp["mlp"], cfg, h)
     if kind == "dec_attn":
         x = x + self_attend(p["attn"], norm(p["ln1"], x), use_rope=False)
@@ -717,11 +753,24 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
 
     ``plain=True`` runs the plain PyTorch versions of the kernels (the
     on-card reference the kernels are held against).  Under an active
-    sharding context whose rules split a dense leaf over an axis larger
-    than one it raises ``NotImplementedError``: decode under a mesh is
-    ROADMAP Queue 1."""
-    check_decode_rules(cfg)
-    x = _positions_embed(cfg, params, token)
+    sharding context, ``params`` are this rank's blocks and ``cache`` the
+    blocks ``init_cache`` allocated under the same context; ``token`` is
+    the whole batch and every rank returns the whole ``[B, V]`` (module
+    docstring).  :func:`check_family_rules` raises first for the families
+    whose decode under a mesh waits."""
+    check_family_rules(cfg)
+    ctx = active_ctx()
+    block = None
+    if ctx is not None:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for _, t in tree_leaves(params)):
+            raise NotImplementedError(
+                f"{cfg.name}: decode under a mesh is forward-only (its "
+                f"collectives carry no gradient); run it under no_grad")
+        block = _cache_block(ctx, cfg, cache, token.shape[0])
+    top = _top(params, cfg)
+    x = _positions_embed(cfg, top, token if block is None
+                         else token[block.rows])
     grp, n_groups, rem = program_for(cfg)
     shared = params.get("shared_attn")
     memory = cache.get("memory")
@@ -730,8 +779,15 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             if _rotary(cfg) else None)
 
     def run(kind, p, c, x):
+        if ctx is not None:
+            if kind == "shared_attn":
+                return _decode_block(
+                    cfg, kind, p, x, c, pos, memory,
+                    fsdp_gather(shared, _block_specs(cfg, "attn")), rope,
+                    plain=plain, block=block)
+            p = fsdp_gather(p, _block_specs(cfg, kind))
         return _decode_block(cfg, kind, p, x, c, pos, memory, shared, rope,
-                             plain=plain)
+                             plain=plain, block=block)
 
     for layer in range(n_groups):
         gp = _layer(params["blocks"], layer)
@@ -745,7 +801,22 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     for i, kind in enumerate(rem):
         key = f"t{i}_{kind}"
         x = run(kind, params["tail"][key], cache["tail"][key], x)
-    return _logits(params, cfg, x, plain=plain)[:, 0], cache
+    logits = _logits(top, cfg, x, plain=plain)[:, 0]
+    if block is not None and block.batch_axes:
+        logits = C.all_gather_cat(logits, ctx.mesh.group(block.batch_axes))
+    return logits, cache
+
+
+def _cache_block(ctx, cfg: ModelConfig, cache: dict, batch: int):
+    """The ``KVBlock`` of the cache's KV leaves (the first found; every
+    one has the same shape) for a batch of ``batch``; ``None`` for the
+    families whose cache :func:`init_cache` keeps whole."""
+    if cfg.family not in MESH_DECODE_FAMILIES:
+        return None
+    for key, t in tree_leaves(cache):
+        if key.rsplit("/", 1)[-1] in ("k", "v"):
+            return ctx.kv_block_of(batch, t.shape[-4:])
+    return None
 
 
 def _split_dense(cfg: ModelConfig, ctx) -> list:
@@ -760,32 +831,21 @@ def _split_dense(cfg: ModelConfig, ctx) -> list:
     return ctx.memo[key]
 
 
-def check_decode_rules(cfg: ModelConfig) -> None:
+def check_family_rules(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` where the active rules split a dense
-    (non-expert) leaf of ``cfg`` over a mesh axis larger than one: the
-    decode step and its captured graph run whole leaves only."""
+    (non-expert) leaf of a family whose tensor parallelism is not ported:
+    every family but dense and MoE split their heads, MLP and vocabulary
+    (the forward, the train step and decode under a mesh alike)."""
     ctx = active_ctx()
-    split = [] if ctx is None else _split_dense(cfg, ctx)
-    if split:
-        raise NotImplementedError(
-            f"{cfg.name}: decode under rules that split dense leaves "
-            f"({split[:3]}... over {ctx.mesh.shape}): decode under a "
-            f"mesh (cache_seq, decode_rules) is ROADMAP Queue 1 item 2")
-
-
-def _check_family_rules(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` where the active rules split a dense
-    leaf of a family whose tensor parallelism is not ported (only the
-    dense and MoE families split their heads, MLP and vocabulary)."""
-    ctx = active_ctx()
-    if ctx is None or cfg.family in ("dense", "moe"):
+    if ctx is None or cfg.family in MESH_DECODE_FAMILIES:
         return
     split = _split_dense(cfg, ctx)
     if split:
         raise NotImplementedError(
             f"{cfg.name}: the rules split its dense leaves ({split[:3]}... "
             f"over {ctx.mesh.shape}): tensor parallelism of the "
-            f"{cfg.family} family is ROADMAP Queue 1 item 2")
+            f"{cfg.family} family, its decode under a mesh too, is ROADMAP "
+            f"Queue 1 item 2")
 
 
 # -------------------------------------------------------------------- module

@@ -7,10 +7,19 @@ against the cache followed by greedy or temperature sampling on the device
 step and its sampling captured once in a CUDA graph and replayed, so a
 step costs one graph launch from the host instead of ~1,000 kernel
 launches issued from Python.
+
+Under an active sharding context (decode under a mesh,
+``models.transformer.decode_step``) both steps run this rank's share and
+return the whole batch's tokens and logits on every rank.  A captured
+step needs collectives that a CUDA graph can record: NCCL's (the 1-rank
+mesh on one card).  On a mesh of more than one rank whose collectives are
+gloo's, which run on the host, :func:`check_capturable` raises; nothing
+falls back to the eager step.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -18,13 +27,16 @@ import torch
 from repro_torch import kernels
 from repro_torch._device import resolve_device
 from repro_torch.models.common import ModelConfig, tree_leaves
-from repro_torch.models.transformer import (check_decode_rules, decode_step,
+from repro_torch.models.transformer import (check_family_rules, decode_step,
                                             forward, init_cache)
 
-__all__ = ["make_serve_step", "make_prefill_step", "CapturedServeStep"]
+__all__ = ["make_serve_step", "make_prefill_step", "CapturedServeStep",
+           "check_capturable"]
 
 #: the kernel wrappers whose launches a captured step records
-_WRAPPERS = ("decode_attention", "rmsnorm", "flash_attention", "ssm_scan")
+_WRAPPERS = ("decode_attention", "decode_attention_partials",
+             "decode_attention_merge", "rmsnorm", "flash_attention",
+             "ssm_scan")
 
 
 def make_prefill_step(cfg: ModelConfig, *, plain: bool = False,
@@ -62,6 +74,30 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 0.0):
     return serve_step
 
 
+def check_capturable() -> None:
+    """Raise ``NotImplementedError`` where the active sharding context's
+    collectives cannot be captured in a CUDA graph: a mesh of more than one
+    rank that is shape-only or whose backend is not NCCL (gloo's
+    collectives run on the host)."""
+    from repro_torch.distributed.context import active_ctx
+
+    ctx = active_ctx()
+    if ctx is None or math.prod(ctx.mesh.axis_sizes) == 1:
+        return
+    dm = ctx.mesh.device_mesh
+    backend = None
+    if dm is not None:
+        import torch.distributed as dist
+
+        backend = dist.get_backend(dm.get_group(0))
+    if backend != "nccl":
+        raise NotImplementedError(
+            f"a captured serve step on a {ctx.mesh.shape} mesh of "
+            f"{backend or 'no'} process groups: a CUDA graph records NCCL's "
+            f"collectives, gloo's run on the host and cannot be captured; "
+            f"run the eager step (make_serve_step, generate(capture=False))")
+
+
 def _launch_counts() -> dict:
     return {name: getattr(kernels, name).launches for name in _WRAPPERS}
 
@@ -92,16 +128,21 @@ class CapturedServeStep:
 
     ``generator`` is the sampling generator (``temperature > 0``); it is
     registered with the graph, so each replay draws fresh numbers from it.
-    Under rules that split a dense leaf it raises ``NotImplementedError``
-    before it allocates anything (``models.transformer.check_decode_rules``).
+    Under an active sharding context it captures this rank's share of the
+    step, with its block of the cache (``init_cache``), on an NCCL mesh;
+    before it allocates anything it raises ``NotImplementedError`` on a
+    mesh whose collectives cannot be captured (:func:`check_capturable`)
+    and for the families whose decode under a mesh waits
+    (``models.transformer.check_family_rules``).
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, batch: int,
                  s_max: int, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None, *,
                  device=None, mem_len: int = 0):
-        # before anything is allocated: rules that split a dense leaf raise
-        check_decode_rules(cfg)
+        # before anything is allocated
+        check_family_rules(cfg)
+        check_capturable()
         dev = resolve_device(device)
         if dev.type != "cuda":
             raise ValueError(f"CapturedServeStep: CUDA graphs need the card, "

@@ -160,6 +160,51 @@ def tp_train(data: dict, cases: list) -> dict:
     return out
 
 
+def decode(data: dict, cases: list) -> dict:
+    """``decode_step`` jitted under ``activate`` with ``decode_rules`` of
+    the compute rules of ``repro.launch.dryrun.rules_for`` (a decode
+    cell's, as ``run_cell`` composes them) per (name, arch, D, M, B,
+    S_max, prompt_len, cf): the prompt teacher-forced, then greedy to
+    S_max tokens, as the port's ``generate`` runs it; the tokens, each
+    step's logits and the cache's KV leaves after each step."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    jax.devices()       # the backend starts with this process's count
+    from repro.configs import reduced_config
+    from repro.distributed.context import activate
+    from repro.launch.dryrun import decode_rules, rules_for
+    from repro.launch.mesh import make_local_mesh
+    from repro.models.transformer import decode_step, init_cache
+
+    out = {}
+    for name, arch, D, M, B, s_max, prompt_len, cf in cases:
+        cfg = reduced_config(arch).replace(dtype="float32",
+                                           capacity_factor=cf)
+        rules, _ = rules_for(cfg.replace(name=arch), False)
+        params = _nest({k[len(arch) + 1:]: jnp.asarray(v)
+                        for k, v in data.items() if k.startswith(arch + "/")})
+        toks = np.asarray(data[f"prompt/{name}"], np.int32)
+        with activate(make_local_mesh(D, M),
+                      decode_rules(cfg, rules, B, model_axis=M)):
+            step = jax.jit(lambda p, c, t, pos: decode_step(p, cfg, c, t,
+                                                            pos))
+            cache = init_cache(cfg, B, s_max)
+            nxt = None
+            for t in range(s_max):
+                if t >= prompt_len:
+                    toks = np.concatenate([toks, nxt], axis=1)
+                logits, cache = step(params, cache, jnp.asarray(
+                    toks[:, t:t + 1]), jnp.int32(t))
+                nxt = np.asarray(jnp.argmax(logits, axis=-1))[:, None]
+                out[f"{name}/logits{t}"] = np.asarray(logits)
+                for k, v in _flat(cache).items():
+                    out[f"{name}/cache{t}/{k}"] = np.asarray(v)
+        out[f"{name}/tokens"] = toks
+    return out
+
+
 def compression(data: dict, steps: int) -> dict:
     """On a (4,) data mesh: each device's (q, scale),
     ``compressed_reduce_scatter`` and ``compressed_mean`` of its row of
@@ -234,7 +279,7 @@ def slices(data: dict, cases: list) -> dict:
 
 
 PROGRAMS = {"moe": moe, "dp_train": dp_train, "tp_train": tp_train,
-            "compression": compression, "slices": slices}
+            "compression": compression, "slices": slices, "decode": decode}
 
 
 def main(program: str, n: int, inp: str, outp: str, args: str) -> None:

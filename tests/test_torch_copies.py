@@ -11,7 +11,10 @@ rules (``_FSDP_ARCHS``, ``rules_for``, ``opt_rules_for``,
 ``decode_rules``) the port copies; the rest of the reference's module
 (the cell accounting, the HLO walk) is not ported yet.  Those names'
 syntax trees are compared one by one, and the port's module holds nothing
-else but its imports and ``__all__``.
+else but its imports, ``__all__`` and the names in ``OWN``:
+``serve_rules``, the composition of those rules that the reference's
+``run_cell`` writes inline for a decode cell, held against it by the
+layouts it gives every parameter and cache leaf of every registry arch.
 
 One translation, named in ``TRANSLATED``: the port's ``plan_for_ctx``
 (``transfer/shard.py``) takes the process index from its own
@@ -61,6 +64,8 @@ TRANSLATED = {"transfer/shard.py": [
 #: reference's module is not ported)
 PARTIAL = {"launch/dryrun.py": ("_FSDP_ARCHS", "rules_for", "opt_rules_for",
                                 "decode_rules")}
+#: module -> the port's own top-level names beside a partial copy
+OWN = {"launch/dryrun.py": ("serve_rules",)}
 
 
 class _Normalize(ast.NodeTransformer):
@@ -212,5 +217,76 @@ def test_partial_copy_is_ast_equal_where_it_copies(rel):
     tree = ast.parse(_source("repro_torch", rel))
     rest = [n for n in tree.body[1:]
             if not isinstance(n, (ast.Import, ast.ImportFrom))
-            and set(_top_names(n)) - {"__all__"} - set(names)]
+            and set(_top_names(n)) - {"__all__"} - set(names)
+            - set(OWN.get(rel, ()))]
     assert rest == [], "the port's partial copy holds more than its names"
+
+
+def _reference_dryrun():
+    """``repro.launch.dryrun``, whose import adds 512 forced host devices
+    to ``XLA_FLAGS``: the variable is put back at once (it is read when
+    JAX's backend starts, which the import does not do)."""
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        import repro.launch.dryrun as ref
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    return ref
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (1, 16)])
+def test_serve_rules_are_the_reference_decode_cell_composition(shape):
+    """For every registry arch and batch in {1, 4, 16}: ``serve_rules``
+    lays out every parameter as the reference's ``run_cell`` stores it
+    (``rules_for``'s storage rules) and, for the families whose cache
+    ``init_cache`` cuts to a rank's block, every KV cache leaf as it
+    decodes it (``decode_rules`` of the compute rules at the mesh's model
+    size), and its rules are ``decode_rules`` of the storage rules."""
+    import repro.configs as jax_configs
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.distributed import Mesh, ShardingRules
+    from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import (MESH_DECODE_FAMILIES,
+                                                cache_specs, model_specs)
+
+    ref = _reference_dryrun()
+    D, M = shape
+    mesh = Mesh(shape, ("data", "model"))
+    for arch in list_archs():
+        cfg, jcfg = get_config(arch), jax_configs.get_config(arch)
+        compute, storage = ref.rules_for(jcfg, False)
+        for batch in (1, 4, 16):
+            mine = dryrun.serve_rules(cfg, mesh, batch)
+            assert mine.rules == ref.decode_rules(jcfg, storage, batch,
+                                                  M).rules
+            ours = ShardingCtx(mesh, mine)
+            theirs_p = ShardingCtx(mesh, ShardingRules(storage.rules))
+            theirs_c = ShardingCtx(mesh, ShardingRules(ref.decode_rules(
+                jcfg, compute, batch, M).rules))
+            for key, sp in tree_leaves(model_specs(cfg)):
+                assert ours.spec(sp.logical, sp.shape) == theirs_p.spec(
+                    sp.logical, sp.shape), (arch, batch, key)
+            if cfg.family not in MESH_DECODE_FAMILIES:
+                continue
+            for key, sp in tree_leaves(cache_specs(cfg, batch, 4096, 8)):
+                # init_cache cuts the last four dims, the layers' stay whole
+                assert sp.logical[-4:] == KV_CACHE_LOGICAL, (arch, key)
+                assert _entries(ours.spec(KV_CACHE_LOGICAL, sp.shape[-4:]),
+                                4) == _entries(theirs_c.spec(
+                                    sp.logical, sp.shape), len(sp.shape)), (
+                    arch, batch, key)
+
+
+def _entries(spec, ndim: int) -> list:
+    """The axes of the last four of a spec's ``ndim`` dims, as tuples (a
+    spec leaves out its trailing whole dims)."""
+    from repro_torch.distributed.context import _axes
+
+    out = [tuple(_axes(e)) for e in spec]
+    return (out + [()] * (ndim - len(out)))[-4:]

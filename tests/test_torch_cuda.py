@@ -22,6 +22,10 @@ from repro_torch.kernels import (decode_attention, decode_attention_plain,
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: the partials mode merged at bf16, against the whole-cache kernel and the
+#: plain version: within one bf16 ulp (2^-7 of the value) of the largest
+#: entry, since each output is an f32 value rounded once
+PARTIALS_BF16_REL = 2.0 ** -7
 #: flash_attention at bf16: largest |out - ref| / |ref| over query rows
 FLASH_BF16_ROW_REL_TOL = 1e-2
 
@@ -148,6 +152,68 @@ def test_decode_attention_kernel_matches_plain(card, case, dtype):
     ref = decode_attention_plain(q, k, v, p, scale=scale, window=window)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    # qwen3-1.7b's B 1 x 32768 keys cut into 2 and 4 blocks (pos inside a
+    # block, on a boundary, blocks wholly past it); gemma3-1b's hd 256 with
+    # its window of 512 across a boundary
+    (1, 8, 2, 128, 32768, n, p, None) for n in (2, 4)
+    for p in (100, 16383, 16384, 20000)
+] + [(4, 1, 4, 256, 1024, n, 600, 512) for n in (2, 4)], ids=str)
+def test_decode_attention_partials_match_plain(card, case, dtype):
+    """The partials mode on each block of keys at its offset, merged by
+    the merge kernel: the whole-cache kernel's output and the plain
+    version's; each block's partials against the plain partials."""
+    from repro_torch.kernels import (decode_attention_merge,
+                                     decode_attention_merge_plain,
+                                     decode_attention_partials,
+                                     decode_attention_partials_plain)
+
+    B, KV, G, hd, S, n, pos, window = case
+    q = _randn((B, 1, KV * G, hd), dtype, card, 0)
+    k = _randn((B, S, KV, hd), dtype, card, 1)
+    v = _randn((B, S, KV, hd), dtype, card, 2)
+    p = torch.tensor(pos, dtype=torch.int32, device=card)
+    per = S // n
+    before = (decode_attention_partials.launches,
+              decode_attention_merge.launches)
+    blocks = [(k[:, i * per:(i + 1) * per].contiguous(),
+               v[:, i * per:(i + 1) * per].contiguous(), i * per)
+              for i in range(n)]
+    parts = torch.stack([decode_attention_partials(q, kb, vb, p, k_off=off,
+                                                   window=window)
+                         for kb, vb, off in blocks])
+    out = decode_attention_merge(parts, q, KV)
+    torch.cuda.synchronize()
+    assert (decode_attention_partials.launches,
+            decode_attention_merge.launches) == (before[0] + n, before[1] + 1)
+    whole = decode_attention(q, k, v, p, window=window)
+    ref = decode_attention_plain(q, k, v, p, window=window)
+
+    def close(got, want):
+        if dtype == torch.float32:
+            tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
+        else:   # one bf16 ulp at the largest entry: rounding, not a fault
+            tol = dict(atol=PARTIALS_BF16_REL * want.float().abs().max()
+                       .item(), rtol=0)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    close(out, whole)
+    close(out, ref)
+    bkvg = B * KV * G
+    for (kb, vb, off), got in zip(blocks, parts):
+        want = decode_attention_partials_plain(q, kb, vb, p, k_off=off,
+                                               window=window)
+        # the kernel's slices of the block against one plain slice: merged
+        if torch.isinf(want[:bkvg]).all():      # an empty block stays empty
+            n_split = got.numel() // (bkvg * (hd + 2))
+            assert torch.isinf(got[:bkvg * n_split]).all()
+        else:
+            close(decode_attention_merge_plain(got[None], q, KV),
+                  decode_attention_merge_plain(want[None], q, KV))
 
 
 #: (B, Sq, Sk, H, KV, hd, causal, window, scale) — the JAX sweep
@@ -467,8 +533,12 @@ def _card_config(arch, dtype="float32"):
 
 
 def _counts():
-    return {f.__name__: f.launches for f in (decode_attention, rmsnorm,
-                                             flash_attention, ssm_scan)}
+    from repro_torch.kernels import (decode_attention_merge,
+                                     decode_attention_partials)
+
+    return {f.__name__: f.launches for f in (
+        decode_attention, decode_attention_partials, decode_attention_merge,
+        rmsnorm, flash_attention, ssm_scan)}
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b", "zamba2-7b",

@@ -1,0 +1,461 @@
+"""Decode under a mesh for the dense and MoE families: the port's serving
+step on gloo ranks under ``launch.dryrun.serve_rules`` against the JAX
+reference's GSPMD decode on the same mesh.
+
+The rules are the reference's for a ``decode`` cell (``run_cell``):
+``rules_for`` of the registry arch, then ``decode_rules`` at the cell's
+batch and model size.  The port's ranks hold their blocks of the
+parameters and, from ``init_cache`` under the context, only their block
+of the KV cache; the reference jits ``repro.models.transformer.
+decode_step`` under ``activate`` on forced host devices.  Each case
+teacher-forces a prompt and decodes greedily to S_max tokens (reduced
+configs at f32, weights and prompts drawn with numpy, zero- and one-init
+leaves set off their init so that no path hides).  Held, on every rank:
+each step's logits within 1e-5 of their largest entry, the greedy tokens
+equal (through ``make_serve_step`` and ``generate(capture=False)``), and
+the rank's cache block equal to the reference's whole cache cut to that
+block after every step.
+
+The cases cover the four cache layouts of ``decode_rules`` (KV the KV
+heads, M the model axis): (a) B <= 8 with KV % M == 0, the cache split by
+sequence over ``data`` where the batch does not split (B 1) and by batch
+where it does; (b) B <= 8 with KV % M != 0, split by sequence over
+``model`` with every KV head on each rank (query heads gathered for the
+attention); (c) B > 8 with KV % M != 0; (d) B > 8 with KV % M == 0.
+gemma3 crosses its window of 16 over every block boundary; qwen2.5 and
+kimi store their dense leaves FSDP; olmoe and kimi route through the
+one-hot MoE path across ranks at capacities that drop pairs.  Two cases
+save their blocks as a sharded checkpoint and serve it again from
+``restore_checkpoint(shardings=)``, against the unsharded restore.
+
+In process: the partials mode's plain versions, cut into blocks at random
+offsets and merged, against the whole-cache plain version (and at one
+block, bit for bit against the split-K arithmetic); the layouts pinned
+from the specs; the families whose decode under a mesh waits, and the
+one-hot path under grad on a mesh of more than one rank, raise naming
+ROADMAP.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import reduced_config
+from repro_torch.distributed import Mesh, activate
+from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention_merge_plain, decode_attention_partials_plain,
+    decode_attention_plain, decode_attention_splitk_plain)
+from repro_torch.launch import dryrun
+from repro_torch.models import moe
+from repro_torch.models.common import init_params, tree_leaves
+from repro_torch.models.transformer import (decode_step, init_cache,
+                                            model_specs)
+from repro_torch.weights import unflatten
+from test_torch_dp_train import numpy_params
+from torch_ranks import (collect, collect_reference, spawn_ranks,
+                         spawn_reference)
+
+TOL = 1e-5
+#: name, arch, D, M, B, S_max, prompt_len, capacity factor, sharded save
+CASES = [
+    ("qwen3_1x2_b16", "qwen3-1.7b", 1, 2, 16, 16, 4, 1.25, False),
+    ("qwen3_2x2_b1", "qwen3-1.7b", 2, 2, 1, 16, 4, 1.25, True),
+    ("qwen3_2x2_b4", "qwen3-1.7b", 2, 2, 4, 16, 4, 1.25, False),
+    ("qwen3_1x4_b4", "qwen3-1.7b", 1, 4, 4, 16, 4, 1.25, False),
+    ("qwen3_1x4_b16", "qwen3-1.7b", 1, 4, 16, 16, 4, 1.25, False),
+    ("gemma3_1x2_b4", "gemma3-1b", 1, 2, 4, 40, 8, 1.25, False),
+    ("gemma3_1x4_b4", "gemma3-1b", 1, 4, 4, 40, 8, 1.25, False),
+    ("qwen25_2x2_b1", "qwen2.5-14b", 2, 2, 1, 16, 4, 1.25, False),
+    ("nemotron_1x4_b2", "nemotron-4-15b", 1, 4, 2, 16, 4, 1.25, False),
+    ("olmoe_2x2_b4", "olmoe-1b-7b", 2, 2, 4, 16, 4, 1.0, False),
+    ("olmoe_1x4_b16", "olmoe-1b-7b", 1, 4, 16, 16, 4, 1.0, False),
+    ("kimi_2x2_b1", "kimi-k2-1t-a32b", 2, 2, 1, 16, 4, 1.0, True),
+    ("kimi_2x2_b4", "kimi-k2-1t-a32b", 2, 2, 4, 16, 4, 1.0, False),
+]
+NAMES = [c[0] for c in CASES]
+BY_NAME = {c[0]: c for c in CASES}
+#: families whose decode under a mesh waits, on a data-only mesh whose
+#: rules split none of their dense leaves: name, arch, D, M, B, S_max,
+#: prompt_len -- the cache stays whole and every rank decodes the batch
+WHOLE = [
+    ("xlstm_2x1_b4", "xlstm-125m", 2, 1, 4, 8, 3),
+    ("zamba2_2x1_b4", "zamba2-7b", 2, 1, 4, 8, 3),
+]
+ARCHS = sorted({c[1] for c in CASES} | {c[1] for c in WHOLE})
+REF_PROCS = 3
+#: the layout each case is meant to exercise: (decode_rules case, the
+#: axes the cache's batch, keys and KV heads split over)
+LAYOUTS = {
+    "qwen3_1x2_b16": ("d", (), (), ("model",)),
+    "qwen3_2x2_b1": ("a", (), ("data",), ("model",)),
+    "qwen3_2x2_b4": ("a", ("data",), (), ("model",)),
+    "qwen3_1x4_b4": ("b", (), ("model",), ()),
+    "qwen3_1x4_b16": ("c", (), ("model",), ()),
+    "gemma3_1x2_b4": ("b", (), ("model",), ()),
+    "gemma3_1x4_b4": ("b", (), ("model",), ()),
+    "qwen25_2x2_b1": ("a", (), ("data",), ("model",)),
+    "nemotron_1x4_b2": ("b", (), ("model",), ()),
+    "olmoe_2x2_b4": ("a", ("data",), (), ("model",)),
+    "olmoe_1x4_b16": ("d", (), (), ("model",)),
+    "kimi_2x2_b1": ("a", (), ("data",), ("model",)),
+    "kimi_2x2_b4": ("a", ("data",), (), ("model",)),
+}
+
+
+def _cfg(name):
+    _, arch, _, _, _, _, _, cf, _ = BY_NAME[name]
+    return reduced_config(arch).replace(dtype="float32", capacity_factor=cf)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("decode_mesh")
+    rng = np.random.default_rng(25)
+    data = {}
+    for arch in ARCHS:
+        cfg = reduced_config(arch).replace(dtype="float32")
+        for k, s in tree_leaves(model_specs(cfg)):
+            v = numpy_params({k: s}, rng)[k]
+            if s.init in ("zeros", "ones"):     # off the init: no path hides
+                v = v + 0.1 * rng.standard_normal(v.shape).astype(np.float32)
+            data[f"{arch}/{k}"] = v
+    for name, arch, B, prompt_len in [(c[0], c[1], c[4], c[6])
+                                      for c in CASES + WHOLE]:
+        V = reduced_config(arch).vocab_size
+        data[f"prompt/{name}"] = rng.integers(
+            0, V, (B, prompt_len)).astype(np.int64)
+    inputs = os.path.join(str(tmp), "inputs.npz")
+    np.savez(inputs, **data)
+    cases = [list(c) for c in CASES]
+    refs = [spawn_reference("decode", 4, tmp, inputs,
+                            cases=[c[:8] for c in cases[i::REF_PROCS]])
+            for i in range(REF_PROCS)]
+    two = spawn_ranks("decode", 2, tmp, inputs=inputs, cases=cases,
+                      root=str(tmp), whole=[list(c) for c in WHOLE])
+    four = spawn_ranks("decode", 4, tmp, inputs=inputs, cases=cases,
+                       root=str(tmp))
+    ranks = {}
+    for res in collect(two, 120.0) + collect(four, 120.0):
+        for name, r in res.items():
+            ranks.setdefault(name, []).append(r)
+    ref = {}
+    for r in refs:
+        ref.update(collect_reference(r))
+    return data, ref, ranks, str(tmp)
+
+
+def _close(got: torch.Tensor, want: np.ndarray, what: str) -> None:
+    peak = float(np.abs(want).max())
+    err = float(np.abs(got.numpy() - want).max())
+    assert got.shape == want.shape and err <= TOL * max(peak, 1e-30), (
+        f"{what}: off by {err}, largest entry {peak}")
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_decode_matches_the_reference(runs, name):
+    _, ref, ranks, _ = runs
+    _, _, D, M, _, s_max, _, _, _ = BY_NAME[name]
+    assert len(ranks[name]) == D * M
+    want_toks = ref[f"{name}/tokens"]
+    for r in ranks[name]:
+        for t in range(s_max):
+            _close(r["logits"][t], ref[f"{name}/logits{t}"],
+                   f"{name} step {t} logits")
+        np.testing.assert_array_equal(r["tokens"].numpy(), want_toks)
+        assert torch.equal(r["generate"], r["tokens"])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_each_rank_holds_its_cache_block(runs, name):
+    """Every rank's cache leaves are its block only (the whole cache cut
+    as the layout says), equal to the reference's whole cache cut to that
+    block after every step; the layout is the one the case is for."""
+    _, ref, ranks, _ = runs
+    _, _, D, M, B, s_max, _, _, _ = BY_NAME[name]
+    cfg = _cfg(name)
+    _, rows_axes, seq_axes, head_axes = LAYOUTS[name]
+    parts = {(): 1, ("data",): D, ("model",): M}
+    covered = set()
+    for r in ranks[name]:
+        assert (r["batch_axes"], r["seq_axes"]) == (rows_axes, seq_axes)
+        (b0, b1), (k0, k1), (h0, h1) = r["block"]
+        assert (b1 - b0, k1 - k0, h1 - h0) == (
+            B // parts[rows_axes], s_max // parts[seq_axes],
+            cfg.n_kv_heads // parts[head_axes])
+        covered.add((b0, k0, h0))
+        for t in range(s_max):
+            for key, got in r["caches"][t].items():
+                want = ref[f"{name}/cache{t}/{key}"]
+                assert got.shape[-4:] == (b1 - b0, k1 - k0, h1 - h0, cfg.hd)
+                _close(got, want[..., b0:b1, k0:k1, h0:h1, :],
+                       f"{name} step {t} cache {key}")
+    assert len(covered) == parts[rows_axes] * parts[seq_axes] * parts[
+        head_axes]
+
+
+def _layout_case(cfg, B, M) -> str:
+    if B <= 8:
+        return "a" if cfg.n_kv_heads % M == 0 else "b"
+    return "c" if cfg.n_kv_heads % M else "d"
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_serve_rules_give_the_layout_of_the_case(name):
+    """The cache spec under ``serve_rules`` on a shape-only mesh (no ranks
+    needed): which ``decode_rules`` case applies and how the batch, the
+    keys and the KV heads split (``_dedupe`` gives ``data`` to the batch
+    where it divides, to the keys where it does not)."""
+    _, arch, D, M, B, s_max, _, _, _ = BY_NAME[name]
+    cfg = _cfg(name)
+    case, rows_axes, seq_axes, head_axes = LAYOUTS[name]
+    assert _layout_case(cfg, B, M) == case
+    mesh = Mesh((D, M), ("data", "model"))
+    ctx = ShardingCtx(mesh, dryrun.serve_rules(cfg.replace(name=arch),
+                                               mesh, B))
+    shape = (B, s_max, cfg.n_kv_heads, cfg.hd)
+    assert ctx.layout(KV_CACHE_LOGICAL, shape)[:3] == [
+        rows_axes, seq_axes, head_axes]
+
+
+def test_kv_blocks_are_found_by_batch_and_local_shape(monkeypatch):
+    """On (2, 2) under qwen3's rules at B 1, the rank at (data 1, model 0):
+    a B 1 x 32768 cache (split by sequence) and a B 2 x 16384 cache (split
+    by batch) both have blocks of [1, 16384, 4, 128]; each is found by its
+    batch.  A cache whose block another layout of the same batch already
+    claims raises when it is allocated: B 1 x 1025 keys do not split over
+    ``data`` and would look like B 1 x 2050 keys split."""
+    cfg = reduced_config("qwen3-1.7b").replace(
+        name="qwen3-1.7b", n_kv_heads=8, head_dim=128)
+    mesh = Mesh((2, 2), ("data", "model"))
+    monkeypatch.setattr(Mesh, "coordinate",
+                        lambda self: {"data": 1, "model": 0})
+    ctx = ShardingCtx(mesh, dryrun.serve_rules(cfg, mesh, 1))
+    seq = ctx.kv_block((1, 32768, 8, 128))
+    rows = ctx.kv_block((2, 16384, 8, 128))
+    assert seq.local_shape == rows.local_shape == (1, 16384, 4, 128)
+    assert (seq.k_off, seq.seq_axes, seq.batch_axes) == (16384, ("data",), ())
+    assert (rows.k_off, rows.seq_axes, rows.batch_axes) == (0, (), ("data",))
+    assert ctx.kv_block_of(1, (1, 16384, 4, 128)) is seq
+    assert ctx.kv_block_of(2, (1, 16384, 4, 128)) is rows
+    ctx.kv_block((1, 2050, 8, 128))
+    with pytest.raises(ValueError, match="another layout"):
+        ctx.kv_block((1, 1025, 8, 128))
+    with pytest.raises(ValueError, match="init_cache"):
+        ctx.kv_block_of(4, (1, 16384, 4, 128))
+
+
+def test_every_layout_case_is_exercised():
+    assert {v[0] for v in LAYOUTS.values()} == {"a", "b", "c", "d"}
+    assert any(v[2] == ("data",) for v in LAYOUTS.values())
+    assert any(v[2] == ("model",) for v in LAYOUTS.values())
+
+
+def test_gemma3_windows_cross_every_block_boundary():
+    """At the gemma3 cases' positions the window of 16 keys reaches over
+    each boundary between blocks (past the window, within S_max)."""
+    for name in ("gemma3_1x2_b4", "gemma3_1x4_b4"):
+        _, _, _, M, _, s_max, _, _, _ = BY_NAME[name]
+        cfg = _cfg(name)
+        assert cfg.attn_window == 16 and s_max > cfg.attn_window
+        per = s_max // M
+        for edge in range(per, s_max, per):
+            pos = edge + cfg.attn_window // 2
+            assert pos < s_max and pos - cfg.attn_window + 1 < edge
+
+
+@pytest.mark.parametrize("name", ["olmoe_2x2_b4", "olmoe_1x4_b16",
+                                  "kimi_2x2_b4"])
+def test_moe_cases_drop_pairs(runs, name, monkeypatch):
+    """The unsharded one-hot path over the reference's tokens drops
+    (token, slot) pairs at the case's capacity: the ranks' routing is
+    held where the capacity binds."""
+    data, ref, _, _ = runs
+    _, arch, _, _, B, s_max, _, _, _ = BY_NAME[name]
+    cfg = _cfg(name)
+    dropped = []
+    real = moe._slots
+
+    def counting(gate_idx, n, cap):
+        row, keep = real(gate_idx, n, cap)
+        dropped.append(int((~keep).sum()))
+        return row, keep
+
+    monkeypatch.setattr(moe, "_slots", counting)
+    params = unflatten({k[len(arch) + 1:]: torch.tensor(v)
+                        for k, v in data.items() if k.startswith(arch + "/")})
+    toks = torch.from_numpy(ref[f"{name}/tokens"]).long()
+    cache = init_cache(cfg, B, s_max, "cpu")
+    with torch.no_grad():
+        for t in range(s_max):
+            decode_step(params, cfg, cache, toks[:, t:t + 1],
+                        torch.tensor(t, dtype=torch.int32))
+    assert sum(dropped) > 0
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES if c[8]])
+def test_restore_then_serve(runs, name):
+    """The ranks' blocks saved as one sharded checkpoint, restored with
+    ``shardings=`` under ``serve_rules`` (every block as it was) and
+    served again: each step's logits as the unsharded restore's in this
+    process serves them, within 1e-5 of their largest entry."""
+    from repro_torch.checkpoint import restore_checkpoint
+
+    _, ref, ranks, root = runs
+    _, arch, _, _, B, s_max, _, _, _ = BY_NAME[name]
+    cfg = _cfg(name)
+    whole, step = restore_checkpoint(os.path.join(root, name),
+                                     model_specs(cfg), device="cpu")
+    assert step == 1
+    toks = torch.from_numpy(ref[f"{name}/tokens"]).long()
+    cache = init_cache(cfg, B, s_max, "cpu")
+    with torch.no_grad():
+        want = [decode_step(whole, cfg, cache, toks[:, t:t + 1],
+                            torch.tensor(t, dtype=torch.int32))[0].numpy()
+                for t in range(s_max)]
+    for r in ranks[name]:
+        assert r["restored_equal"]
+        for t in range(s_max):
+            _close(r["restored_logits"][t], want[t],
+                   f"{name} restored step {t}")
+
+
+def test_capture_on_a_gloo_mesh_raises(runs):
+    for name in NAMES:
+        for r in runs[2][name]:
+            for what in ("generate_raised", "captured_raised"):
+                assert r[what] is not None and "gloo" in r[what], (name, what)
+
+
+# -------------------------------------------------------- partials mode
+
+def _blocks(S, n, rng):
+    cuts = sorted(rng.choice(np.arange(1, S), n - 1, replace=False).tolist())
+    return list(zip([0] + cuts, cuts + [S]))
+
+
+def _qkv(B, H, KV, hd, S, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, 1, H, hd, generator=g),
+            torch.randn(B, S, KV, hd, generator=g),
+            torch.randn(B, S, KV, hd, generator=g))
+
+
+@pytest.mark.parametrize("n_blocks", [2, 4])
+@pytest.mark.parametrize("window", [None, 16])
+def test_partials_merged_over_blocks_equal_the_whole_cache(n_blocks,
+                                                           window):
+    """The cache cut into blocks at random offsets, each block's partials
+    at its offset, merged: the whole-cache plain version within 1e-6, at
+    a position inside each block, on each boundary (the block's first
+    and last key), with blocks wholly past the position, and with the
+    window straddling two blocks."""
+    rng = np.random.default_rng(n_blocks)
+    B, H, KV, hd, S = 2, 4, 2, 16, 64
+    q, k, v = _qkv(B, H, KV, hd, S, n_blocks)
+    blocks = _blocks(S, n_blocks, rng)
+    positions = {0, S - 1}
+    for lo, hi in blocks:
+        positions |= {lo, hi - 1, (lo + hi) // 2}
+    for pos in sorted(positions):
+        p = torch.tensor(pos, dtype=torch.int32)
+        parts = torch.stack([decode_attention_partials_plain(
+            q, k[:, lo:hi], v[:, lo:hi], p, k_off=lo, window=window)
+            for lo, hi in blocks])
+        got = decode_attention_merge_plain(parts, q, KV)
+        want = decode_attention_plain(q, k, v, p, window=window)
+        assert (got - want).abs().max().item() <= 1e-6, pos
+    # some block lies wholly past an early position: its m is -inf
+    p = torch.tensor(blocks[0][1] - 1, dtype=torch.int32)
+    last = decode_attention_partials_plain(
+        q, k[:, blocks[-1][0]:], v[:, blocks[-1][0]:], p,
+        k_off=blocks[-1][0], window=window)
+    mg = B * KV * (H // KV)
+    assert torch.isinf(last[:mg]).all() and (last[mg:] == 0).all()
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3])
+def test_partials_at_offset_zero_are_the_split_k_arithmetic(n_split):
+    """One block at offset 0: the partials merged equal
+    ``decode_attention_splitk_plain`` bit for bit."""
+    q, k, v = _qkv(2, 8, 2, 16, 48, 7)
+    for pos in (0, 17, 47):
+        for window in (None, 5):
+            p = torch.tensor(pos, dtype=torch.int32)
+            parts = decode_attention_partials_plain(
+                q, k, v, p, n_split=n_split, window=window)
+            got = decode_attention_merge_plain(parts[None], q, 2)
+            want = decode_attention_splitk_plain(q, k, v, p, n_split=n_split,
+                                                 window=window)
+            assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------- raises
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m",
+                                  "whisper-large-v3",
+                                  "llama-3.2-vision-11b"])
+def test_families_that_wait_raise_under_serve_rules(arch):
+    """Before any collective (a shape-only mesh has none)."""
+    from repro_torch.serve.step import CapturedServeStep
+
+    cfg = reduced_config(arch).replace(dtype="float32")
+    mesh = Mesh((1, 2), ("data", "model"))
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    with activate(mesh, dryrun.serve_rules(cfg, mesh, 4)):
+        for fn in (lambda: decode_step(params, cfg, {}, torch.zeros(
+                       (4, 1), dtype=torch.long), torch.zeros(
+                       (), dtype=torch.int32)),
+                   lambda: CapturedServeStep(cfg, params, 4, 8,
+                                             device="cpu")):
+            with pytest.raises(NotImplementedError) as e:
+                fn()
+            assert cfg.family in str(e.value)
+            assert "ROADMAP Queue 1 item 2" in str(e.value)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in WHOLE])
+def test_families_that_wait_decode_whole_on_a_data_mesh(runs, name):
+    """Where the rules split none of a waiting family's dense leaves (a
+    (2, 1) mesh), ``init_cache`` keeps its cache whole -- recurrent states
+    and KV leaves alike -- and every rank decodes the whole batch: each
+    step's logits and the greedy tokens as the unsharded step's here."""
+    from repro_torch.models.transformer import cache_specs
+
+    data, _, ranks, _ = runs
+    _, arch, D, M, B, s_max, _ = next(c for c in WHOLE if c[0] == name)
+    cfg = reduced_config(arch).replace(dtype="float32")
+    params = unflatten({k[len(arch) + 1:]: torch.tensor(v)
+                        for k, v in data.items() if k.startswith(arch + "/")})
+    shapes = {k: s.shape for k, s in tree_leaves(cache_specs(cfg, B, s_max))}
+    assert len(ranks[name]) == D * M
+    for r in ranks[name]:
+        assert r["shapes"] == shapes
+        cache = init_cache(cfg, B, s_max, "cpu")
+        with torch.no_grad():
+            for t in range(s_max):
+                want, _ = decode_step(params, cfg, cache,
+                                      r["tokens"][:, t:t + 1],
+                                      torch.tensor(t, dtype=torch.int32))
+                _close(r["logits"][t], want.numpy(), f"{name} step {t}")
+        prompt = torch.from_numpy(data[f"prompt/{name}"]).long()
+        assert torch.equal(r["tokens"][:, :prompt.shape[1]], prompt)
+        greedy = torch.stack([lg.argmax(-1) for lg in r["logits"]], dim=1)
+        assert torch.equal(r["tokens"][:, prompt.shape[1]:],
+                           greedy[:, prompt.shape[1] - 1:-1])
+
+
+def test_decode_under_a_mesh_raises_under_grad():
+    cfg = reduced_config("qwen3-1.7b").replace(dtype="float32")
+    mesh = Mesh((1, 1), ("data", "model"))
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    params["embed"].requires_grad_(True)
+    with activate(mesh, dryrun.serve_rules(cfg, mesh, 1)):
+        cache = init_cache(cfg, 1, 8, "cpu")
+        with pytest.raises(NotImplementedError, match="forward-only"):
+            decode_step(params, cfg, cache, torch.zeros((1, 1),
+                        dtype=torch.long), torch.zeros((), dtype=torch.int32))

@@ -24,8 +24,8 @@ from repro_torch.configs import reduced_config
 from repro_torch.distributed import Mesh, activate
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.moe import moe_block, moe_specs
-from torch_ranks import (BELOW_RULE, collect, collect_reference,
-                         spawn_ranks, spawn_reference)
+from torch_ranks import (BELOW_RULE, ONE_HOT_SHAPES, collect,
+                         collect_reference, spawn_ranks, spawn_reference)
 
 B, S = 4, 16
 MESHES = [(1, 1), (1, 4), (2, 2)]
@@ -139,24 +139,33 @@ def test_at_the_configs_capacity_the_paths_drop_different_pairs(runs, case):
         assert r["lb"].item() == pytest.approx(lb.item(), abs=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(4, 3), (1, 4)], ids=["S%M", "B*S<4M"])
-def test_the_one_hot_path_below_the_a2a_rule(shape):
+@pytest.mark.parametrize("shape", ONE_HOT_SHAPES, ids=["S%M", "B*S<4M"])
+def test_the_one_hot_path_below_the_a2a_rule(runs, shape):
     """Under a mesh the reference's rule still picks the one-hot path when
-    M does not divide S or the batch holds fewer than 4 M tokens.  On a
-    mesh of more than one rank the port raises there, naming the rule (a
-    rank holds its expert shards and batch rows; that path routes over all
-    of them); on one rank it is the one-hot path, exactly.  No collective
-    runs (a shape-only mesh suffices)."""
-    rng = np.random.default_rng(1)
+    M does not divide S or the batch holds fewer than 4 M tokens.  On four
+    gloo ranks of a (1, 4) mesh, each holding 2 of the 8 experts, every
+    rank gives the one-hot path's output and load-balance loss over the
+    whole batch (decode under a mesh).  With parameters that require grad
+    it raises, naming the rule and ROADMAP, before any collective (a
+    shape-only mesh suffices); on one rank it is the one-hot path,
+    exactly."""
+    data, _, ranks = runs
     cfg = _cfg(1.25)
-    p = {k: torch.from_numpy((rng.standard_normal(s.shape) * s.scale)
-                             .astype(np.float32))
-         for k, s in tree_leaves(moe_specs(cfg))}
-    x = torch.from_numpy(rng.standard_normal((*shape, cfg.d_model))
-                         .astype(np.float32))
+    p = {k: torch.from_numpy(data[k]) for k in ("router", "wi", "wg", "wo")}
+    x = torch.from_numpy(np.ascontiguousarray(data["x"][:shape[0],
+                                                        :shape[1]]))
+    with torch.no_grad():
+        want = moe_block(p, cfg, x)
+    got = [r[f"{shape[0]}x{shape[1]}"] for r in ranks["one_hot_1x4"]]
+    assert len(got) == 4
+    for y, lb in got:
+        _close(y, want[0].numpy(), OUT_TOL, "one-hot y")
+        assert abs(lb.item() - want[1].item()) <= 1e-6
+    grad_p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
     with activate(Mesh((1, 4), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="S % model == 0"):
-            moe_block(p, cfg, x)
+        with pytest.raises(NotImplementedError, match="S % model == 0") as e:
+            moe_block(grad_p, cfg, x)
+    assert "ROADMAP" in str(e.value)
     x = x[:1, :3]                       # B * S = 3 < 4 on a (1, 1) mesh
     want = moe_block(p, cfg, x)
     with activate(Mesh((1, 1), ("data", "model"))):
@@ -169,11 +178,23 @@ def test_the_one_hot_path_below_the_a2a_rule(shape):
                                   for D, M, f in BELOW_RULE])
 def test_sharded_experts_below_the_a2a_rule_raise(runs, mesh):
     """Four gloo ranks holding their expert shards (over model, and over
-    model and data with ``expert_mlp="data"``) at S 3, where M does not
-    divide S: every rank raises the rule instead of failing inside a
-    product on the wrong shapes."""
-    _, _, ranks = runs
+    model and data with ``expert_mlp="data"``) and their batch rows at S
+    3, where M does not divide S: without grad every rank's output is the
+    one-hot path's on its rows (the tokens gathered over the batch axes,
+    the FSDP partials reduced), with its load-balance loss; with
+    parameters that require grad every rank raises the rule instead of
+    failing inside a product on the wrong shapes."""
+    data, _, ranks = runs
+    cfg = _cfg(1.25)
+    p = {k: torch.from_numpy(data[k]) for k in ("router", "wi", "wg", "wo")}
+    with torch.no_grad():
+        y, lb = moe_block(p, cfg, torch.from_numpy(
+            np.ascontiguousarray(data["x"][:, :3])))
     got = [r[mesh] for r in ranks["below_rule"]]
     assert len(got) == 4
-    for raised in got:
+    for res in got:
+        rows = slice(*res["rows"])
+        _close(res["y"], y[rows].numpy(), OUT_TOL, f"{mesh} y")
+        assert abs(res["lb"].item() - lb.item()) <= 1e-6
+        raised = res["raised"]
         assert raised is not None and "S % model == 0" in raised

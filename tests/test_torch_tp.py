@@ -35,8 +35,11 @@ In process, with a shape-only mesh (no process group, so a collective
 would fail): the step raises ``NotImplementedError`` before any
 collective for the families whose tensor parallelism waits (zamba2,
 xlstm, whisper, llama-vision; ``forward`` too), for a ``seq_sp`` rule
-and for ``layers="pod"``; ``decode_step`` and ``CapturedServeStep`` raise under
-rules that split a dense leaf.  The port's ``rules_for`` /
+and for ``layers="pod"``.  Decode under rules that split a dense leaf
+(two gloo ranks) gives the unsharded step's logits and tokens, its
+captured step raises on the gloo mesh, and zamba2's decode still raises
+(``tests/test_torch_decode_mesh.py`` holds decode under a mesh against
+the reference).  The port's ``rules_for`` /
 ``opt_rules_for`` / ``decode_rules`` equal the reference's for every
 registry arch.
 """
@@ -249,21 +252,59 @@ def test_seq_sp_and_pipeline_rules_raise(what):
     assert "ROADMAP Queue 1 item 2" in msg
 
 
-def test_decode_under_rules_that_split_a_dense_leaf_raises():
+def test_decode_under_rules_that_split_a_dense_leaf_raises(tmp_path):
+    """Decode under rules that split dense leaves: for qwen3 it decodes
+    now (two gloo ranks on a (1, 2) mesh, heads, MLP and vocabulary split,
+    each rank's block of the cache; every rank's logits and greedy tokens
+    are the unsharded step's), and ``CapturedServeStep`` raises on that
+    gloo mesh and on a shape-only one; zamba2, whose tensor parallelism
+    waits, still raises naming ROADMAP.  On a (1, 1) mesh nothing is
+    split: the step decodes."""
     from repro_torch.serve.step import CapturedServeStep
 
     cfg = reduced_config("qwen3-1.7b").replace(dtype="float32")
-    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
-                         torch.float32, "cpu")
-    cache = init_cache(cfg, 1, 8, "cpu")
+    rng = np.random.default_rng(11)
+    data = {f"qwen3-1.7b/{k}": v
+            for k, v in numpy_params(model_specs(cfg), rng).items()}
+    data["prompt/decode"] = rng.integers(0, cfg.vocab_size,
+                                         (2, 3)).astype(np.int64)
+    inputs = os.path.join(str(tmp_path), "inputs.npz")
+    np.savez(inputs, **data)
+    ranks = collect(spawn_ranks(
+        "decode", 2, tmp_path, inputs=inputs, root=str(tmp_path),
+        cases=[["decode", "qwen3-1.7b", 1, 2, 2, 8, 3, 1.25, False]]))
+    params = unflatten({k.split("/", 1)[1]: torch.tensor(v)
+                        for k, v in data.items()
+                        if k.startswith("qwen3-1.7b/")})
+    toks = ranks[0]["decode"]["tokens"]
+    cache = init_cache(cfg, 2, 8, "cpu")
+    with torch.no_grad():
+        want = [decode_step(params, cfg, cache, toks[:, t:t + 1],
+                            torch.tensor(t, dtype=torch.int32))[0]
+                for t in range(8)]
+    for r in ranks:
+        r = r["decode"]
+        assert torch.equal(r["tokens"], toks)
+        assert r["block"][2] == (r["block"][2][0], r["block"][2][0] + 1)
+        for got, w in zip(r["logits"], want):
+            torch.testing.assert_close(got, w, atol=1e-5 * w.abs().max(),
+                                       rtol=0)
+        assert "gloo" in r["captured_raised"]
+    with activate(_shape_only(1, 2), dryrun.rules_for(cfg, False)[1]):
+        with pytest.raises(NotImplementedError, match="cannot be captured"):
+            CapturedServeStep(cfg, params, 1, 8, device="cpu")
+    zcfg = reduced_config("zamba2-7b").replace(dtype="float32")
+    zparams = init_params(model_specs(zcfg), torch.Generator().manual_seed(0),
+                          torch.float32, "cpu")
     tok = torch.zeros((1, 1), dtype=torch.long)
     pos = torch.zeros((), dtype=torch.int32)
-    with activate(_shape_only(1, 2), dryrun.rules_for(cfg, False)[1]):
+    with activate(_shape_only(1, 2), dryrun.rules_for(zcfg, False)[1]):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            decode_step(params, cfg, cache, tok, pos)
+            decode_step(zparams, zcfg, {}, tok, pos)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            CapturedServeStep(cfg, params, 1, 8, device="cpu")
+            CapturedServeStep(zcfg, zparams, 1, 8, device="cpu")
     # on a (1, 1) mesh nothing is split: the step decodes
+    cache = init_cache(cfg, 1, 8, "cpu")
     with activate(_shape_only(1, 1), dryrun.rules_for(cfg, False)[1]):
         logits, _ = decode_step(params, cfg, cache, tok, pos)
     assert logits.shape == (1, cfg.vocab_size)

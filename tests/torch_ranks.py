@@ -149,8 +149,12 @@ def moe(inputs: str, cases: list) -> dict:
     world's size: the objective mean_t(y_t . cot_t) + lb on this rank's
     batch rows, its gradients reduced to the global objective's (each
     rank's blocks).  On four ranks also ``below_rule``: per (D, M, fsdp)
-    in ``BELOW_RULE``, what ``moe_block`` on the expert shards raises at S
-    3, where M does not divide S and the one-hot path is chosen."""
+    in ``BELOW_RULE``, ``moe_block`` on the expert shards and this rank's
+    batch rows at S 3, where M does not divide S and the one-hot path is
+    chosen: its output and load-balance loss without grad, and what it
+    raises with parameters that require grad; and ``one_hot_1x4``: the
+    one-hot path on the (1, 4) mesh's expert shards at each of
+    ``ONE_HOT_SHAPES`` (below the a2a rule), without grad."""
     import torch.distributed as dist
 
     from repro_torch.configs import reduced_config
@@ -196,18 +200,37 @@ def moe(inputs: str, cases: list) -> dict:
         for D, M, fsdp in BELOW_RULE:
             with activate(_mesh((D, M)), _rules(fsdp)) as ctx:
                 p = _local(ctx, moe_specs(cfg), data)
+                bi, nb = ctx.batch_shard()
+                n = data["x"].shape[0] // nb
+                x = torch.from_numpy(np.ascontiguousarray(
+                    data["x"][bi * n:(bi + 1) * n, :3]))
+                with torch.no_grad():
+                    y, lb = moe_block(p, cfg, x)
                 try:
-                    moe_block(p, cfg, torch.from_numpy(data["x"][:, :3]))
+                    moe_block({k: v.requires_grad_(True)
+                               for k, v in p.items()}, cfg, x)
                     raised = None
                 except NotImplementedError as e:
                     raised = str(e)
-            out["below_rule"][f"{D}x{M}_fsdp{int(fsdp)}"] = raised
+            out["below_rule"][f"{D}x{M}_fsdp{int(fsdp)}"] = {
+                "y": y, "lb": lb, "rows": (bi * n, (bi + 1) * n),
+                "raised": raised}
+        out["one_hot_1x4"] = {}
+        with activate(_mesh((1, 4)), _rules()) as ctx, torch.no_grad():
+            p = _local(ctx, moe_specs(cfg), data)
+            for b, s in ONE_HOT_SHAPES:
+                x = torch.from_numpy(np.ascontiguousarray(
+                    data["x"][:b, :s]))
+                out["one_hot_1x4"][f"{b}x{s}"] = moe_block(p, cfg, x)
     return out
 
 
 #: meshes whose expert shards meet the one-hot path at S 3 (M does not
 #: divide S): experts over model, and over model and data (FSDP)
 BELOW_RULE = [(1, 4, False), (2, 2, True)]
+#: (B, S) below the a2a rule on a (1, 4) mesh: M does not divide S, and
+#: fewer than 4 M tokens
+ONE_HOT_SHAPES = [(4, 3), (1, 4)]
 
 
 def dp_train(inputs: str, cases: list) -> dict:
@@ -478,8 +501,121 @@ def restore(root: str, step: int, ports: list, arch: str, shape: list,
     return out
 
 
+def _serve_loop(step, params, cache, prompt, s_max):
+    """The serve step over a prompt, teacher-forced, then greedy to
+    ``s_max`` tokens, as ``launch.serve.generate`` runs it: the tokens,
+    the logits of every step and the cache's leaves after every step."""
+    toks, logits, caches, nxt = prompt, [], [], None
+    for t in range(s_max):
+        if t >= prompt.shape[1]:
+            toks = torch.cat([toks, nxt], dim=1)
+        nxt, lg, _ = step(params, cache, toks[:, t:t + 1],
+                          torch.tensor(t, dtype=torch.int32))
+        logits.append(lg.clone())
+        caches.append({k: v.clone() for k, v in tree_leaves(cache)})
+    return toks, logits, caches
+
+
+def decode(inputs: str, cases: list, root: str, whole: list = ()) -> dict:
+    """Decode under a mesh per case (name, arch, D, M, B, S_max,
+    prompt_len, cf, save) whose mesh has this world's size, under
+    ``launch.dryrun.serve_rules`` of the registry arch: each rank's blocks
+    of the parameters, ``init_cache`` under the context, then the serve
+    step over the prompt and greedy to S_max (tokens, each step's logits,
+    the cache's blocks after each step), the same through
+    ``generate(capture=False)``, this rank's ``KVBlock``, and what
+    ``generate(capture=True)`` and ``CapturedServeStep`` raise on the gloo
+    mesh.  With ``save``: the blocks saved as a sharded checkpoint under
+    ``root/NAME``, restored with ``shardings=`` under the same rules and
+    decoded again (its logits).  ``whole``: cases (name, arch, D, M, B,
+    S_max, prompt_len) of a family whose cache stays whole under a mesh
+    (rules that split none of its dense leaves): the tokens, each step's
+    logits and the cache's leaf shapes."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import serve_rules
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import local_tree, sharding_tree
+    from repro_torch.models.transformer import init_cache, model_specs
+    from repro_torch.serve.step import CapturedServeStep, make_serve_step
+    from repro_torch.weights import unflatten
+
+    data = dict(np.load(inputs))
+    out = {}
+    for name, arch, D, M, B, s_max, prompt_len, cf, save in cases:
+        if D * M != dist.get_world_size():
+            continue
+        cfg = reduced_config(arch).replace(dtype="float32",
+                                           capacity_factor=cf)
+        full = {k[len(arch) + 1:]: v for k, v in data.items()
+                if k.startswith(arch + "/")}
+        mesh = _mesh((D, M))
+        prompt = torch.from_numpy(data[f"prompt/{name}"]).long()
+        res = {}
+        with activate(mesh, serve_rules(cfg.replace(name=arch), mesh, B)) \
+                as ctx, torch.no_grad():
+            specs = model_specs(cfg)
+            params = unflatten(_local(ctx, specs, full))
+            cache = init_cache(cfg, B, s_max, "cpu")
+            step = make_serve_step(cfg)
+            res["tokens"], res["logits"], res["caches"] = _serve_loop(
+                step, params, cache, prompt, s_max)
+            blk = ctx.kv_block((B, s_max, cfg.n_kv_heads, cfg.hd))
+            res["block"] = [(sl.start, sl.stop)
+                            for sl in (blk.rows, blk.keys, blk.heads)]
+            res["seq_axes"], res["batch_axes"] = blk.seq_axes, blk.batch_axes
+            res["generate"] = generate(cfg, params, prompt, s_max - prompt_len,
+                                       device="cpu", capture=False)
+            for what, fn in (
+                    ("generate", lambda: generate(cfg, params, prompt, 1,
+                                                  device="cpu")),
+                    ("captured", lambda: CapturedServeStep(
+                        cfg, params, B, s_max, device="cpu"))):
+                try:
+                    fn()
+                    res[f"{what}_raised"] = None
+                except NotImplementedError as e:
+                    res[f"{what}_raised"] = str(e)
+            if save:
+                shardings = sharding_tree(specs)
+                d = os.path.join(root, name)
+                save_checkpoint(d, 1, params, shardings=shardings)
+                back, _ = restore_checkpoint(d, specs, device="cpu",
+                                             shardings=shardings)
+                restored = local_tree(back)
+                res["restored_equal"] = all(
+                    torch.equal(a, b) for (_, a), (_, b) in zip(
+                        tree_leaves(restored), tree_leaves(params)))
+                cache = init_cache(cfg, B, s_max, "cpu")
+                _, res["restored_logits"], _ = _serve_loop(
+                    step, restored, cache, prompt, s_max)
+        out[name] = res
+    for name, arch, D, M, B, s_max, prompt_len in whole:
+        if D * M != dist.get_world_size():
+            continue
+        cfg = reduced_config(arch).replace(dtype="float32")
+        full = {k[len(arch) + 1:]: v for k, v in data.items()
+                if k.startswith(arch + "/")}
+        mesh = _mesh((D, M))
+        prompt = torch.from_numpy(data[f"prompt/{name}"]).long()
+        with activate(mesh, serve_rules(cfg.replace(name=arch), mesh, B)) \
+                as ctx, torch.no_grad():
+            params = unflatten(_local(ctx, model_specs(cfg), full))
+            cache = init_cache(cfg, B, s_max, "cpu")
+            toks, logits, _ = _serve_loop(make_serve_step(cfg), params,
+                                          cache, prompt, s_max)
+            out[name] = {"tokens": toks, "logits": logits,
+                         "shapes": {k: tuple(v.shape)
+                                    for k, v in tree_leaves(cache)}}
+    return out
+
+
 PROGRAMS = {"moe": moe, "dp_train": dp_train, "tp_train": tp_train,
-            "compression": compression, "restore": restore}
+            "compression": compression, "restore": restore,
+            "decode": decode}
 
 
 def _main(program: str, rank: int, world: int, init: str, out: str) -> None:
