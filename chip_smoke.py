@@ -242,6 +242,23 @@ Phases (one JSON line each, ``"phase"`` names them):
    (``decode_partials_phase``; bf16 within one bf16 ulp of the largest
    entry, PARTIALS_BF16_REL), and checks that the hold fails when the
    block holding ``pos`` is left out of the merge.
+22. The hybrid and xLSTM families under a mesh, last in the distributed
+   phase, on two gloo ranks spawned once (``--gloo-program recurrent``).
+   ``dist_tp_zamba2``: zamba2-7b at full width with 7 of its 81 layers
+   (one hybrid group and one tail Mamba2 block), tensor parallel on (1,
+   2) under ``rules_for`` (56 of 112 SSM heads a rank, ``w_in``'s storage
+   block multiplied and the projection gathered, the gated norm's sum of
+   squares all-reduced, the shared block's heads and MLP, the vocabulary),
+   TP_STEPS steps of B 1 x S 2048 at bf16 and of B 1 x S 512 at f32;
+   ``dist_tp_xlstm``: xlstm-125m at full size (the mLSTM's ``d_in`` over
+   ``model``), B 2 x S 256 at bf16, 2 layers at f32; each against this
+   process's run of the same batches on the 1-rank mesh, as
+   ``dist_tp_qwen3`` holds it.  ``dist_decode_zamba2`` /
+   ``dist_decode_xlstm``: the same depths under ``serve_rules`` on (1, 2)
+   and on (2, 1) (the batch rows and their recurrent states over
+   ``data``), B 4, DECODE_STEPS steps, f32 and bf16, held as
+   ``dist_decode_phase`` holds its runs; each rank's cache bytes beside
+   the whole cache's.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -899,14 +916,19 @@ FLASH_CASES = (
 #: continuity) and zamba2-7b's shape; then the chunk-parallel kernel's
 #: edges: B > 1 at full width (groups of 8 chunks), one step past a chunk
 #: with H odd, a single ragged chunk (one group, no state launch), and dt x
-#: 10 so that exp(cum) underflows inside a chunk
+#: 10 so that exp(cum) underflows inside a chunk; last, the shape one rank
+#: of dist_tp_zamba2 launches (56 of the 112 heads, S 2048)
 SSM_CASES = ([(2, 256, 8, 32, 16, c) for c in (32, 64, 128)]
              + [(2, 256, h, p, 16, 64) for h, p in ((4, 16), (8, 64),
                                                     (16, 32))]
              + [(2, 200, 8, 32, 16, 64), (2, 512, 8, 32, 16, 128),
                 (1, 300, 4, 64, 64, 128), (1, 4096, 112, 64, 64, 128)]
              + [(2, 4096, 112, 64, 64, 128), (1, 129, 3, 64, 64, 128),
-                (1, 64, 112, 64, 64, 128), (1, 2048, 16, 64, 64, 128, 10.0)])
+                (1, 64, 112, 64, 64, 128), (1, 2048, 16, 64, 64, 128, 10.0)]
+             + [(1, 2048, 56, 64, 64, 128)])
+#: ssm_scan timed at zamba2-7b's prefill shape, then at one TP rank's
+SSM_TIME_SHAPES = (("zamba2-7b", (1, 4096, 112, 64, 64, 128)),
+                   ("zamba2-7b TP rank (1, 2)", (1, 2048, 56, 64, 64, 128)))
 #: tolerances of the JAX package's SSD-scan tests, by output dtype
 SSM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
@@ -1142,27 +1164,32 @@ def ssm_kernel_phase(torch, K, dev, record, worst, ptxas):
                    f"x {str(x_dt)[6:]}", dt_name, y, ref, SSM_TOL)
             del args, y, ref
 
-    B, S, H, P, N, Q = 1, 4096, 112, 64, 64, 128
-    args = inputs(B, S, H, P, N, bf16)
-    ms, eager = cuda_time_ms(
-        torch, lambda: K.ssm_scan(*args, chunk=Q, out_dtype=f32), 20)
-    plain, _ = cuda_time_ms(
-        torch, lambda: K.ssm_scan_plain(*args, chunk=Q, out_dtype=f32), 2)
-    phases = kernel_times_by_name(
-        torch, lambda: K.ssm_scan(*args, chunk=Q, out_dtype=f32), 20,
-        "ssm_scan")
-    nbytes, flops = ssm_bound(B, S, H, P, N, Q)
-    bnd, by = bound_ms(nbytes, flops, "bfloat16")
-    shape = f"B{B} S{S} H{H} P{P} N{N} chunk{Q} x bf16 y f32"
-    groups = K.plan_groups(S, Q, B * H, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    emit("kernel_time", kernel="ssm_scan", path="zamba2-7b", shape=shape,
-         ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
-         library="none (no single PyTorch call computes the SSD scan)",
-         bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
-         chunks_per_group=groups, phase_ms_per_call=phases,
-         phase_ms_sum=sum(phases.values()),
-         ptxas=ptxas_of(ptxas, "ssm_scan"))
+    timed = []
+    for path, (B, S, H, P, N, Q) in SSM_TIME_SHAPES:
+        args = inputs(B, S, H, P, N, bf16)
+        ms, eager = cuda_time_ms(
+            torch, lambda: K.ssm_scan(*args, chunk=Q, out_dtype=f32), 20)
+        plain, _ = cuda_time_ms(
+            torch, lambda: K.ssm_scan_plain(*args, chunk=Q, out_dtype=f32),
+            2)
+        phases = kernel_times_by_name(
+            torch, lambda: K.ssm_scan(*args, chunk=Q, out_dtype=f32), 20,
+            "ssm_scan")
+        nbytes, flops = ssm_bound(B, S, H, P, N, Q)
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        shape = f"B{B} S{S} H{H} P{P} N{N} chunk{Q} x bf16 y f32"
+        groups = K.plan_groups(S, Q, B * H, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        emit("kernel_time", kernel="ssm_scan", path=path, shape=shape,
+             ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
+             library="none (no single PyTorch call computes the SSD scan)",
+             bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
+             chunks_per_group=groups, phase_ms_per_call=phases,
+             phase_ms_sum=sum(phases.values()),
+             ptxas=ptxas_of(ptxas, "ssm_scan"))
+        timed.append((ms, eager, plain, bnd, by, shape, phases))
+        del args
+    ms, eager, plain, bnd, by, shape, phases = timed[0]
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:79",
@@ -1170,7 +1197,9 @@ def ssm_kernel_phase(torch, K, dev, record, worst, ptxas):
             "max_abs_err_by_dtype": worst["ssm_scan"], "tol": SSM_TOL,
             "ms": ms, "eager_ms": eager, "plain_ms": plain, "bound_ms": bnd,
             "bound_by": by, "library_ms": None, "timed_shape": shape,
-            "phase_ms_per_call": phases, "ptxas": ptxas_of(ptxas, "ssm_scan")}
+            "phase_ms_per_call": phases, "ptxas": ptxas_of(ptxas, "ssm_scan"),
+            "tp_rank": dict(zip(("ms", "eager_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "timed_shape"), timed[1][:6]))}
 
 
 # ------------------------------------------------------------------ geometry
@@ -4832,6 +4861,7 @@ def _decode_run(torch, K, cfg, params, dev, B, s_max, p0, first,
     step = make_serve_step(cfg)
     with torch.inference_mode():
         cache = init_cache(cfg, B, s_max, dev)
+        cache_bytes = _cache_bytes(cache)
         _fill_prefix(torch, cfg, cache, B, s_max, p0, ctx)
         toks, logits, ms = [first], [], []
         torch.cuda.synchronize()
@@ -4848,8 +4878,19 @@ def _decode_run(torch, K, cfg, params, dev, B, s_max, p0, first,
             logits.append(lg.cpu())
         launches = mesh_counts(K)
     return {"tokens": torch.cat(toks, dim=1).cpu(), "logits": logits,
-            "ms": ms, "launches": launches,
+            "ms": ms, "launches": launches, "cache_bytes": cache_bytes,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _cache_bytes(cache) -> dict:
+    """A cache tree's bytes: its KV leaves' and its recurrent states'."""
+    from repro_torch.models.common import tree_leaves
+
+    out = {"kv": 0, "states": 0}
+    for key, t in tree_leaves(cache):
+        kind = "kv" if key.rsplit("/", 1)[-1] in ("k", "v") else "states"
+        out[kind] += t.numel() * t.element_size()
+    return out
 
 
 def _rel_err(torch, got: list, want: list) -> float:
@@ -4882,7 +4923,17 @@ def _decode_hold(torch, got: dict, ref: dict, dtype: str) -> dict:
             "argmax_agree": f"{agree}/{n}", "tokens_equal": equal,
             "one_rank_err": ref.get("one_rank_err"),
             "ms_per_step": statistics.median(got["ms"][1:]),
-            "peak_gb": got["peak_gb"], "launches": got["launches"]}
+            "peak_gb": got["peak_gb"], "launches": got["launches"],
+            "cache_bytes": got["cache_bytes"]}
+
+
+def _dist_config(arch: str):
+    """``arch``'s registry config with its depth cut to DIST_LAYERS where
+    a distributed phase cuts it."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=DIST_LAYERS.get(arch, cfg.n_layers))
 
 
 def _decode_one_rank(torch, K, dev, runs, out: str) -> dict:
@@ -4891,12 +4942,11 @@ def _decode_one_rank(torch, K, dev, runs, out: str) -> dict:
     its rounding): greedy from seeded first tokens, and for each bf16 run
     the f32 model forced on its tokens.  What the ranks hold against goes
     to ``out/ref.pt``; the runs' numbers are returned."""
-    from repro_torch.configs import get_config
     from repro_torch.models.common import tree_map
 
     ref, mine = {}, {}
     for arch in dict.fromkeys(r[0] for r in runs):
-        cfg = get_config(arch)
+        cfg = _dist_config(arch)
         p32 = _decode_draw(torch, cfg.replace(dtype="float32"), dev,
                            "float32")
         for dtype in ("float32", "bfloat16"):
@@ -4925,6 +4975,7 @@ def _decode_one_rank(torch, K, dev, runs, out: str) -> dict:
                 mine[key] = {
                     "ms_per_step": statistics.median(r["ms"][1:]),
                     "peak_gb": r["peak_gb"], "launches": r["launches"],
+                    "cache_bytes": r["cache_bytes"],
                     "err_from_f32": ref[key].get("one_rank_err")}
             del params
         del p32
@@ -4960,7 +5011,6 @@ def _decode_ranks(torch, K, dev, runs, shape, out: str,
     bf16 run's tokens.  ``faults``: (run key, dropped blocks) -- that run
     again with each block left out of the merge (``_DroppedBlock``), its
     distance from f32 recorded beside the sound run's."""
-    from repro_torch.configs import get_config
     from repro_torch.distributed import activate
     from repro_torch.launch.dryrun import serve_rules
     from repro_torch.launch.mesh import make_local_mesh
@@ -4969,7 +5019,7 @@ def _decode_ranks(torch, K, dev, runs, shape, out: str,
     ref = torch.load(os.path.join(out, "ref.pt"), mmap=True)
     res, params, drawn = {}, None, None
     for arch, dtype, tag, B, s_max, p0, held in runs:
-        cfg = get_config(arch).replace(dtype=dtype)
+        cfg = _dist_config(arch).replace(dtype=dtype)
         with activate(mesh, serve_rules(cfg, mesh, B)) as ctx:
             if drawn != (arch, dtype):
                 params = None
@@ -5166,11 +5216,333 @@ def serve_graph_mesh_phase(torch, K, dev, mesh) -> dict:
     return launches
 
 
+# ------------------------------------------ hybrid and xLSTM under a mesh
+
+#: dist_tp_zamba2 / dist_tp_xlstm / dist_decode_zamba2 /
+#: dist_decode_xlstm: two gloo ranks, spawned once for the four phases.
+#: Depth a phase runs at (zamba2-7b: one hybrid group of six Mamba2 blocks
+#: and the shared attention block, plus one tail Mamba2 block, 81 -> 7;
+#: xlstm-125m whole)
+DIST_LAYERS = {"zamba2-7b": 7}
+#: per arch: (bf16 train shape, the f32 hold's config changes, its shape)
+#: -- zamba2 B 1 x S 2048; xlstm B 2 x S 64 (its time loop is bound by
+#: the host's launches; S 256 took four times as long, PERF.md); the f32 holds
+#: run 2 layers: zamba2 as two (Mamba2, shared attention) groups (its
+#: period cut 6 -> 1, so the shared block runs), xlstm one mLSTM + sLSTM
+#: group.  zamba2 amplifies rounding: at 7 layers the TP run's reordered
+#: sums moved its f32 gradients past TP_F32_TOL (PERF.md), so each
+#: f32 hold also reports the one-rank gradients' move under weights moved
+#: by 1e-7 of themselves (``floor``)
+RECURRENT_TP = {"zamba2-7b": ((1, 2048), {"n_layers": 2,
+                                          "hybrid_period": 1}, (1, 512)),
+                "xlstm-125m": ((2, 64), {"n_layers": 2}, (2, 128))}
+#: the bf16 gradient hold: a rank's gradient blocks, as one vector, no
+#: farther from the f32 gradient of the same weights (1 - cosine) than
+#: this many times the one-rank bf16 run's (``hold_kernel_path``'s factor)
+TP_BF16_FACTOR = 2.0
+RECURRENT_ARCHS = tuple(RECURRENT_TP)
+#: decode: B 4 from position 0 for DECODE_STEPS steps, on (1, 2) (heads,
+#: d_inner and vocabulary over model) and on (2, 1) (the batch rows, and
+#: every recurrent state with them, over data)
+RECURRENT_DECODE_B = 4
+RECURRENT_MESHES = ((1, 2), (2, 1))
+RECURRENT_SEED = 263
+
+
+def _recurrent_tp_cfgs(arch: str):
+    shape, f32_cfg, shape32 = RECURRENT_TP[arch]
+    cfg = _dist_config(arch)
+    return ((("bf16", cfg, shape, RECURRENT_SEED),
+             ("f32", cfg.replace(dtype="float32", **f32_cfg), shape32,
+              RECURRENT_SEED + 2)))
+
+
+def _recurrent_tp_runs(torch, K, dev, mesh, arch) -> dict:
+    """``arch``'s bf16 and f32 TP runs on ``mesh`` (``_sharded_train``),
+    each record with its step-0 gradients (on the host) and its slices."""
+    res = {}
+    for tag, c, shape, seed in _recurrent_tp_cfgs(arch):
+        state, slices, rec = _sharded_train(
+            torch, K, c, dev, mesh, _tp_opt(TP_STEPS), seed,
+            _tp_batches(torch, c, dev, shape, seed + 1))
+        del state
+        torch.cuda.empty_cache()
+        rec["slices"] = slices
+        res[tag] = rec
+    return res
+
+
+def _grads0(torch, cfg, dev, seed: int, tokens, move: float = 0.0) -> dict:
+    """Step 0's gradients in f32, on the host, of ``cfg``'s weights as
+    ``_sharded_train`` draws them from ``seed`` (upcast), on the global
+    batch ``tokens``; with ``move`` each weight moved by that much of
+    itself times a seeded normal draw."""
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.transformer import lm_loss, model_specs
+    from repro_torch.weights import unflatten
+
+    full = init_params(model_specs(cfg), torch.Generator(
+        device=dev).manual_seed(seed), cfg.torch_dtype, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    flat = {}
+    for k, t in tree_leaves(full):
+        t = t.float()
+        if move:
+            t = t * (1 + move * torch.randn(t.shape, generator=gen,
+                                            device=dev))
+        flat[k] = t.requires_grad_(True)
+    del full
+    loss = lm_loss(unflatten(flat), cfg.replace(dtype="float32"),
+                   {"tokens": tokens})
+    keys = sorted(flat)
+    grads = torch.autograd.grad(loss, [flat[k] for k in keys])
+    out = {k: g.cpu() for k, g in zip(keys, grads)}
+    del flat, grads, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_from(torch, got, want) -> float:
+    """The largest absolute difference relative to ``want``'s largest
+    entry."""
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def _hold_tp(torch, tag: str, rec: dict, one: dict, g32) -> tuple:
+    """A rank's TP run against the one-rank run: (ok, numbers).  f32:
+    every step's loss, step 0's clip norm and step 0's gradient of every
+    leaf on the rank's block within TP_F32_TOL relative, beside the
+    one-rank gradients' move under weights moved by 1e-7 (``floor``); the
+    later clip norms reported (after an update zamba2's move by rounding
+    amplified, as the reference's own layouts' do on the CPU).  bf16: every
+    loss within TP_LOSS_RTOL, and the rank's gradient blocks, all leaves as
+    one vector, no farther from the f32 gradient of the same weights
+    (``g32``; 1 - cosine) than TP_BF16_FACTOR times the one-rank bf16
+    run's blocks; each leaf's cosine against the one-rank run's reported
+    (Mamba2's per-head leaves are sums of 2048 x 64 products that cancel,
+    which bf16 rounds far from f32 on one rank as on two: a leaf's bf16
+    cosine does not tell a fault from rounding, the f32 hold does)."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                 one["losses"]))
+    gn = [abs(a - b) / abs(b) for a, b in zip(rec["grad_norms"],
+                                              one["grad_norms"])]
+    if tag == "f32":
+        worst = max(((k, _dist_from(torch, g, one["grads0"][k][
+            rec["slices"][k]].float())) for k, g in rec["grads0"].items()),
+            key=lambda kv: kv[1])
+        ok = rel <= TP_F32_TOL and gn[0] <= TP_F32_TOL \
+            and worst[1] <= TP_F32_TOL
+        return ok, {"loss_rel_err": rel, "grad_norm_rel_err": gn,
+                    "worst_leaf": worst, "floor": one["floor"]}
+    cos, sums = {}, dict.fromkeys(("tp.f32", "one.f32", "tp.tp", "one.one",
+                                   "f32.f32", "tp.one"), 0.0)
+    for k, g in rec["grads0"].items():
+        sl = rec["slices"][k]
+        v = {"tp": g.float().reshape(-1),
+             "one": one["grads0"][k][sl].float().reshape(-1),
+             "f32": g32[k][sl].reshape(-1)}
+        for key in sums:
+            a, b = key.split(".")
+            sums[key] += float(v[a] @ v[b])
+        cos[k] = float(torch.nn.functional.cosine_similarity(
+            v["tp"], v["one"], dim=0))
+    cosine = {pair: sums[f"{a}.{b}"] / math.sqrt(
+        sums[f"{a}.{a}"] * sums[f"{b}.{b}"]) for pair, (a, b) in (
+        ("tp_vs_f32", ("tp", "f32")), ("one_rank_vs_f32", ("one", "f32")),
+        ("tp_vs_one_rank", ("tp", "one")))}
+    ok = rel <= TP_LOSS_RTOL and 1 - cosine["tp_vs_f32"] <= \
+        TP_BF16_FACTOR * (1 - cosine["one_rank_vs_f32"])
+    return ok, {"loss_rel_err": rel, "grad_norm_rel_err": gn,
+                "gradient_cosine": cosine,
+                "least_leaf_cosines_vs_one_rank": sorted(
+                    cos.items(), key=lambda kv: kv[1])[:4],
+                "leaves_below_cos_min": sum(c <= TP_COS for c in
+                                            cos.values())}
+
+
+def _decode_runs_recurrent():
+    return [(arch, dt, "b4", RECURRENT_DECODE_B, DECODE_STEPS, 0, True)
+            for arch in RECURRENT_ARCHS for dt in ("float32", "bfloat16")]
+
+
+def recurrent_rank(torch, K, dev, rank: int, out: str) -> dict:
+    """``--gloo-program recurrent``: one of two ranks of dist_tp_zamba2,
+    dist_tp_xlstm (a (1, 2) mesh: the runs and their step-0 gradient
+    blocks, held by the main process) and dist_decode_zamba2 /
+    dist_decode_xlstm (on (1, 2), then on (2, 1), held against this
+    process's one-rank runs saved in ``out``)."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(1, 2, device=dev)
+    res = {arch: _recurrent_tp_runs(torch, K, dev, mesh, arch)
+           for arch in RECURRENT_ARCHS}
+    for shape in RECURRENT_MESHES:
+        res[shape] = _decode_ranks(torch, K, dev, _decode_runs_recurrent(),
+                                   shape, out)
+    return res
+
+
+def _recurrent_launches(cfg, train: bool, seq_split: bool = False) -> dict:
+    """Each kernel's launches a step of a hybrid or ssm config: a train
+    step with remat="full" runs each group's blocks forward and again in
+    the recompute, the tail's once, and the final norm; a decode step
+    every block once, its shared attention through the partials mode
+    where the cache splits by sequence."""
+    from repro_torch.models.transformer import program_for
+
+    grp, n_groups, rem = program_for(cfg)
+    out = dict.fromkeys(KERNELS + MESH_KERNELS, 0)
+    for kinds, times in ((grp, (2 if train else 1) * n_groups), (rem, 1)):
+        for kind in kinds:
+            out["rmsnorm"] += times * (2 if kind == "shared_attn" or (
+                kind == "slstm" and cfg.d_ff > 0) else 1)
+            if kind == "mamba" and train:
+                out["ssm_scan"] += times
+            if kind == "shared_attn":
+                names = ("flash_attention",) if train else (
+                    MESH_KERNELS if seq_split else ("decode_attention",))
+                for name in names:
+                    out[name] += times
+    out["rmsnorm"] += 1
+    return out
+
+
+def dist_recurrent_phase(torch, K, dev, mesh) -> dict:
+    """``dist_tp_zamba2`` / ``dist_tp_xlstm``: zamba2-7b at full width
+    (7 of its 81 layers: one hybrid group and one tail block) and
+    xlstm-125m at full size, tensor parallel over two gloo ranks on the
+    card ((1, 2): 56 of 112 SSM heads, 16 of 32 shared-block heads, 7,168
+    of 14,336 MLP columns and 16,000 of 32,000 vocabulary rows a rank for
+    zamba2; the mLSTM's 768 of 1,536 ``d_in`` columns and 25,152 of 50,304
+    vocabulary rows for xlstm), against this process's run of the same
+    batches on the 1-rank NCCL (1, 1) mesh at bf16 and at f32, as
+    ``dist_tp_qwen3`` holds them.  ``dist_decode_zamba2`` /
+    ``dist_decode_xlstm``: decode under ``serve_rules`` on (1, 2) and on
+    (2, 1) (each rank's batch rows, with their recurrent states), f32 and
+    bf16, DECODE_STEPS steps, against this process's one-rank runs as
+    ``dist_decode_phase`` holds them; each rank's cache bytes (recurrent
+    states, KV) beside the whole cache's.  One spawn of two ranks runs the
+    four phases.  Returns the launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
+    from repro_torch.launch.dryrun import serve_rules
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_recurrent_")
+    failed = []
+    try:
+        one, g32 = {}, {}
+        for arch in RECURRENT_ARCHS:
+            one[arch] = _recurrent_tp_runs(torch, K, dev, mesh, arch)
+            (_, c, shape, seed), (_, c32, shape32, seed32) = \
+                _recurrent_tp_cfgs(arch)
+            g32[arch] = _grads0(torch, c, dev, seed, _tp_batches(
+                torch, c, dev, shape, seed + 1)[0])
+            moved = _grads0(torch, c32, dev, seed32, _tp_batches(
+                torch, c32, dev, shape32, seed32 + 1)[0], move=1e-7)
+            one[arch]["f32"]["floor"] = max(
+                ((k, _dist_from(torch, g, one[arch]["f32"]["grads0"][k]))
+                 for k, g in moved.items()), key=lambda kv: kv[1])
+            del moved
+        runs = _decode_runs_recurrent()
+        one_dec = _decode_one_rank(torch, K, dev, runs, out)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(torch, "recurrent", 2, out)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    by_path = {}
+    for arch in RECURRENT_ARCHS:
+        phase = f"dist_tp_{arch.split('-')[0]}"
+        report, recs = {}, []
+        for tag, c, shape, _ in _recurrent_tp_cfgs(arch):
+            want = {k: TP_STEPS * n for k, n in _recurrent_launches(
+                c, True).items() if k in KERNELS}
+            mine = one[arch][tag]
+            for r, res in enumerate(ranks):
+                rec = res[arch][tag]
+                ok, numbers = _hold_tp(torch, tag, rec, mine,
+                                       g32[arch] if tag == "bf16" else None)
+                bad = [name for name, n in want.items()
+                       if rec["launches"][name] != n]
+                if not (ok and not bad and rec["device"].startswith("cuda")):
+                    failed.append(f"{phase} {tag}: rank {r} on "
+                                  f"{rec['device']}, launches {bad} off "
+                                  f"({rec['launches']} vs {want}): "
+                                  f"{numbers}")
+                report.setdefault(tag, []).append({
+                    "ok": ok, "losses": rec["losses"],
+                    "ms_per_step": rec["ms"], "peak_gb": rec["peak_gb"],
+                    "launches": rec["launches"], **numbers})
+                recs.append(rec)
+            report[f"{tag}_one_rank"] = {
+                "losses": mine["losses"], "ms_per_step": mine["ms"],
+                "peak_gb": mine["peak_gb"], "n_layers": c.n_layers,
+                "batch": shape[0], "seq": shape[1]}
+        emit(phase, arch=arch, full_n_layers=get_config(arch).n_layers,
+             steps=TP_STEPS, mesh=[1, 2], backend="gloo (through the host, "
+             "two ranks on one card, not NVLink)", one_rank_backend="nccl "
+             "(1, 1)", loss_rtol=TP_LOSS_RTOL, cos_min=TP_COS,
+             f32_tol=TP_F32_TOL, spawn_s=seconds, **report)
+        by_path[phase] = _sum_launches(recs)
+    del one, g32
+    for arch in RECURRENT_ARCHS:
+        phase = f"dist_decode_{arch.split('-')[0]}"
+        cfg = _dist_config(arch)
+        B = RECURRENT_DECODE_B
+        report, recs = {}, []
+        for shape in RECURRENT_MESHES:
+            m = Mesh(shape, ("data", "model"))
+            lay = ShardingCtx(m, serve_rules(cfg, m, B)).layout(
+                KV_CACHE_LOGICAL, (B, DECODE_STEPS, cfg.n_kv_heads, cfg.hd))
+            want = {k: DECODE_STEPS * n for k, n in _recurrent_launches(
+                cfg, False, bool(lay[1])).items()}
+            for a, dtype, tag, _, _, _, held in runs:
+                if a != arch:
+                    continue
+                key = f"{arch}/{dtype}/{tag}"
+                rows = []
+                for r, res in enumerate(ranks):
+                    rec = res[shape][key]
+                    bad = [name for name, n in want.items()
+                           if rec["launches"][name] != n]
+                    numbers = {k: rec[k] for k in (
+                        "tokens_equal", "max_rel_err", "one_rank_err",
+                        "least_cosine", "argmax_agree")}
+                    if bad or not (rec["ok"] or not held) or not \
+                            rec["device"].startswith("cuda"):
+                        failed.append(f"{phase} {shape} {key}: rank {r} on "
+                                      f"{rec['device']}, launches {bad} off "
+                                      f"({rec['launches']} vs {want}): "
+                                      f"{numbers}")
+                    rows.append({k: rec[k] for k in (
+                        "ok", "tokens_equal", "max_rel_err", "one_rank_err",
+                        "least_cosine", "argmax_agree", "ms_per_step",
+                        "peak_gb", "cache_bytes", "batch_axes")})
+                    recs.append(rec)
+                report[f"{shape[0]}x{shape[1]}/{dtype}"] = {
+                    "ranks": rows, "launches_a_rank": recs[-1]["launches"],
+                    "whole_cache_bytes": one_dec[key]["cache_bytes"],
+                    "one_rank": one_dec[key]}
+        emit(phase, arch=arch, n_layers=cfg.n_layers, batch=B,
+             steps=DECODE_STEPS, meshes=[list(m) for m in RECURRENT_MESHES],
+             backend="gloo (through the host, two ranks on one card, not "
+             "NVLink)", f32_tol=DECODE_F32_TOL,
+             bf16_factor=DECODE_BF16_FACTOR, spawn_s=seconds, **report)
+        by_path[phase] = _sum_launches(recs)
+    # every line is printed before a hold fails, so one run reads them all
+    check(not failed, "; ".join(failed))
+    return by_path
+
+
 #: --gloo-program -> (world size, the rank's function)
 GLOO_PROGRAMS = {"moe": (2, moe_rank), "tp": (2, tp_rank),
                  "zero1": (4, zero1_rank),
                  "decode_qwen3": (4, decode_qwen3_rank),
-                 "decode_pair": (2, decode_pair_rank)}
+                 "decode_pair": (2, decode_pair_rank),
+                 "recurrent": (2, recurrent_rank)}
 
 
 def distributed_phase(torch, K, dev) -> dict:
@@ -5187,6 +5559,7 @@ def distributed_phase(torch, K, dev) -> dict:
         by_path["dist_tp_qwen3"] = dist_tp_phase(torch, K, dev, mesh)
         by_path["dist_zero1_save"] = dist_zero1_phase(torch, K, dev, mesh)
         by_path.update(dist_decode_phase(torch, K, dev, mesh))
+        by_path.update(dist_recurrent_phase(torch, K, dev, mesh))
     return by_path
 
 

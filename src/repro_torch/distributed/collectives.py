@@ -29,7 +29,11 @@ gradient on every model rank, with no model-axis all-reduce afterwards:
   product (each rank's local heads give a part of the output);
 - :func:`all_mean`: forward the group mean, backward the identity, so the
   data-parallel mean of per-rank gradients of a function of the global
-  mean is that function's gradient.
+  mean is that function's gradient;
+- :func:`shared_sum`: forward an all-reduce (sum), backward an all-reduce
+  (sum) too: a statistic summed over ranks that every rank's output then
+  reads (the Mamba2 gated norm's sum of squares over ``d_inner`` cut over
+  ``model``), whose gradient gathers every rank's use of it.
 
 A group of one rank makes each an identity that still issues its
 collective.
@@ -48,7 +52,7 @@ import torch.distributed as dist
 
 __all__ = ["all_to_all", "split", "gather", "gather_dim", "all_mean",
            "all_gather_cat", "all_gather_into", "all_gather_stacked",
-           "copy_to_model", "reduce_from_model"]
+           "copy_to_model", "reduce_from_model", "shared_sum"]
 
 
 def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
@@ -170,6 +174,21 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SharedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
 class _AllMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -216,6 +235,12 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``x`` over ``group``; the gradient passes
     through (the exit of a row-parallel region)."""
     return _ReduceFromModel.apply(x, group)
+
+
+def shared_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, which every rank's
+    output reads; its gradient is summed over ``group`` too."""
+    return _SharedSum.apply(x, group)
 
 
 def all_mean(x: torch.Tensor, group) -> torch.Tensor:

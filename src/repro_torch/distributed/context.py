@@ -19,7 +19,12 @@ global batch and the block's local shape, so the decode step, which is
 given the whole batch's tokens, finds the layout of the cache
 ``models.transformer.init_cache`` allocated (:meth:`ShardingCtx.
 kv_block_of`).  Two caches that would share that key with different
-layouts raise when the second is allocated.
+layouts raise when the second is allocated.  Every other cache leaf (the
+recurrent states of Mamba2, mLSTM and sLSTM) has the block
+:meth:`ShardingCtx.block` gives it from its logical axes, and the decode
+step finds its batch rows from the global batch it is given
+(:meth:`ShardingCtx.batch_rows`: the leading ``batch`` dim of every cache
+leaf splits alike), never from a local shape.
 
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (ranks exist,
 collectives run) or a shape-only :class:`Mesh` (axis names and sizes, the
@@ -436,6 +441,33 @@ class ShardingCtx:
             self.memo[key] = out + [()] * (len(shape) - len(out))
         return self.memo[key]
 
+    def block(self, logical: Sequence[Optional[str]],
+              shape: Sequence[int]) -> tuple:
+        """This rank's block of a leaf of global ``shape`` and these
+        logical names under the rules (its spec, divisibility-masked and
+        deduped as the reference's), one ``slice`` per dim.  Raises
+        ``NotImplementedError`` where an entry names its axes out of the
+        mesh's order (the gathers over a group take the earlier mesh axis
+        as major)."""
+        key = ("block", tuple(logical), tuple(int(n) for n in shape))
+        if key not in self.memo:
+            spec = self.spec(logical, key[2])
+            for entry in spec:
+                axes = list(_axes(entry))
+                if axes != [a for a in self.mesh.axis_names if a in axes]:
+                    raise NotImplementedError(
+                        f"spec entry {entry!r} out of the mesh's order "
+                        f"{self.mesh.axis_names}")
+            self.memo[key] = self.mesh.local_slices(spec, key[2])
+        return self.memo[key]
+
+    def batch_rows(self, batch: int) -> tuple[slice, tuple]:
+        """(this rank's rows of a global batch of ``batch``, the mesh
+        axes of size > 1 they are split over): how the leading ``batch``
+        dim of every decode cache leaf splits under the rules."""
+        return (self.block(("batch",), (batch,))[0],
+                self.layout(("batch",), (batch,))[0])
+
     def kv_block(self, shape: Sequence[int]) -> KVBlock:
         """This rank's block of a KV cache leaf of global ``shape`` under
         the rules (its spec over ``KV_CACHE_LOGICAL``, divisibility-masked
@@ -449,14 +481,7 @@ class ShardingCtx:
         shape = tuple(int(n) for n in shape)
         key = ("kv_block", shape)
         if key not in self.memo:
-            spec = self.spec(KV_CACHE_LOGICAL, shape)
-            for entry in spec:
-                axes = list(_axes(entry))
-                if axes != [a for a in self.mesh.axis_names if a in axes]:
-                    raise NotImplementedError(
-                        f"cache spec entry {entry!r} out of the mesh's order "
-                        f"{self.mesh.axis_names}")
-            rows, keys, heads, _ = self.mesh.local_slices(spec, shape)
+            rows, keys, heads, _ = self.block(KV_CACHE_LOGICAL, shape)
             lay = self.layout(KV_CACHE_LOGICAL, shape)
             block = KVBlock(shape, rows, keys, heads, *lay[:3])
             local = ("kv_local", shape[0], block.local_shape)

@@ -51,21 +51,30 @@ leaf for both uses, so autograd adds its two gradients.  Leaves the rules
 store split over data axes (FSDP) are gathered before each block
 (``models.common.fsdp_gather``), again in the recompute under ``remat``.
 
-**Decode under a mesh** (the dense and MoE families, under rules such as
+The hybrid (zamba2) and ssm (xlstm) families take the same road: their
+shared attention block and tied embedding as the dense family's, their
+Mamba2, mLSTM and sLSTM blocks as ``models.ssm`` says.
+
+**Decode under a mesh** (the dense, MoE, hybrid and ssm families,
+:data:`SHARDED_FAMILIES`, under rules such as
 ``launch.dryrun.serve_rules``'s): :func:`init_cache` allocates this rank's
-block of every cache leaf (``ShardingCtx.kv_block``: batch rows, keys
-and KV heads), never the whole cache.  :func:`decode_step` takes the
-global ``token`` ``[B, 1]``, runs the block's batch rows through the
-layers (FSDP leaves gathered per layer, heads, MLP columns and
-vocabulary over ``model``, attention over the cache block as
+block of every cache leaf (``ShardingCtx.kv_block`` for a KV leaf: batch
+rows, keys and KV heads; ``ShardingCtx.block`` for a recurrent state:
+batch rows, and heads or ``d_inner`` where the rules cut them), never the
+whole cache.  :func:`decode_step` takes the global ``token`` ``[B, 1]``,
+runs this rank's batch rows (``ShardingCtx.batch_rows`` of the global
+batch) through the layers (FSDP leaves gathered per layer, heads, MLP
+columns and vocabulary over ``model``, attention over the cache block as
 ``layers.attention_from_cache`` says, the MoE one-hot path over every
-rank's tokens as ``models.moe`` says) and gathers the logits over the
-vocabulary and the batch rows, so every rank returns the same ``[B, V]``.
-It is forward-only (it raises with grad enabled on parameters that
-require it).  The other families still raise where the rules split their
-dense leaves (their tensor parallelism: ROADMAP Queue 1 item 2); where
-the rules split none (a data-only mesh), their cache stays whole and
-every rank decodes the whole batch.
+rank's tokens as ``models.moe`` says, a Mamba2 block on its block of the
+heads; a block that computes with a whole state the rules cut over
+``model`` gathers it and writes back its block) and gathers the logits
+over the vocabulary and the batch rows, so every rank returns the same
+``[B, V]``.  It is forward-only (it raises with grad enabled on
+parameters that require it).  The encdec and vlm families still raise
+where the rules split their dense leaves (their tensor parallelism:
+ROADMAP Queue 1 item 2); where the rules split none (a data-only mesh),
+their cache stays whole and every rank decodes the whole batch.
 """
 
 from __future__ import annotations
@@ -94,12 +103,12 @@ from repro_torch.models.layers import (apply_norm, attention,
 
 __all__ = ["program_for", "model_specs", "encode", "forward", "lm_loss",
            "prefill", "cache_specs", "init_cache", "decode_step",
-           "check_family_rules",
+           "check_family_rules", "SHARDED_FAMILIES",
            "num_params", "active_params", "Decoder"]
 
 #: the families whose tensor parallelism, and decode under a mesh with the
 #: cache cut to each rank's block, are ported
-MESH_DECODE_FAMILIES = ("dense", "moe")
+SHARDED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 # ------------------------------------------------------------------ programs
@@ -664,19 +673,27 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     f32.  The caller writes ``memory`` (encdec, vlm) before decoding.
 
     Under an active sharding context, for the families that decode under
-    a mesh (:data:`MESH_DECODE_FAMILIES`), each KV leaf is this rank's
-    block of the ``batch x s_max`` cache as ``ShardingCtx.kv_block`` gives
-    it, which the decode step then finds by the batch and its local shape.
-    The other families' caches stay whole: their decode step runs the
-    whole batch on every rank."""
+    a mesh (:data:`SHARDED_FAMILIES`), each leaf is this rank's block of
+    the ``batch x s_max`` cache: a KV leaf's as ``ShardingCtx.kv_block``
+    gives it, which the decode step then finds by the batch and its local
+    shape, a recurrent state's as ``ShardingCtx.block`` gives it from its
+    logical axes (a stacked leaf's ``layers`` dim stays whole).  The other
+    families' caches stay whole: their decode step runs the whole batch
+    on every rank."""
     ctx = active_ctx()
-    if cfg.family not in MESH_DECODE_FAMILIES:
+    if cfg.family not in SHARDED_FAMILIES:
         ctx = None
 
     def shape_of(leaf: ParamSpec) -> tuple:
-        if ctx is None or tuple(leaf.logical[-4:]) != KV_CACHE_LOGICAL:
+        if ctx is None:
             return leaf.shape
-        return (*leaf.shape[:-4], *ctx.kv_block(leaf.shape[-4:]).local_shape)
+        if tuple(leaf.logical[-4:]) == KV_CACHE_LOGICAL:
+            return (*leaf.shape[:-4],
+                    *ctx.kv_block(leaf.shape[-4:]).local_shape)
+        lead = int(leaf.logical[0] == "layers")
+        return (*leaf.shape[:lead], *(
+            sl.stop - sl.start for sl in ctx.block(leaf.logical[lead:],
+                                                   leaf.shape[lead:])))
 
     def mk(node: Any) -> Any:
         return {name: mk(leaf) if isinstance(leaf, dict) else torch.zeros(
@@ -688,13 +705,37 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     return mk(cache_specs(cfg, batch, s_max, mem_len))
 
 
+def _state_cuts(ctx, cfg: ModelConfig, kind: str, batch: int) -> list:
+    """(state, dim, this rank's slice) of each recurrent state of a
+    ``kind`` block that the rules cut over ``model`` while the block
+    computes with it whole (every head, ``ssm.state_whole``): the decode
+    step gathers it and writes back its block (once per context)."""
+    key = ("state_cuts", cfg, kind, batch)
+    if key not in ctx.memo:
+        cuts = []
+        if ctx.axis_size("model") > 1 and ssm.state_whole(cfg, kind):
+            for name, s in _block_cache_specs(cfg, kind, batch, 1).items():
+                for dim, axes in enumerate(ctx.layout(s.logical, s.shape)):
+                    if "model" in axes:
+                        if axes != ("model",):
+                            raise NotImplementedError(
+                                f"{cfg.name}: the {kind} state {name} "
+                                f"split over {axes} (ROADMAP Queue 1 "
+                                f"item 2)")
+                        cuts.append((name, dim,
+                                     ctx.block(s.logical, s.shape)[dim]))
+        ctx.memo[key] = cuts
+    return ctx.memo[key]
+
+
 def _decode_block(cfg: ModelConfig, kind: str, p: Optional[dict],
                   x: torch.Tensor, cache: dict, pos: torch.Tensor,
                   memory: Optional[torch.Tensor], shared: Optional[dict],
                   rope, *, plain: bool, block=None) -> torch.Tensor:
     """One block; writes this block's cache in place.  ``rope`` is the
     (sin, cos) of ``pos`` (``None`` for the encdec family); ``block`` the
-    KV cache's ``KVBlock`` under a mesh."""
+    KV cache's ``KVBlock`` under a mesh (a recurrent block's ``cache`` is
+    its states as it computes with them, :func:`_state_cuts`)."""
     def norm(pn, t):
         return _norm(cfg, pn, t, plain=plain)
 
@@ -760,17 +801,19 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     whose decode under a mesh waits."""
     check_family_rules(cfg)
     ctx = active_ctx()
-    block = None
+    B = token.shape[0]
+    block, rows, batch_axes = None, slice(0, B), ()
     if ctx is not None:
         if torch.is_grad_enabled() and any(
                 t.requires_grad for _, t in tree_leaves(params)):
             raise NotImplementedError(
                 f"{cfg.name}: decode under a mesh is forward-only (its "
                 f"collectives carry no gradient); run it under no_grad")
-        block = _cache_block(ctx, cfg, cache, token.shape[0])
+        if cfg.family in SHARDED_FAMILIES:
+            rows, batch_axes = ctx.batch_rows(B)
+            block = _cache_block(ctx, cfg, cache, B)
     top = _top(params, cfg)
-    x = _positions_embed(cfg, top, token if block is None
-                         else token[block.rows])
+    x = _positions_embed(cfg, top, token[rows])
     grp, n_groups, rem = program_for(cfg)
     shared = params.get("shared_attn")
     memory = cache.get("memory")
@@ -779,6 +822,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             if _rotary(cfg) else None)
 
     def run(kind, p, c, x):
+        cuts = []
         if ctx is not None:
             if kind == "shared_attn":
                 return _decode_block(
@@ -786,8 +830,18 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                     fsdp_gather(shared, _block_specs(cfg, "attn")), rope,
                     plain=plain, block=block)
             p = fsdp_gather(p, _block_specs(cfg, kind))
-        return _decode_block(cfg, kind, p, x, c, pos, memory, shared, rope,
-                             plain=plain, block=block)
+            if kind in ("mamba", "mlstm", "slstm"):
+                cuts = _state_cuts(ctx, cfg, kind, B)
+        mine = c
+        if cuts:
+            c = dict(c, **{name: C.all_gather_cat(
+                mine[name], ctx.model_group(), dim) for name, dim, _ in cuts})
+        x = _decode_block(cfg, kind, p, x, c, pos, memory, shared, rope,
+                          plain=plain, block=block)
+        for name, dim, sl in cuts:
+            mine[name].copy_(c[name].narrow(dim, sl.start,
+                                            sl.stop - sl.start))
+        return x
 
     for layer in range(n_groups):
         gp = _layer(params["blocks"], layer)
@@ -802,17 +856,15 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         key = f"t{i}_{kind}"
         x = run(kind, params["tail"][key], cache["tail"][key], x)
     logits = _logits(top, cfg, x, plain=plain)[:, 0]
-    if block is not None and block.batch_axes:
-        logits = C.all_gather_cat(logits, ctx.mesh.group(block.batch_axes))
+    if batch_axes:
+        logits = C.all_gather_cat(logits, ctx.mesh.group(batch_axes))
     return logits, cache
 
 
 def _cache_block(ctx, cfg: ModelConfig, cache: dict, batch: int):
     """The ``KVBlock`` of the cache's KV leaves (the first found; every
-    one has the same shape) for a batch of ``batch``; ``None`` for the
-    families whose cache :func:`init_cache` keeps whole."""
-    if cfg.family not in MESH_DECODE_FAMILIES:
-        return None
+    one has the same shape) for a batch of ``batch``; ``None`` for a
+    cache without KV leaves (xlstm's)."""
     for key, t in tree_leaves(cache):
         if key.rsplit("/", 1)[-1] in ("k", "v"):
             return ctx.kv_block_of(batch, t.shape[-4:])
@@ -834,10 +886,10 @@ def _split_dense(cfg: ModelConfig, ctx) -> list:
 def check_family_rules(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` where the active rules split a dense
     (non-expert) leaf of a family whose tensor parallelism is not ported:
-    every family but dense and MoE split their heads, MLP and vocabulary
+    the encdec and vlm families split their heads, MLP and vocabulary
     (the forward, the train step and decode under a mesh alike)."""
     ctx = active_ctx()
-    if ctx is None or cfg.family in MESH_DECODE_FAMILIES:
+    if ctx is None or cfg.family in SHARDED_FAMILIES:
         return
     split = _split_dense(cfg, ctx)
     if split:

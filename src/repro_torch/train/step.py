@@ -35,7 +35,9 @@ Each rank differentiates its local mean loss.  A leaf's gradient is then
 summed over the batch axes it is not stored over, plus ``model`` where
 the leaf is whole over ``model`` but used inside a tensor-parallel region
 on this rank's heads only (``wk`` / ``wv`` / ``bk`` / ``bv`` with
-``kv_heads`` masked to replicated, ``q_norm`` / ``k_norm``), and divided
+``kv_heads`` masked to replicated, ``q_norm`` / ``k_norm``; a Mamba2
+block's ``A_log`` / ``D`` / ``dt_bias``, and ``w_in`` where it is whole,
+``models.ssm.mamba_partial_leaves``), and divided
 by the batch axes' size, so every rank holds the gradient of the global
 mean loss for its block (an FSDP leaf's sum over its data axes came from
 the reduce-scatter).  The clip norm counts each element once; AdamW
@@ -46,7 +48,7 @@ loss is the mean over the batch axes.
 
 Rules the step cannot honour raise ``NotImplementedError`` before the
 first collective (:func:`check_train_rules`): tensor parallelism and
-FSDP of the hybrid, ssm, encdec and vlm families, a ``seq_sp`` rule
+FSDP of the encdec and vlm families, a ``seq_sp`` rule
 (sequence-parallel norm segments) and a ``layers`` rule (pipeline
 stages) wait for later slices (ROADMAP Queue 1 item 2).
 """
@@ -64,7 +66,9 @@ from repro_torch.distributed.context import (FSDP_DIMS, TP_DIMS,
                                              ShardingCtx, active_ctx)
 from repro_torch.launch.dryrun import opt_rules_for
 from repro_torch.models.common import ModelConfig, tree_leaves, tree_map
-from repro_torch.models.transformer import lm_loss, model_specs
+from repro_torch.models.ssm import mamba_partial_leaves
+from repro_torch.models.transformer import (SHARDED_FAMILIES, lm_loss,
+                                            model_specs)
 from repro_torch.optim.adamw import (AdamWConfig, adamw_apply, adamw_init,
                                      zero1_layout)
 from repro_torch.weights import unflatten
@@ -246,7 +250,7 @@ def check_train_rules(ctx, cfg: ModelConfig) -> None:
         for name, axes in zip(s.logical, split):
             if not axes:
                 continue
-            if cfg.family not in ("dense", "moe"):
+            if cfg.family not in SHARDED_FAMILIES:
                 raise NotImplementedError(_where(
                     f"{key}: the rules split its {name!r} dim over "
                     f"{axes}: tensor parallelism and FSDP of the "
@@ -261,8 +265,8 @@ def check_train_rules(ctx, cfg: ModelConfig) -> None:
                 f"the step splits heads, MLP columns and vocabulary over "
                 f"'model' only, and stores d dims over data axes (in mesh "
                 f"order)"))
-        if key.endswith("/wq"):
-            wk = flat[key[:-2] + "wk"]
+        wk = flat.get(key[:-2] + "wk") if key.endswith("/wq") else None
+        if wk is not None and "kv_heads" in wk.logical:
             q = ctx.layout(s.logical, s.shape)[s.logical.index("qheads")]
             kv = ctx.layout(wk.logical, wk.shape)[wk.logical.index(
                 "kv_heads")]
@@ -278,12 +282,18 @@ def check_train_rules(ctx, cfg: ModelConfig) -> None:
                     f"head: a rank's heads would read a ragged KV group"))
 
 
-def _partial_over_model(ctx, flat: dict, key: str, stored: set) -> bool:
+def _partial_over_model(ctx, cfg: ModelConfig, flat: dict, key: str,
+                        stored: set) -> bool:
     """Whether the leaf at ``key``, whole over ``model``, is used on this
     rank's heads only: a leaf of an attention whose query heads are split
-    over ``model``."""
-    wq = flat.get(key.rpartition("/")[0] + "/wq")
-    if wq is None or "model" in stored:
+    over ``model``, or of a Mamba2 block on its heads."""
+    parent, _, name = key.rpartition("/")
+    if "model" in stored:
+        return False
+    if parent.endswith("mamba"):
+        return name in mamba_partial_leaves(cfg)
+    wq = flat.get(parent + "/wq")
+    if wq is None or "kv_heads" not in flat[parent + "/wk"].logical:
         return False
     q = ctx.layout(wq.logical, wq.shape)[wq.logical.index("qheads")]
     return "model" in q
@@ -323,7 +333,7 @@ def _layout(ctx, cfg: ModelConfig, opt_cfg: AdamWConfig,
         stored = {a for part in ctx.layout(s.logical, s.shape)
                   for a in part}
         axes = [a for a in batch if a not in stored]
-        if _partial_over_model(ctx, flat, key, stored):
+        if _partial_over_model(ctx, cfg, flat, key, stored):
             axes.append("model")
         reduce[key] = (mesh.group(tuple(axes)),
                        mesh.group(tuple(stored)) if stored else None)

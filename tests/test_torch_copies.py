@@ -242,9 +242,10 @@ def test_serve_rules_are_the_reference_decode_cell_composition(shape):
     """For every registry arch and batch in {1, 4, 16}: ``serve_rules``
     lays out every parameter as the reference's ``run_cell`` stores it
     (``rules_for``'s storage rules) and, for the families whose cache
-    ``init_cache`` cuts to a rank's block, every KV cache leaf as it
-    decodes it (``decode_rules`` of the compute rules at the mesh's model
-    size), and its rules are ``decode_rules`` of the storage rules."""
+    ``init_cache`` cuts to a rank's block, every cache leaf -- KV leaves
+    and recurrent states -- as it decodes it (``decode_rules`` of the
+    compute rules at the mesh's model size), and its rules are
+    ``decode_rules`` of the storage rules."""
     import repro.configs as jax_configs
 
     from repro_torch.configs import get_config, list_archs
@@ -252,7 +253,7 @@ def test_serve_rules_are_the_reference_decode_cell_composition(shape):
     from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
     from repro_torch.launch import dryrun
     from repro_torch.models.common import tree_leaves
-    from repro_torch.models.transformer import (MESH_DECODE_FAMILIES,
+    from repro_torch.models.transformer import (SHARDED_FAMILIES,
                                                 cache_specs, model_specs)
 
     ref = _reference_dryrun()
@@ -272,21 +273,24 @@ def test_serve_rules_are_the_reference_decode_cell_composition(shape):
             for key, sp in tree_leaves(model_specs(cfg)):
                 assert ours.spec(sp.logical, sp.shape) == theirs_p.spec(
                     sp.logical, sp.shape), (arch, batch, key)
-            if cfg.family not in MESH_DECODE_FAMILIES:
+            if cfg.family not in SHARDED_FAMILIES:
                 continue
             for key, sp in tree_leaves(cache_specs(cfg, batch, 4096, 8)):
-                # init_cache cuts the last four dims, the layers' stay whole
-                assert sp.logical[-4:] == KV_CACHE_LOGICAL, (arch, key)
-                assert _entries(ours.spec(KV_CACHE_LOGICAL, sp.shape[-4:]),
-                                4) == _entries(theirs_c.spec(
-                                    sp.logical, sp.shape), len(sp.shape)), (
+                # init_cache cuts a leaf's own dims, the layers' stay whole
+                lead = int(sp.logical[0] == "layers")
+                n = len(sp.shape) - lead
+                if key.rsplit("/", 1)[-1] in ("k", "v"):
+                    assert sp.logical[lead:] == KV_CACHE_LOGICAL, (arch, key)
+                assert _entries(ours.spec(sp.logical[lead:], sp.shape[lead:]),
+                                n, n) == _entries(theirs_c.spec(
+                                    sp.logical, sp.shape), len(sp.shape), n), (
                     arch, batch, key)
 
 
-def _entries(spec, ndim: int) -> list:
-    """The axes of the last four of a spec's ``ndim`` dims, as tuples (a
+def _entries(spec, ndim: int, last: int = 4) -> list:
+    """The axes of the ``last`` of a spec's ``ndim`` dims, as tuples (a
     spec leaves out its trailing whole dims)."""
     from repro_torch.distributed.context import _axes
 
     out = [tuple(_axes(e)) for e in spec]
-    return (out + [()] * (ndim - len(out)))[-4:]
+    return (out + [()] * (ndim - len(out)))[-last:]

@@ -299,14 +299,17 @@ def _ssm_inputs(B, S, H, P, N, dtype, dev, seed, dt_scale=1.0):
 #: ragged S, state continuity) and the zamba2-7b path's shape; then the
 #: chunk-parallel kernel's edges: B > 1 at full width (groups of 8 chunks),
 #: one step past a chunk with H odd, a single ragged chunk (one group, no
-#: state launch), and dt x 10 so that exp(cum) underflows inside a chunk
+#: state launch), and dt x 10 so that exp(cum) underflows inside a chunk;
+#: last, a rank's block of zamba2-7b's 112 heads under tensor parallelism
+#: (56 on two ranks at the TP train step's S 2048, 28 on four)
 SSM_CASES = ([(2, 256, 8, 32, 16, c) for c in (32, 64, 128)]
              + [(2, 256, h, p, 16, 64) for h, p in ((4, 16), (8, 64),
                                                     (16, 32))]
              + [(2, 200, 8, 32, 16, 64), (2, 512, 8, 32, 16, 128),
                 (1, 300, 4, 64, 64, 128), (1, 4096, 112, 64, 64, 128)]
              + [(2, 4096, 112, 64, 64, 128), (1, 129, 3, 64, 64, 128),
-                (1, 64, 112, 64, 64, 128), (1, 2048, 16, 64, 64, 128, 10.0)])
+                (1, 64, 112, 64, 64, 128), (1, 2048, 16, 64, 64, 128, 10.0)]
+             + [(1, 2048, 56, 64, 64, 128), (2, 1024, 28, 64, 64, 128)])
 SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
@@ -746,7 +749,8 @@ def test_rmsnorm_gradients_match_plain(card, shape, dtype, with_res):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [(1, 512, 8, 64, 64, 128),
-                                  (2, 300, 4, 32, 16, 64)], ids=str)
+                                  (2, 300, 4, 32, 16, 64),
+                                  (1, 2048, 56, 64, 64, 128)], ids=str)
 def test_ssm_scan_gradients_match_plain(card, case, dtype):
     B, S, H, P, N, chunk = case
     x, dt, A, Bm, Cm = _ssm_inputs(B, S, H, P, N, dtype, card, 4)

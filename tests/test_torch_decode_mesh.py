@@ -1,6 +1,6 @@
-"""Decode under a mesh for the dense and MoE families: the port's serving
-step on gloo ranks under ``launch.dryrun.serve_rules`` against the JAX
-reference's GSPMD decode on the same mesh.
+"""Decode under a mesh for the dense, MoE, hybrid and ssm families: the
+port's serving step on gloo ranks under ``launch.dryrun.serve_rules``
+against the JAX reference's GSPMD decode on the same mesh.
 
 The rules are the reference's for a ``decode`` cell (``run_cell``):
 ``rules_for`` of the registry arch, then ``decode_rules`` at the cell's
@@ -24,18 +24,31 @@ where it does; (b) B <= 8 with KV % M != 0, split by sequence over
 attention); (c) B > 8 with KV % M != 0; (d) B > 8 with KV % M == 0.
 gemma3 crosses its window of 16 over every block boundary; qwen2.5 and
 kimi store their dense leaves FSDP; olmoe and kimi route through the
-one-hot MoE path across ranks at capacities that drop pairs.  Two cases
-save their blocks as a sharded checkpoint and serve it again from
-``restore_checkpoint(shardings=)``, against the unsharded restore.
+one-hot MoE path across ranks at capacities that drop pairs.  Four cases
+(qwen3, kimi, zamba2, xlstm) save their blocks as a sharded checkpoint and
+serve it again from ``restore_checkpoint(shardings=)``, against the
+unsharded restore.
+
+zamba2 and xlstm decode with their recurrent states cut to a rank's
+block, held after every step like the KV leaves: zamba2 on (1, 2) (Mamba2
+``h`` over its SSM heads, ``conv`` over ``d_inner``, the shared block's KV
+heads over ``model``), on (2, 2) at B 1 (the shared block's keys over
+``data``: the partials path), on (1, 4) (its 2 SSM heads do not tile:
+``h`` whole, ``conv`` cut over ``d_inner`` and gathered for the step) and
+on (2, 1) (every state cut over ``data`` by batch rows); xlstm, whose
+cache has no KV leaf (the step finds its rows from the global batch), on
+(1, 2) (the mLSTM's ``d_in`` over ``model``, its states whole), (2, 2)
+and (2, 1) (states cut by batch rows).
 
 In process: the partials mode's plain versions, cut into blocks at random
 offsets and merged, against the whole-cache plain version (and at one
 block, bit for bit against the split-K arithmetic); the layouts pinned
-from the specs; the families whose decode under a mesh waits, and the
-one-hot path under grad on a mesh of more than one rank, raise naming
-ROADMAP.
+from the specs; the families whose decode under a mesh waits (whisper,
+llama-vision), and the one-hot path under grad on a mesh of more than
+one rank, raise naming ROADMAP.
 """
 
+import math
 import os
 
 import numpy as np
@@ -59,6 +72,10 @@ from torch_ranks import (collect, collect_reference, spawn_ranks,
                          spawn_reference)
 
 TOL = 1e-5
+#: reduced zamba2 amplifies f32 rounding: its weights moved by 1e-7 of
+#: themselves move the unsharded step's logits by 4.3e-5 of their largest
+#: entry from the reference's, so its cases hold logits and states here
+ZAMBA2_TOL = 1e-4
 #: name, arch, D, M, B, S_max, prompt_len, capacity factor, sharded save
 CASES = [
     ("qwen3_1x2_b16", "qwen3-1.7b", 1, 2, 16, 16, 4, 1.25, False),
@@ -74,17 +91,17 @@ CASES = [
     ("olmoe_1x4_b16", "olmoe-1b-7b", 1, 4, 16, 16, 4, 1.0, False),
     ("kimi_2x2_b1", "kimi-k2-1t-a32b", 2, 2, 1, 16, 4, 1.0, True),
     ("kimi_2x2_b4", "kimi-k2-1t-a32b", 2, 2, 4, 16, 4, 1.0, False),
+    ("zamba2_1x2_b4", "zamba2-7b", 1, 2, 4, 8, 3, 1.25, True),
+    ("zamba2_2x2_b1", "zamba2-7b", 2, 2, 1, 8, 3, 1.25, False),
+    ("zamba2_1x4_b4", "zamba2-7b", 1, 4, 4, 8, 3, 1.25, False),
+    ("zamba2_2x1_b4", "zamba2-7b", 2, 1, 4, 8, 3, 1.25, False),
+    ("xlstm_1x2_b4", "xlstm-125m", 1, 2, 4, 8, 3, 1.25, False),
+    ("xlstm_2x2_b4", "xlstm-125m", 2, 2, 4, 8, 3, 1.25, True),
+    ("xlstm_2x1_b4", "xlstm-125m", 2, 1, 4, 8, 3, 1.25, False),
 ]
 NAMES = [c[0] for c in CASES]
 BY_NAME = {c[0]: c for c in CASES}
-#: families whose decode under a mesh waits, on a data-only mesh whose
-#: rules split none of their dense leaves: name, arch, D, M, B, S_max,
-#: prompt_len -- the cache stays whole and every rank decodes the batch
-WHOLE = [
-    ("xlstm_2x1_b4", "xlstm-125m", 2, 1, 4, 8, 3),
-    ("zamba2_2x1_b4", "zamba2-7b", 2, 1, 4, 8, 3),
-]
-ARCHS = sorted({c[1] for c in CASES} | {c[1] for c in WHOLE})
+ARCHS = sorted({c[1] for c in CASES})
 REF_PROCS = 3
 #: the layout each case is meant to exercise: (decode_rules case, the
 #: axes the cache's batch, keys and KV heads split over)
@@ -102,7 +119,26 @@ LAYOUTS = {
     "olmoe_1x4_b16": ("d", (), (), ("model",)),
     "kimi_2x2_b1": ("a", (), ("data",), ("model",)),
     "kimi_2x2_b4": ("a", ("data",), (), ("model",)),
+    "zamba2_1x2_b4": ("a", (), (), ("model",)),
+    "zamba2_2x2_b1": ("a", (), ("data",), ("model",)),
+    "zamba2_1x4_b4": ("a", (), (), ("model",)),
+    "zamba2_2x1_b4": ("a", ("data",), (), ()),
 }
+#: the cases with KV leaves
+KV_NAMES = [n for n in NAMES if n in LAYOUTS]
+#: the recurrent states each case is meant to cut: per leaf, the parts
+#: each dim is cut into (batch first; a stacked leaf's layers left out)
+STATE_PARTS = {
+    "zamba2_1x2_b4": {"mamba/h": (1, 2, 1, 1), "mamba/conv": (1, 1, 2)},
+    "zamba2_2x2_b1": {"mamba/h": (1, 2, 1, 1), "mamba/conv": (1, 1, 2)},
+    "zamba2_1x4_b4": {"mamba/h": (1, 1, 1, 1), "mamba/conv": (1, 1, 4)},
+    "zamba2_2x1_b4": {"mamba/h": (2, 1, 1, 1), "mamba/conv": (2, 1, 1)},
+}
+for _name, _b in (("xlstm_1x2_b4", 1), ("xlstm_2x2_b4", 2),
+                  ("xlstm_2x1_b4", 2)):
+    STATE_PARTS[_name] = {"mlstm/C": (_b, 1, 1, 1), "mlstm/n": (_b, 1, 1),
+                          "mlstm/m": (_b, 1), **{f"slstm/{k}": (_b, 1, 1)
+                                                 for k in "cnhm"}}
 
 
 def _cfg(name):
@@ -123,7 +159,7 @@ def runs(tmp_path_factory):
                 v = v + 0.1 * rng.standard_normal(v.shape).astype(np.float32)
             data[f"{arch}/{k}"] = v
     for name, arch, B, prompt_len in [(c[0], c[1], c[4], c[6])
-                                      for c in CASES + WHOLE]:
+                                      for c in CASES]:
         V = reduced_config(arch).vocab_size
         data[f"prompt/{name}"] = rng.integers(
             0, V, (B, prompt_len)).astype(np.int64)
@@ -134,11 +170,11 @@ def runs(tmp_path_factory):
                             cases=[c[:8] for c in cases[i::REF_PROCS]])
             for i in range(REF_PROCS)]
     two = spawn_ranks("decode", 2, tmp, inputs=inputs, cases=cases,
-                      root=str(tmp), whole=[list(c) for c in WHOLE])
+                      root=str(tmp))
     four = spawn_ranks("decode", 4, tmp, inputs=inputs, cases=cases,
                        root=str(tmp))
     ranks = {}
-    for res in collect(two, 120.0) + collect(four, 120.0):
+    for res in collect(two, 240.0) + collect(four, 240.0):
         for name, r in res.items():
             ranks.setdefault(name, []).append(r)
     ref = {}
@@ -147,11 +183,16 @@ def runs(tmp_path_factory):
     return data, ref, ranks, str(tmp)
 
 
-def _close(got: torch.Tensor, want: np.ndarray, what: str) -> None:
+def _close(got: torch.Tensor, want: np.ndarray, what: str,
+           tol: float = TOL) -> None:
     peak = float(np.abs(want).max())
     err = float(np.abs(got.numpy() - want).max())
-    assert got.shape == want.shape and err <= TOL * max(peak, 1e-30), (
+    assert got.shape == want.shape and err <= tol * max(peak, 1e-30), (
         f"{what}: off by {err}, largest entry {peak}")
+
+
+def _tol(name: str) -> float:
+    return ZAMBA2_TOL if BY_NAME[name][1] == "zamba2-7b" else TOL
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -163,7 +204,7 @@ def test_decode_matches_the_reference(runs, name):
     for r in ranks[name]:
         for t in range(s_max):
             _close(r["logits"][t], ref[f"{name}/logits{t}"],
-                   f"{name} step {t} logits")
+                   f"{name} step {t} logits", _tol(name))
         np.testing.assert_array_equal(r["tokens"].numpy(), want_toks)
         assert torch.equal(r["generate"], r["tokens"])
 
@@ -172,28 +213,44 @@ def test_decode_matches_the_reference(runs, name):
 def test_each_rank_holds_its_cache_block(runs, name):
     """Every rank's cache leaves are its block only (the whole cache cut
     as the layout says), equal to the reference's whole cache cut to that
-    block after every step; the layout is the one the case is for."""
+    block after every step; the layout is the one the case is for: the KV
+    leaves' (``LAYOUTS``), the recurrent states' (``STATE_PARTS``), and
+    the ranks' blocks of each leaf tile it."""
     _, ref, ranks, _ = runs
     _, _, D, M, B, s_max, _, _, _ = BY_NAME[name]
     cfg = _cfg(name)
-    _, rows_axes, seq_axes, head_axes = LAYOUTS[name]
-    parts = {(): 1, ("data",): D, ("model",): M}
-    covered = set()
+    covered = {}
     for r in ranks[name]:
-        assert (r["batch_axes"], r["seq_axes"]) == (rows_axes, seq_axes)
-        (b0, b1), (k0, k1), (h0, h1) = r["block"]
-        assert (b1 - b0, k1 - k0, h1 - h0) == (
-            B // parts[rows_axes], s_max // parts[seq_axes],
-            cfg.n_kv_heads // parts[head_axes])
-        covered.add((b0, k0, h0))
-        for t in range(s_max):
-            for key, got in r["caches"][t].items():
-                want = ref[f"{name}/cache{t}/{key}"]
-                assert got.shape[-4:] == (b1 - b0, k1 - k0, h1 - h0, cfg.hd)
-                _close(got, want[..., b0:b1, k0:k1, h0:h1, :],
-                       f"{name} step {t} cache {key}")
-    assert len(covered) == parts[rows_axes] * parts[seq_axes] * parts[
-        head_axes]
+        if name in LAYOUTS:
+            _, rows_axes, seq_axes, head_axes = LAYOUTS[name]
+            parts = {(): 1, ("data",): D, ("model",): M}
+            assert (r["batch_axes"], r["seq_axes"]) == (rows_axes, seq_axes)
+            (b0, b1), (k0, k1), (h0, h1) = r["block"]
+            assert (b1 - b0, k1 - k0, h1 - h0) == (
+                B // parts[rows_axes], s_max // parts[seq_axes],
+                cfg.n_kv_heads // parts[head_axes])
+        for key, sl in r["slices"].items():
+            full = ref[f"{name}/cache0/{key}"].shape
+            *_, kind, leaf = key.split("/")
+            if leaf in ("k", "v"):
+                assert [tuple(x) for x in sl[-4:-1]] == [
+                    tuple(x) for x in r["block"]], key
+            else:
+                want = STATE_PARTS[name][f"{kind.split('_', 1)[1]}/{leaf}"]
+                assert tuple(f // (b - a) for f, (a, b) in zip(
+                    full[-len(want):], sl[-len(want):])) == want, key
+            covered.setdefault(key, set()).add(tuple(a for a, _ in sl))
+            blk = tuple(slice(a, b) for a, b in sl)
+            for t in range(s_max):
+                got = r["caches"][t][key]
+                assert tuple(got.shape) == tuple(b - a for a, b in sl), key
+                _close(got, ref[f"{name}/cache{t}/{key}"][blk],
+                       f"{name} step {t} cache {key}", _tol(name))
+    for key, starts in covered.items():
+        full = ref[f"{name}/cache0/{key}"].shape
+        sl = ranks[name][0]["slices"][key]
+        assert len(starts) == math.prod(f // (b - a) for f, (a, b) in zip(
+            full, sl)), key
 
 
 def _layout_case(cfg, B, M) -> str:
@@ -202,7 +259,7 @@ def _layout_case(cfg, B, M) -> str:
     return "c" if cfg.n_kv_heads % M else "d"
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", KV_NAMES)
 def test_serve_rules_give_the_layout_of_the_case(name):
     """The cache spec under ``serve_rules`` on a shape-only mesh (no ranks
     needed): which ``decode_rules`` case applies and how the batch, the
@@ -319,7 +376,7 @@ def test_restore_then_serve(runs, name):
         assert r["restored_equal"]
         for t in range(s_max):
             _close(r["restored_logits"][t], want[t],
-                   f"{name} restored step {t}")
+                   f"{name} restored step {t}", _tol(name))
 
 
 def test_capture_on_a_gloo_mesh_raises(runs):
@@ -394,8 +451,7 @@ def test_partials_at_offset_zero_are_the_split_k_arithmetic(n_split):
 
 # ------------------------------------------------------------- raises
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m",
-                                  "whisper-large-v3",
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
                                   "llama-3.2-vision-11b"])
 def test_families_that_wait_raise_under_serve_rules(arch):
     """Before any collective (a shape-only mesh has none)."""
@@ -415,37 +471,6 @@ def test_families_that_wait_raise_under_serve_rules(arch):
                 fn()
             assert cfg.family in str(e.value)
             assert "ROADMAP Queue 1 item 2" in str(e.value)
-
-
-@pytest.mark.parametrize("name", [c[0] for c in WHOLE])
-def test_families_that_wait_decode_whole_on_a_data_mesh(runs, name):
-    """Where the rules split none of a waiting family's dense leaves (a
-    (2, 1) mesh), ``init_cache`` keeps its cache whole -- recurrent states
-    and KV leaves alike -- and every rank decodes the whole batch: each
-    step's logits and the greedy tokens as the unsharded step's here."""
-    from repro_torch.models.transformer import cache_specs
-
-    data, _, ranks, _ = runs
-    _, arch, D, M, B, s_max, _ = next(c for c in WHOLE if c[0] == name)
-    cfg = reduced_config(arch).replace(dtype="float32")
-    params = unflatten({k[len(arch) + 1:]: torch.tensor(v)
-                        for k, v in data.items() if k.startswith(arch + "/")})
-    shapes = {k: s.shape for k, s in tree_leaves(cache_specs(cfg, B, s_max))}
-    assert len(ranks[name]) == D * M
-    for r in ranks[name]:
-        assert r["shapes"] == shapes
-        cache = init_cache(cfg, B, s_max, "cpu")
-        with torch.no_grad():
-            for t in range(s_max):
-                want, _ = decode_step(params, cfg, cache,
-                                      r["tokens"][:, t:t + 1],
-                                      torch.tensor(t, dtype=torch.int32))
-                _close(r["logits"][t], want.numpy(), f"{name} step {t}")
-        prompt = torch.from_numpy(data[f"prompt/{name}"]).long()
-        assert torch.equal(r["tokens"][:, :prompt.shape[1]], prompt)
-        greedy = torch.stack([lg.argmax(-1) for lg in r["logits"]], dim=1)
-        assert torch.equal(r["tokens"][:, prompt.shape[1]:],
-                           greedy[:, prompt.shape[1] - 1:-1])
 
 
 def test_decode_under_a_mesh_raises_under_grad():

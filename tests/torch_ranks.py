@@ -34,7 +34,7 @@ _SRC = os.path.join(_HERE, "..", "src")
 DEADLINE = 60.0
 #: seconds the JAX reference's process may take: it compiles every case
 #: (a hang still fails; the reference's own subprocess tests allow 600 s)
-REFERENCE_DEADLINE = 180.0
+REFERENCE_DEADLINE = 300.0
 
 
 def start(args: list, tmp_path, tag: str, env: dict | None = None):
@@ -394,6 +394,77 @@ def tp_train(inputs: str, cases: list, root: str) -> dict:
         res["params"] = {k: v.detach().clone()
                          for k, v in tree_leaves(state["params"])}
         out[name] = res
+    if "mamba/x" in data and dist.get_world_size() == 2:
+        out["mamba_block"] = _mamba_block(data, "mamba", MAMBA_CFG(), (1, 2),
+                                          ("shared_sum", "identity"))
+    if "mamba/x" in data and dist.get_world_size() == 4:
+        out["mamba_block_w_in_whole"] = _mamba_block(
+            data, "mamba_w_in_whole", MAMBA_W_IN_WHOLE_CFG(), (1, 4),
+            ("shared_sum",))
+    return out
+
+
+def MAMBA_CFG():
+    """Reduced zamba2 at f32: its Mamba2 block (2 SSM heads, ``w_in`` 290
+    columns)."""
+    from repro_torch.configs import reduced_config
+
+    return reduced_config("zamba2-7b").replace(dtype="float32")
+
+
+def MAMBA_W_IN_WHOLE_CFG():
+    """Reduced zamba2 with 4 SSM heads and a state of 17: on four ranks
+    the heads tile the model axis while ``w_in``'s 294 columns do not (the
+    rules keep it whole)."""
+    return MAMBA_CFG().replace(ssm_heads=4, ssm_state=17)
+
+
+def _mamba_block(data: dict, prefix: str, cfg, shape: tuple,
+                 variants: tuple) -> dict:
+    """One Mamba2 block of ``cfg`` on a ``shape`` mesh under reduced
+    zamba2's ``rules_for`` storage rules (each rank on its SSM heads),
+    with ``data``'s leaves, input and cotangent under ``prefix``: the
+    output and the gradients of ``sum(y * cot)`` -- the input's, and each
+    leaf's block, the leaves ``mamba_partial_leaves`` names summed over
+    ``model`` as the train step sums them -- per variant: the gated
+    norm's ``shared_sum`` as it is (``shared_sum``) or a stand-in whose
+    backward is the identity (``identity``: ``reduce_from_model``)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import activate
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models import ssm
+
+    specs = ssm.mamba2_specs(cfg)
+    full = {k: data[f"{prefix}/{k}"] for k in specs}
+    real = C.shared_sum
+    out = {}
+    with activate(_mesh(shape), rules_for(cfg, False)[1]) as ctx:
+        for variant in variants:
+            p = {k: v.requires_grad_(True)
+                 for k, v in _local(ctx, specs, full).items()}
+            x = torch.tensor(data[f"{prefix}/x"], requires_grad=True)
+            if variant == "identity":
+                C.shared_sum = C.reduce_from_model
+            try:
+                y = ssm.mamba2_forward(p, cfg, x)
+                keys = sorted(p)
+                g = torch.autograd.grad((y * torch.from_numpy(
+                    data[f"{prefix}/cot"])).sum(), [x] + [p[k] for k in keys])
+            finally:
+                C.shared_sum = real
+            grads = dict(zip(keys, g[1:]))
+            for k in ssm.mamba_partial_leaves(cfg):
+                dist.all_reduce(grads[k], group=ctx.model_group())
+            out[variant] = {"y": y.detach(), "gx": g[0], "grads": grads,
+                            "heads": ssm.mamba_heads(cfg),
+                            "partial": ssm.mamba_partial_leaves(cfg),
+                            "slices": {
+                                k: [(sl.start, sl.stop) for sl in
+                                    ctx.mesh.local_slices(ctx.spec(
+                                        s.logical, s.shape), s.shape)]
+                                for k, s in specs.items()}}
     return out
 
 
@@ -516,21 +587,20 @@ def _serve_loop(step, params, cache, prompt, s_max):
     return toks, logits, caches
 
 
-def decode(inputs: str, cases: list, root: str, whole: list = ()) -> dict:
+def decode(inputs: str, cases: list, root: str) -> dict:
     """Decode under a mesh per case (name, arch, D, M, B, S_max,
     prompt_len, cf, save) whose mesh has this world's size, under
     ``launch.dryrun.serve_rules`` of the registry arch: each rank's blocks
     of the parameters, ``init_cache`` under the context, then the serve
     step over the prompt and greedy to S_max (tokens, each step's logits,
     the cache's blocks after each step), the same through
-    ``generate(capture=False)``, this rank's ``KVBlock``, and what
-    ``generate(capture=True)`` and ``CapturedServeStep`` raise on the gloo
-    mesh.  With ``save``: the blocks saved as a sharded checkpoint under
-    ``root/NAME``, restored with ``shardings=`` under the same rules and
-    decoded again (its logits).  ``whole``: cases (name, arch, D, M, B,
-    S_max, prompt_len) of a family whose cache stays whole under a mesh
-    (rules that split none of its dense leaves): the tokens, each step's
-    logits and the cache's leaf shapes."""
+    ``generate(capture=False)``, this rank's ``KVBlock``, each cache
+    leaf's block as ``ShardingCtx.block`` gives it (a stacked leaf's
+    layers whole), and what ``generate(capture=True)`` and
+    ``CapturedServeStep`` raise on the gloo mesh.  With ``save``: the
+    blocks saved as a sharded checkpoint under ``root/NAME``, restored
+    with ``shardings=`` under the same rules and decoded again (its
+    logits)."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
@@ -539,7 +609,8 @@ def decode(inputs: str, cases: list, root: str, whole: list = ()) -> dict:
     from repro_torch.launch.dryrun import serve_rules
     from repro_torch.launch.serve import generate
     from repro_torch.models.common import local_tree, sharding_tree
-    from repro_torch.models.transformer import init_cache, model_specs
+    from repro_torch.models.transformer import (cache_specs, init_cache,
+                                                model_specs)
     from repro_torch.serve.step import CapturedServeStep, make_serve_step
     from repro_torch.weights import unflatten
 
@@ -567,6 +638,12 @@ def decode(inputs: str, cases: list, root: str, whole: list = ()) -> dict:
             res["block"] = [(sl.start, sl.stop)
                             for sl in (blk.rows, blk.keys, blk.heads)]
             res["seq_axes"], res["batch_axes"] = blk.seq_axes, blk.batch_axes
+            res["slices"] = {}
+            for key, sp in tree_leaves(cache_specs(cfg, B, s_max)):
+                lead = int(sp.logical[0] == "layers")
+                res["slices"][key] = [(0, n) for n in sp.shape[:lead]] + [
+                    (sl.start, sl.stop) for sl in ctx.block(
+                        sp.logical[lead:], sp.shape[lead:])]
             res["generate"] = generate(cfg, params, prompt, s_max - prompt_len,
                                        device="cpu", capture=False)
             for what, fn in (
@@ -593,23 +670,6 @@ def decode(inputs: str, cases: list, root: str, whole: list = ()) -> dict:
                 _, res["restored_logits"], _ = _serve_loop(
                     step, restored, cache, prompt, s_max)
         out[name] = res
-    for name, arch, D, M, B, s_max, prompt_len in whole:
-        if D * M != dist.get_world_size():
-            continue
-        cfg = reduced_config(arch).replace(dtype="float32")
-        full = {k[len(arch) + 1:]: v for k, v in data.items()
-                if k.startswith(arch + "/")}
-        mesh = _mesh((D, M))
-        prompt = torch.from_numpy(data[f"prompt/{name}"]).long()
-        with activate(mesh, serve_rules(cfg.replace(name=arch), mesh, B)) \
-                as ctx, torch.no_grad():
-            params = unflatten(_local(ctx, model_specs(cfg), full))
-            cache = init_cache(cfg, B, s_max, "cpu")
-            toks, logits, _ = _serve_loop(make_serve_step(cfg), params,
-                                          cache, prompt, s_max)
-            out[name] = {"tokens": toks, "logits": logits,
-                         "shapes": {k: tuple(v.shape)
-                                    for k, v in tree_leaves(cache)}}
     return out
 
 
