@@ -111,7 +111,7 @@ Phases (one JSON line each, ``"phase"`` names them):
    prints its peak device memory.
 12. ``xlstm_prefill`` / ``xlstm_generate``: xlstm-125m at full width and
    depth (6 x (mLSTM, sLSTM), d 768), its zero-init ``b_if`` and ``b``
-   set nonzero: prefill at B 1 x S 2048 (13 rmsnorm launches per forward,
+   set nonzero: prefill at B 1 x S 512 (13 rmsnorm launches per forward,
    no other kernel: the cells' loops over time are host-bound), held at
    bf16 and f32; the captured ``generate`` at B 4, 16 + 32; one captured
    step at position 524,287 (the reference's ``long_500k``; the state has
@@ -202,8 +202,9 @@ Phases (one JSON line each, ``"phase"`` names them):
    the CPU's arithmetic.  ``dist_gloo_two_ranks``: two gloo ranks spawned
    on the card (CUDA tensors), each with 32 of olmoe's experts, the MoE
    block's outputs and gradients against this process's 1-rank run.
-   ``dist_tp_qwen3``: qwen3-1.7b at full width and depth under
-   ``launch.dryrun.rules_for``, tensor parallel over two gloo ranks on
+   ``dist_tp_qwen3``: qwen3-1.7b at full width with TP_LAYERS of its 28
+   layers under ``launch.dryrun.rules_for``, tensor parallel over two
+   gloo ranks on
    the card (a (1, 2) mesh: 8 of 16 query heads, 4 of 8 KV heads, 3,072
    of 6,144 MLP columns, 75,968 of 151,936 vocabulary rows and the
    vocab-parallel loss each), TP_STEPS steps of B 2 x S 2048 at bf16 and
@@ -237,7 +238,8 @@ Phases (one JSON line each, ``"phase"`` names them):
    (olmoe's bf16 run reported, not held: its router reorders near-tied
    experts); launches a step exact; ms a step and peak a rank.  The bf16
    limit is read against a fault (DECODE_FAULTS): qwen3's B 1 run again
-   with block 1 of the keys left out of every merge must exceed it.  The kernel phase holds the partials mode on 2 and 4 blocks
+   with block 1 of the keys left out of every merge must exceed it.  The
+   kernel phase holds the partials mode on 2 and 4 blocks
    against the whole-cache kernel and the plain version
    (``decode_partials_phase``; bf16 within one bf16 ulp of the largest
    entry, PARTIALS_BF16_REL), and checks that the hold fails when the
@@ -250,8 +252,9 @@ Phases (one JSON line each, ``"phase"`` names them):
    block multiplied and the projection gathered, the gated norm's sum of
    squares all-reduced, the shared block's heads and MLP, the vocabulary),
    TP_STEPS steps of B 1 x S 2048 at bf16 and of B 1 x S 512 at f32;
-   ``dist_tp_xlstm``: xlstm-125m at full size (the mLSTM's ``d_in`` over
-   ``model``), B 2 x S 256 at bf16, 2 layers at f32; each against this
+   ``dist_tp_xlstm``: xlstm-125m at full width with 4 of its 12 layers
+   (the mLSTM's ``d_in`` over ``model``), B 2 x S 64 at bf16, 2 layers at
+   f32; each against this
    process's run of the same batches on the 1-rank mesh, as
    ``dist_tp_qwen3`` holds it.  ``dist_decode_zamba2`` /
    ``dist_decode_xlstm``: the same depths under ``serve_rules`` on (1, 2)
@@ -259,6 +262,26 @@ Phases (one JSON line each, ``"phase"`` names them):
    ``data``), B 4, DECODE_STEPS steps, f32 and bf16, held as
    ``dist_decode_phase`` holds its runs; each rank's cache bytes beside
    the whole cache's.
+23. The encdec and vlm families under a mesh, last in the distributed
+   phase (``dist_cross_phase``).  ``dist_tp_whisper``: whisper-large-v3
+   at full width with 4 + 4 of its 32 + 32 layers on four gloo ranks of a
+   (2, 2) mesh (``--gloo-program cross4``) under ``rules_for``: its FSDP
+   storage puts every ``d`` dim over ``data`` (``frontend_proj`` and the
+   encoder's final norm too, gathered before use and again in the
+   recompute), heads, MLP and vocabulary over ``model``; B 2 x 448 tokens
+   over 1500 frames at bf16, 2 + 2 layers and 128 tokens at f32.
+   ``dist_tp_llama_vision``: llama-3.2-vision-11b at full width with 5 of
+   its 40 layers (4 self-attention, 1 gated cross-attention; 2.1 B
+   parameters) on two ranks of (1, 2) (``--gloo-program cross2``), B 1 x
+   S 2048 over 1024 patches at bf16, 2 layers with ``cross_attn_period``
+   2 at f32.  Each against this process's run on the 1-rank NCCL mesh, as
+   ``dist_tp_zamba2``.  ``dist_decode_whisper`` /
+   ``dist_decode_llama_vision``: the same depths under ``serve_rules`` on
+   (1, 2) and (2, 1), B 4 against the model's own memory (the encoder over
+   1500 frames, 1024 projected patches), of which each rank's cache holds
+   its batch rows, DECODE_STEPS steps to 448 and 2048 keys, f32 and bf16,
+   held as ``dist_decode_phase`` holds its runs; each rank's memory and
+   KV bytes must be its block's.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -384,7 +407,9 @@ GRAPH_ATOL = 1e-3
 #: 30 s grid) and 448 tokens (its decoder's limit), generate (B 4, 16 + 32)
 #: against its own encoder output; llama-3.2-vision-11b over 1024 patches
 #: and S 2048, generate (B 4, 16 + 16) against the projected patches
-XLSTM_PREFILL_SHAPE = (1, 2048)
+#: S 2048 -> 512 once the encdec and vlm phases joined the script (the
+#: time limit): the prefill's time loop is host-bound, 11.1 s at 2048
+XLSTM_PREFILL_SHAPE = (1, 512)
 XLSTM_GENERATE = (4, 16, 32)
 XLSTM_LONG_POS = 524_287
 #: the xlstm prefill's device profile covers this many positions (its
@@ -2954,7 +2979,7 @@ def family_model(torch, cfg, dev):
 
 def xlstm_phase(torch, K, dev) -> dict:
     """xlstm-125m at full width and depth (6 x (mLSTM, sLSTM), d 768):
-    ``xlstm_prefill`` at B 1 x S 2048 (13 rmsnorm launches per forward: no
+    ``xlstm_prefill`` at B 1 x S 512 (13 rmsnorm launches per forward: no
     other kernel runs; the cells' loops over time are host-bound, timed
     once, with a kernels-only profile), ``xlstm_generate`` (B 4, 16 + 32)
     with four teacher-forced kernel-vs-plain steps, and one captured step
@@ -4099,7 +4124,9 @@ def gloo_rank(torch, K, rank: int, out: str, program: str) -> int:
 
     world, fn = GLOO_PROGRAMS[program]
     dist.init_process_group(
-        "gloo", init_method=f"file://{out}/rendezvous", rank=rank,
+        # a file of its own per program: a later spawn into the same
+        # directory must not read the addresses an earlier one left there
+        "gloo", init_method=f"file://{out}/rendezvous_{program}", rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=600))
     try:
         res = fn(torch, K, torch.device("cuda", 0), rank, out)
@@ -4160,16 +4187,22 @@ def dist_gloo_phase(torch, dev, mesh) -> None:
 
 # ----------------------------------------------------- tensor parallelism
 
-#: dist_tp_qwen3: qwen3-1.7b at full width and depth on two gloo ranks of a
-#: (1, 2) mesh under rules_for(qwen3) (DEFAULT_RULES for this arch), B 2 x S
-#: 2048 at bf16 with the config's remat="full", TP_STEPS steps; held
+#: dist_tp_qwen3: qwen3-1.7b at full width (TP_LAYERS layers) on two gloo
+#: ranks of a (1, 2) mesh under rules_for(qwen3) (DEFAULT_RULES for this
+#: arch), B 2 x S 2048 at bf16 with the config's remat="full", TP_STEPS
+#: steps; held
 #: against this process's 1-rank NCCL run of the same batches: each loss
 #: within TP_LOSS_RTOL relative, step 0's gradient of every leaf at
 #: cosine > TP_COS on each rank's block; then at f32 with TP_F32_LAYERS
 #: layers and B 2 x S 512: losses, clip norms and step 0's gradients within
 #: TP_F32_TOL relative of each tensor's largest entry
 TP_SHAPE = (2, 2048)
-TP_STEPS = 3
+#: dist_tp_qwen3's bf16 depth: 28 -> 8 layers (the time limit, once the
+#: encdec and vlm phases joined the script)
+TP_LAYERS = 8
+#: steps a TP run takes (3 until the encdec and vlm phases joined the
+#: script: the time limit)
+TP_STEPS = 2
 TP_LOSS_RTOL = 2e-3
 TP_COS = 0.999
 TP_F32_LAYERS = 2
@@ -4185,30 +4218,54 @@ ZERO1_SHAPE = (4, 2048)
 
 
 def _tp_batches(torch, cfg, dev, shape, seed: int) -> list:
-    """TP_STEPS batches of the global shape, drawn on ``dev`` from
-    ``seed`` (every process draws the same)."""
+    """TP_STEPS batches ``{"tokens": [B, S]}`` of the global shape, drawn
+    on ``dev`` from ``seed`` (every process draws the same); for the
+    encdec and vlm families also their frames or patches (``[B,
+    CROSS_MEMORY, frontend_dim]``, ``stub_inputs`` from ``seed + 1000 +
+    i``)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randint(0, cfg.vocab_size, shape, device=dev,
-                          generator=gen) for _ in range(TP_STEPS)]
+    out = [{"tokens": torch.randint(0, cfg.vocab_size, shape, device=dev,
+                                    generator=gen)}
+           for _ in range(TP_STEPS)]
+    if cfg.family in ("encdec", "vlm"):
+        for i, b in enumerate(out):
+            b.update(stub_inputs(torch, cfg, shape[0], CROSS_MEMORY[
+                cfg.family], dev, seed + 1000 + i))
+    return out
+
+
+def _draw_full(torch, cfg, dev, seed: int) -> dict:
+    """``cfg``'s whole parameters drawn on ``dev`` from ``seed`` by
+    ``init_params``, as every process draws them; for the encdec and vlm
+    families the zero-init leaves set nonzero (``set_nonzero_inits``: the
+    vlm gates would make every cross-attention add nothing)."""
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import model_specs
+
+    full = init_params(model_specs(cfg), torch.Generator(
+        device=dev).manual_seed(seed), cfg.torch_dtype, dev)
+    if cfg.family in ("encdec", "vlm"):
+        set_nonzero_inits(torch, cfg, full, seed)
+    return full
 
 
 def _sharded_train(torch, K, cfg, dev, mesh, opt, seed: int, batches: list):
-    """Parameters drawn whole on ``dev`` from ``seed`` (as every process
-    draws them), this rank's blocks cut under ``rules_for(cfg)``'s storage
-    rules, ``init_sharded_train_state`` and one train step per batch (this
-    rank's rows of it).  Returns the state, the leaves' slices, and a
-    record: losses, clip norms, ms per step, peak device bytes, the
-    kernels' launches and step 0's reduced gradients (on the host)."""
+    """Parameters drawn whole on ``dev`` from ``seed`` (``_draw_full``, as
+    every process draws them), this rank's blocks cut under
+    ``rules_for(cfg)``'s storage rules, ``init_sharded_train_state`` and
+    one train step per batch (this rank's rows of each of its tensors).
+    Returns the state, the leaves' slices, and a record: losses, clip
+    norms, ms per step, peak device bytes, the kernels' launches and step
+    0's reduced gradients (on the host)."""
     import repro_torch.train.step as train_step
     from repro_torch.distributed import activate
     from repro_torch.launch.dryrun import rules_for
-    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.common import tree_leaves
     from repro_torch.models.transformer import model_specs
     from repro_torch.weights import unflatten
 
     _, storage = rules_for(cfg, False)
-    full = init_params(model_specs(cfg), torch.Generator(
-        device=dev).manual_seed(seed), cfg.torch_dtype, dev)
+    full = _draw_full(torch, cfg, dev, seed)
     with activate(mesh, storage) as ctx:
         specs = dict(tree_leaves(model_specs(cfg)))
         slices = {k: ctx.mesh.local_slices(ctx.spec(s.logical, s.shape),
@@ -4235,10 +4292,11 @@ def _sharded_train(torch, K, cfg, dev, mesh, opt, seed: int, batches: list):
         train_step.adamw_apply = recording
         try:
             for b in batches:
-                n = b.shape[0] // nb
+                n = b["tokens"].shape[0] // nb
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                state, m = step(state, {"tokens": b[bi * n:(bi + 1) * n]})
+                state, m = step(state, {k: v[bi * n:(bi + 1) * n]
+                                        for k, v in b.items()})
                 rec["losses"].append(m["loss"].item())
                 rec["grad_norms"].append(m["grad_norm"].item())
                 torch.cuda.synchronize()
@@ -4267,7 +4325,8 @@ def _tp_configs():
     from repro_torch.configs import get_config
 
     cfg = get_config("qwen3-1.7b")
-    return cfg, cfg.replace(n_layers=TP_F32_LAYERS, dtype="float32")
+    return (cfg.replace(n_layers=TP_LAYERS),
+            cfg.replace(n_layers=TP_F32_LAYERS, dtype="float32"))
 
 
 def _tp_opt(steps: int, zero1: bool = True):
@@ -4394,12 +4453,12 @@ def _sum_launches(recs) -> dict:
 
 
 def dist_tp_phase(torch, K, dev, mesh) -> dict:
-    """``dist_tp_qwen3``: qwen3-1.7b at full width and depth, tensor
+    """``dist_tp_qwen3``: qwen3-1.7b at full width (TP_LAYERS layers), tensor
     parallel over two gloo ranks spawned on the card (8 of 16 query heads,
     4 of 8 KV heads, 3,072 of 6,144 MLP columns and 75,968 of 151,936
     vocabulary rows each; the vocab-parallel loss), against this
     process's run of the same batches on the 1-rank NCCL (1, 1) mesh,
-    at bf16 (28 layers, B 2 x S 2048) and at f32 (2 layers, B 2 x S 512).
+    at bf16 (B 2 x S 2048) and at f32 (2 layers, B 2 x S 512).
     The ranks' collectives are gloo's, through the host, on one card: their
     times are not NVLink's."""
     cfg, cfg32 = _tp_configs()
@@ -4625,17 +4684,19 @@ def partials_close(torch, got, ref, dtype: str, peak: float) -> bool:
     return torch.allclose(got, ref, atol=TOL[dtype], rtol=TOL[dtype])
 
 
-#: decode steps a run of the dist_decode phases takes
-DECODE_STEPS = 32
+#: decode steps a run of the dist_decode phases takes (32 until the
+#: encdec and vlm phases joined the script: the time limit)
+DECODE_STEPS = 16
 #: dist_decode_qwen3, four gloo ranks on a (2, 2) mesh: (tag, B, S_max,
 #: first position) -- B 1 over 32768 keys split by sequence over data
 #: (and KV heads over model), the steps crossing the block boundary at
-#: 16384; B 4 split by batch over data and heads over model.  Keys below
-#: the first position hold seeded random K / V.
-DECODE_QWEN3_RUNS = (("b1", 1, 32768, 16368), ("b4", 4, 2048, 1000))
+#: 16384 halfway; B 4 split by batch over data and heads over model.
+#: Keys below the first position hold seeded random K / V.
+DECODE_QWEN3_RUNS = (("b1", 1, 32768, 16384 - DECODE_STEPS // 2),
+                     ("b4", 4, 2048, 1000))
 #: dist_decode_gemma3 / dist_decode_olmoe, two gloo ranks on (1, 2):
 #: (arch, B, S_max, first position) -- gemma3-1b's 1024 keys split by
-#: sequence over model, positions 600-631 whose window of 512 straddles
+#: sequence over model, positions 600-615 whose window of 512 straddles
 #: the boundary at 512; olmoe-1b-7b with 32 of its 64 experts a rank
 #: (the one-hot path across ranks) and 8 of its 16 KV heads
 DECODE_PAIR_RUNS = (("gemma3-1b", 4, 1024, 600),
@@ -4655,7 +4716,7 @@ DECODE_F32_TOL = 1e-4
 DECODE_BF16_FACTOR = 1.5
 #: dist_decode_qwen3's faulted run, which reads that limit against a
 #: fault: the B 1 bf16 run again with block 1 of the keys (16384 on: none
-#: before the boundary, up to 16 after it) left out of every layer's
+#: before the boundary, up to 8 after it) left out of every layer's
 #: merge, which must exceed the limit (at a factor of 2 it passed; block
 #: 0, all but the newest keys, misses by far more: PERF.md)
 DECODE_FAULTS = (("qwen3-1.7b/bfloat16/b1", (1,)),)
@@ -4804,15 +4865,25 @@ def _decode_draw(torch, cfg, dev, dtype, ctx=None):
     """``cfg``'s parameters drawn on the card from DECODE_SEED as
     ``init_params`` draws them, leaf by leaf; under ``ctx`` each leaf is
     cut to this rank's block as soon as it is drawn (a whole f32 olmoe
-    does not fit twice beside the other rank's)."""
+    does not fit twice beside the other rank's).  For the encdec and vlm
+    families the zero-init leaves are set nonzero as
+    ``set_nonzero_inits`` sets them (the vlm gates to GATE_VALUE), drawn
+    whole from the same generator before the cut."""
     from repro_torch.models.common import _init_leaf, tree_map
     from repro_torch.models.transformer import model_specs
 
     gen = torch.Generator(device=dev).manual_seed(DECODE_SEED)
     dt = getattr(torch, dtype)
+    cross = cfg.family in ("encdec", "vlm")
 
     def one(s):
         t = _init_leaf(s, dt, dev, gen)
+        if cross and s.init == "zeros":     # as set_nonzero_inits sets them
+            # the vlm gate: one entry a layer, whose logical dim is None
+            t = (torch.full(s.shape, GATE_VALUE, device=dev)
+                 if s.logical[-1] is None and s.shape[-1] == 1 else
+                 torch.randn(s.shape, generator=gen, device=dev) * 0.2
+                 ).to(dt)
         if ctx is None:
             return t
         return t[ctx.mesh.local_slices(ctx.spec(s.logical, s.shape),
@@ -4848,19 +4919,39 @@ def _fill_prefix(torch, cfg, cache, B, s_max, p0, ctx=None) -> None:
                 layer[:, :k1 - k0] = whole[blk.rows, k0:k1, blk.heads]
 
 
+def _decode_stub(torch, cfg, B: int, dev):
+    """The frames or patches ``[B, CROSS_MEMORY, frontend_dim]`` an encdec
+    or vlm decode run encodes into its memory (from DECODE_SEED + 3,
+    every process the same); ``None`` for the other families."""
+    if cfg.family not in CROSS_MEMORY:
+        return None
+    return stub_inputs(torch, cfg, B, CROSS_MEMORY[cfg.family], dev,
+                       DECODE_SEED + 3)
+
+
 def _decode_run(torch, K, cfg, params, dev, B, s_max, p0, first,
                 forced=None, ctx=None) -> dict:
     """DECODE_STEPS serve steps from position ``p0`` over a cache whose
     keys below it are random (``_fill_prefix``): greedy from ``first``
-    ``[B, 1]``, or teacher-forced on ``forced`` ``[B, DECODE_STEPS + 1]``.
-    The tokens, every step's logits (f32, on the host), ms a step (host
-    clock to a synchronize), the launches and the peak memory."""
-    from repro_torch.models.transformer import init_cache
+    ``[B, 1]``, or teacher-forced on ``forced`` ``[B, DECODE_STEPS + 1]``;
+    encdec and vlm against the memory ``encode`` makes of the whole
+    batch's ``_decode_stub`` (under ``ctx`` too), of which the cache takes
+    this rank's rows.  The tokens, every step's logits (f32, on the host),
+    ms a step (host clock to a synchronize), the launches and the peak
+    memory."""
+    from repro_torch.models.transformer import encode, init_cache
     from repro_torch.serve.step import make_serve_step
 
     step = make_serve_step(cfg)
+    stub = _decode_stub(torch, cfg, B, dev)
     with torch.inference_mode():
-        cache = init_cache(cfg, B, s_max, dev)
+        memory = None if stub is None else encode(params, cfg, stub)
+        cache = init_cache(cfg, B, s_max, dev, mem_len=0 if memory is None
+                           else memory.shape[1])
+        if memory is not None:
+            rows = slice(0, B) if ctx is None else ctx.batch_rows(B)[0]
+            cache["memory"].copy_(memory[rows])
+            del memory
         cache_bytes = _cache_bytes(cache)
         _fill_prefix(torch, cfg, cache, B, s_max, p0, ctx)
         toks, logits, ms = [first], [], []
@@ -4883,12 +4974,14 @@ def _decode_run(torch, K, cfg, params, dev, B, s_max, p0, first,
 
 
 def _cache_bytes(cache) -> dict:
-    """A cache tree's bytes: its KV leaves' and its recurrent states'."""
+    """A cache tree's bytes: its KV leaves', its recurrent states' and its
+    memory's (encdec, vlm)."""
     from repro_torch.models.common import tree_leaves
 
-    out = {"kv": 0, "states": 0}
+    out = {"kv": 0, "states": 0, "memory": 0}
     for key, t in tree_leaves(cache):
-        kind = "kv" if key.rsplit("/", 1)[-1] in ("k", "v") else "states"
+        kind = "kv" if key.rsplit("/", 1)[-1] in ("k", "v") else (
+            "memory" if key == "memory" else "states")
         out[kind] += t.numel() * t.element_size()
     return out
 
@@ -4928,12 +5021,11 @@ def _decode_hold(torch, got: dict, ref: dict, dtype: str) -> dict:
 
 
 def _dist_config(arch: str):
-    """``arch``'s registry config with its depth cut to DIST_LAYERS where
-    a distributed phase cuts it."""
+    """``arch``'s registry config with its depth cut as DIST_LAYERS says
+    where a distributed phase cuts it."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch)
-    return cfg.replace(n_layers=DIST_LAYERS.get(arch, cfg.n_layers))
+    return get_config(arch).replace(**DIST_LAYERS.get(arch, {}))
 
 
 def _decode_one_rank(torch, K, dev, runs, out: str) -> dict:
@@ -5220,10 +5312,15 @@ def serve_graph_mesh_phase(torch, K, dev, mesh) -> dict:
 
 #: dist_tp_zamba2 / dist_tp_xlstm / dist_decode_zamba2 /
 #: dist_decode_xlstm: two gloo ranks, spawned once for the four phases.
-#: Depth a phase runs at (zamba2-7b: one hybrid group of six Mamba2 blocks
-#: and the shared attention block, plus one tail Mamba2 block, 81 -> 7;
-#: xlstm-125m whole)
-DIST_LAYERS = {"zamba2-7b": 7}
+#: The config changes of the depth a distributed phase runs at (zamba2-7b:
+#: one hybrid group of six Mamba2 blocks and the shared attention block,
+#: plus one tail Mamba2 block, 81 -> 7; xlstm-125m 12 -> 4, two (mLSTM,
+#: sLSTM) groups, for the time limit; whisper-large-v3
+#: 32 + 32 -> 4 + 4 layers; llama-3.2-vision-11b 40 -> 5, one group of 4
+#: self-attention layers and its gated cross-attention layer)
+DIST_LAYERS = {"zamba2-7b": {"n_layers": 7}, "xlstm-125m": {"n_layers": 4},
+               "whisper-large-v3": {"n_layers": 4, "n_encoder_layers": 4},
+               "llama-3.2-vision-11b": {"n_layers": 5}}
 #: per arch: (bf16 train shape, the f32 hold's config changes, its shape)
 #: -- zamba2 B 1 x S 2048; xlstm B 2 x S 64 (its time loop is bound by
 #: the host's launches; S 256 took four times as long, PERF.md); the f32 holds
@@ -5249,19 +5346,21 @@ RECURRENT_MESHES = ((1, 2), (2, 1))
 RECURRENT_SEED = 263
 
 
-def _recurrent_tp_cfgs(arch: str):
-    shape, f32_cfg, shape32 = RECURRENT_TP[arch]
+def _family_tp_cfgs(arch: str):
+    """(tag, config, global shape, seed) of ``arch``'s bf16 and f32 TP
+    runs (RECURRENT_TP, CROSS_TP)."""
+    shape, f32_cfg, shape32 = {**RECURRENT_TP, **CROSS_TP}[arch]
     cfg = _dist_config(arch)
     return ((("bf16", cfg, shape, RECURRENT_SEED),
              ("f32", cfg.replace(dtype="float32", **f32_cfg), shape32,
               RECURRENT_SEED + 2)))
 
 
-def _recurrent_tp_runs(torch, K, dev, mesh, arch) -> dict:
+def _family_tp_runs(torch, K, dev, mesh, arch) -> dict:
     """``arch``'s bf16 and f32 TP runs on ``mesh`` (``_sharded_train``),
     each record with its step-0 gradients (on the host) and its slices."""
     res = {}
-    for tag, c, shape, seed in _recurrent_tp_cfgs(arch):
+    for tag, c, shape, seed in _family_tp_cfgs(arch):
         state, slices, rec = _sharded_train(
             torch, K, c, dev, mesh, _tp_opt(TP_STEPS), seed,
             _tp_batches(torch, c, dev, shape, seed + 1))
@@ -5272,17 +5371,38 @@ def _recurrent_tp_runs(torch, K, dev, mesh, arch) -> dict:
     return res
 
 
-def _grads0(torch, cfg, dev, seed: int, tokens, move: float = 0.0) -> dict:
+def _one_rank_tp(torch, K, dev, mesh, archs) -> tuple:
+    """Each arch's one-rank TP runs on ``mesh`` (the 1-rank NCCL mesh), the
+    f32 gradients of its bf16 run's weights (``_grads0``, the bf16 hold's
+    reference) and, in its f32 record, the ``floor``: the one-rank f32
+    gradients' largest move under weights moved by 1e-7 of themselves."""
+    one, g32 = {}, {}
+    for arch in archs:
+        one[arch] = _family_tp_runs(torch, K, dev, mesh, arch)
+        (_, c, shape, seed), (_, c32, shape32, seed32) = \
+            _family_tp_cfgs(arch)
+        g32[arch] = _grads0(torch, c, dev, seed, _tp_batches(
+            torch, c, dev, shape, seed + 1)[0])
+        moved = _grads0(torch, c32, dev, seed32, _tp_batches(
+            torch, c32, dev, shape32, seed32 + 1)[0], move=1e-7)
+        one[arch]["f32"]["floor"] = max(
+            ((k, _dist_from(torch, g, one[arch]["f32"]["grads0"][k]))
+             for k, g in moved.items()), key=lambda kv: kv[1])
+        del moved
+    return one, g32
+
+
+def _grads0(torch, cfg, dev, seed: int, batch: dict,
+            move: float = 0.0) -> dict:
     """Step 0's gradients in f32, on the host, of ``cfg``'s weights as
     ``_sharded_train`` draws them from ``seed`` (upcast), on the global
-    batch ``tokens``; with ``move`` each weight moved by that much of
-    itself times a seeded normal draw."""
-    from repro_torch.models.common import init_params, tree_leaves
-    from repro_torch.models.transformer import lm_loss, model_specs
+    ``batch``; with ``move`` each weight moved by that much of itself
+    times a seeded normal draw."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import lm_loss
     from repro_torch.weights import unflatten
 
-    full = init_params(model_specs(cfg), torch.Generator(
-        device=dev).manual_seed(seed), cfg.torch_dtype, dev)
+    full = _draw_full(torch, cfg, dev, seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
     flat = {}
     for k, t in tree_leaves(full):
@@ -5292,8 +5412,7 @@ def _grads0(torch, cfg, dev, seed: int, tokens, move: float = 0.0) -> dict:
                                             device=dev))
         flat[k] = t.requires_grad_(True)
     del full
-    loss = lm_loss(unflatten(flat), cfg.replace(dtype="float32"),
-                   {"tokens": tokens})
+    loss = lm_loss(unflatten(flat), cfg.replace(dtype="float32"), batch)
     keys = sorted(flat)
     grads = torch.autograd.grad(loss, [flat[k] for k in keys])
     out = {k: g.cpu() for k, g in zip(keys, grads)}
@@ -5375,7 +5494,7 @@ def recurrent_rank(torch, K, dev, rank: int, out: str) -> dict:
     from repro_torch.launch.mesh import make_local_mesh
 
     mesh = make_local_mesh(1, 2, device=dev)
-    res = {arch: _recurrent_tp_runs(torch, K, dev, mesh, arch)
+    res = {arch: _family_tp_runs(torch, K, dev, mesh, arch)
            for arch in RECURRENT_ARCHS}
     for shape in RECURRENT_MESHES:
         res[shape] = _decode_ranks(torch, K, dev, _decode_runs_recurrent(),
@@ -5424,27 +5543,10 @@ def dist_recurrent_phase(torch, K, dev, mesh) -> dict:
     ``dist_decode_phase`` holds them; each rank's cache bytes (recurrent
     states, KV) beside the whole cache's.  One spawn of two ranks runs the
     four phases.  Returns the launches by path."""
-    from repro_torch.configs import get_config
-    from repro_torch.distributed import Mesh
-    from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
-    from repro_torch.launch.dryrun import serve_rules
-
     out = tempfile.mkdtemp(prefix="chip_smoke_recurrent_")
     failed = []
     try:
-        one, g32 = {}, {}
-        for arch in RECURRENT_ARCHS:
-            one[arch] = _recurrent_tp_runs(torch, K, dev, mesh, arch)
-            (_, c, shape, seed), (_, c32, shape32, seed32) = \
-                _recurrent_tp_cfgs(arch)
-            g32[arch] = _grads0(torch, c, dev, seed, _tp_batches(
-                torch, c, dev, shape, seed + 1)[0])
-            moved = _grads0(torch, c32, dev, seed32, _tp_batches(
-                torch, c32, dev, shape32, seed32 + 1)[0], move=1e-7)
-            one[arch]["f32"]["floor"] = max(
-                ((k, _dist_from(torch, g, one[arch]["f32"]["grads0"][k]))
-                 for k, g in moved.items()), key=lambda kv: kv[1])
-            del moved
+        one, g32 = _one_rank_tp(torch, K, dev, mesh, RECURRENT_ARCHS)
         runs = _decode_runs_recurrent()
         one_dec = _decode_one_rank(torch, K, dev, runs, out)
         torch.cuda.empty_cache()
@@ -5455,86 +5557,276 @@ def dist_recurrent_phase(torch, K, dev, mesh) -> dict:
         shutil.rmtree(out, ignore_errors=True)
     by_path = {}
     for arch in RECURRENT_ARCHS:
-        phase = f"dist_tp_{arch.split('-')[0]}"
-        report, recs = {}, []
-        for tag, c, shape, _ in _recurrent_tp_cfgs(arch):
-            want = {k: TP_STEPS * n for k, n in _recurrent_launches(
-                c, True).items() if k in KERNELS}
-            mine = one[arch][tag]
-            for r, res in enumerate(ranks):
-                rec = res[arch][tag]
-                ok, numbers = _hold_tp(torch, tag, rec, mine,
-                                       g32[arch] if tag == "bf16" else None)
-                bad = [name for name, n in want.items()
-                       if rec["launches"][name] != n]
-                if not (ok and not bad and rec["device"].startswith("cuda")):
-                    failed.append(f"{phase} {tag}: rank {r} on "
-                                  f"{rec['device']}, launches {bad} off "
-                                  f"({rec['launches']} vs {want}): "
-                                  f"{numbers}")
-                report.setdefault(tag, []).append({
-                    "ok": ok, "losses": rec["losses"],
-                    "ms_per_step": rec["ms"], "peak_gb": rec["peak_gb"],
-                    "launches": rec["launches"], **numbers})
-                recs.append(rec)
-            report[f"{tag}_one_rank"] = {
-                "losses": mine["losses"], "ms_per_step": mine["ms"],
-                "peak_gb": mine["peak_gb"], "n_layers": c.n_layers,
-                "batch": shape[0], "seq": shape[1]}
-        emit(phase, arch=arch, full_n_layers=get_config(arch).n_layers,
-             steps=TP_STEPS, mesh=[1, 2], backend="gloo (through the host, "
-             "two ranks on one card, not NVLink)", one_rank_backend="nccl "
-             "(1, 1)", loss_rtol=TP_LOSS_RTOL, cos_min=TP_COS,
-             f32_tol=TP_F32_TOL, spawn_s=seconds, **report)
-        by_path[phase] = _sum_launches(recs)
+        phase = arch.split("-")[0]
+        by_path[f"dist_tp_{phase}"] = _hold_tp_ranks(
+            torch, f"dist_tp_{phase}", arch, ranks, one[arch], g32[arch],
+            (1, 2), seconds, failed, _recurrent_launches)
     del one, g32
     for arch in RECURRENT_ARCHS:
         phase = f"dist_decode_{arch.split('-')[0]}"
-        cfg = _dist_config(arch)
-        B = RECURRENT_DECODE_B
-        report, recs = {}, []
-        for shape in RECURRENT_MESHES:
-            m = Mesh(shape, ("data", "model"))
-            lay = ShardingCtx(m, serve_rules(cfg, m, B)).layout(
-                KV_CACHE_LOGICAL, (B, DECODE_STEPS, cfg.n_kv_heads, cfg.hd))
-            want = {k: DECODE_STEPS * n for k, n in _recurrent_launches(
-                cfg, False, bool(lay[1])).items()}
-            for a, dtype, tag, _, _, _, held in runs:
-                if a != arch:
-                    continue
-                key = f"{arch}/{dtype}/{tag}"
-                rows = []
-                for r, res in enumerate(ranks):
-                    rec = res[shape][key]
-                    bad = [name for name, n in want.items()
-                           if rec["launches"][name] != n]
-                    numbers = {k: rec[k] for k in (
-                        "tokens_equal", "max_rel_err", "one_rank_err",
-                        "least_cosine", "argmax_agree")}
-                    if bad or not (rec["ok"] or not held) or not \
-                            rec["device"].startswith("cuda"):
-                        failed.append(f"{phase} {shape} {key}: rank {r} on "
-                                      f"{rec['device']}, launches {bad} off "
-                                      f"({rec['launches']} vs {want}): "
-                                      f"{numbers}")
-                    rows.append({k: rec[k] for k in (
-                        "ok", "tokens_equal", "max_rel_err", "one_rank_err",
-                        "least_cosine", "argmax_agree", "ms_per_step",
-                        "peak_gb", "cache_bytes", "batch_axes")})
-                    recs.append(rec)
-                report[f"{shape[0]}x{shape[1]}/{dtype}"] = {
-                    "ranks": rows, "launches_a_rank": recs[-1]["launches"],
-                    "whole_cache_bytes": one_dec[key]["cache_bytes"],
-                    "one_rank": one_dec[key]}
-        emit(phase, arch=arch, n_layers=cfg.n_layers, batch=B,
-             steps=DECODE_STEPS, meshes=[list(m) for m in RECURRENT_MESHES],
-             backend="gloo (through the host, two ranks on one card, not "
-             "NVLink)", f32_tol=DECODE_F32_TOL,
-             bf16_factor=DECODE_BF16_FACTOR, spawn_s=seconds, **report)
-        by_path[phase] = _sum_launches(recs)
+        by_path[phase] = _hold_decode_ranks(
+            torch, phase, arch, ranks, runs, one_dec, RECURRENT_MESHES,
+            seconds, failed, _recurrent_launches)
     # every line is printed before a hold fails, so one run reads them all
     check(not failed, "; ".join(failed))
     return by_path
+
+
+def _hold_tp_ranks(torch, phase: str, arch: str, ranks: list, one: dict,
+                   g32: dict, shape: tuple, seconds: float, failed: list,
+                   launches) -> dict:
+    """Every rank's bf16 and f32 TP runs of ``arch`` on a ``shape`` mesh
+    held against the one-rank runs (``_hold_tp``) and their launches a
+    step against ``launches(cfg, True)``; the phase's line is emitted,
+    each failure appended to ``failed``.  Returns the launches."""
+    from repro_torch.configs import get_config
+
+    report, recs = {}, []
+    for tag, c, tshape, _ in _family_tp_cfgs(arch):
+        want = {k: TP_STEPS * n for k, n in launches(c, True).items()
+                if k in KERNELS}
+        mine = one[tag]
+        for r, res in enumerate(ranks):
+            rec = res[arch][tag]
+            ok, numbers = _hold_tp(torch, tag, rec, mine,
+                                   g32 if tag == "bf16" else None)
+            bad = [name for name, n in want.items()
+                   if rec["launches"][name] != n]
+            if not (ok and not bad and rec["device"].startswith("cuda")):
+                failed.append(f"{phase} {tag}: rank {r} on "
+                              f"{rec['device']}, launches {bad} off "
+                              f"({rec['launches']} vs {want}): {numbers}")
+            report.setdefault(tag, []).append({
+                "ok": ok, "losses": rec["losses"],
+                "ms_per_step": rec["ms"], "peak_gb": rec["peak_gb"],
+                "launches": rec["launches"], **numbers})
+            recs.append(rec)
+        report[f"{tag}_one_rank"] = {
+            "losses": mine["losses"], "ms_per_step": mine["ms"],
+            "peak_gb": mine["peak_gb"], "n_layers": c.n_layers,
+            "batch": tshape[0], "seq": tshape[1]}
+    emit(phase, arch=arch, full_n_layers=get_config(arch).n_layers,
+         cut=DIST_LAYERS.get(arch, {}), steps=TP_STEPS, mesh=list(shape),
+         backend=f"gloo (through the host, {len(ranks)} ranks on one card, "
+         f"not NVLink)", one_rank_backend="nccl (1, 1)",
+         loss_rtol=TP_LOSS_RTOL, cos_min=TP_COS, f32_tol=TP_F32_TOL,
+         bf16_factor=TP_BF16_FACTOR, spawn_s=seconds, **report)
+    return _sum_launches(recs)
+
+
+def _hold_decode_ranks(torch, phase: str, arch: str, ranks: list,
+                       runs: list, one_dec: dict, meshes: tuple,
+                       seconds: float, failed: list, launches) -> dict:
+    """Every rank's decode runs of ``arch`` on each of ``meshes`` (the
+    ranks' results keyed by mesh shape) as ``_decode_ranks`` held them,
+    their launches against ``launches(cfg, False, cache split by
+    sequence)`` a step; the phase's line is emitted, each failure appended
+    to ``failed``.  Returns the launches."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
+    from repro_torch.launch.dryrun import serve_rules
+
+    cfg = _dist_config(arch)
+    report, recs = {}, []
+    for shape in meshes:
+        m = Mesh(shape, ("data", "model"))
+        for a, dtype, tag, B, s_max, p0, held in runs:
+            if a != arch:
+                continue
+            lay = ShardingCtx(m, serve_rules(cfg, m, B)).layout(
+                KV_CACHE_LOGICAL, (B, s_max, cfg.n_kv_heads, cfg.hd))
+            want = {k: DECODE_STEPS * n for k, n in launches(
+                cfg, False, bool(lay[1])).items()}
+            key = f"{arch}/{dtype}/{tag}"
+            whole = one_dec[key]["cache_bytes"]
+            rows = []
+            for r, res in enumerate(ranks):
+                rec = res[shape][key]
+                bad = [name for name, n in want.items()
+                       if rec["launches"][name] != n]
+                numbers = {k: rec[k] for k in (
+                    "tokens_equal", "max_rel_err", "one_rank_err",
+                    "least_cosine", "argmax_agree", "cache_bytes")}
+                # encdec, vlm: the memory is the rank's batch rows and the
+                # KV leaves its block (every mesh here splits them evenly)
+                parts = math.prod(m.shape[a] for a in rec["batch_axes"])
+                if whole["memory"] and (
+                        rec["cache_bytes"]["memory"] * parts
+                        != whole["memory"] or rec["cache_bytes"]["kv"]
+                        * len(ranks) != whole["kv"]):
+                    bad.append("cache blocks")
+                if bad or not (rec["ok"] or not held) or not \
+                        rec["device"].startswith("cuda"):
+                    failed.append(f"{phase} {shape} {key}: rank {r} on "
+                                  f"{rec['device']}, launches {bad} off "
+                                  f"({rec['launches']} vs {want}): "
+                                  f"{numbers}")
+                rows.append({k: rec[k] for k in (
+                    "ok", "tokens_equal", "max_rel_err", "one_rank_err",
+                    "least_cosine", "argmax_agree", "ms_per_step",
+                    "peak_gb", "cache_bytes", "batch_axes")})
+                recs.append(rec)
+            report[f"{shape[0]}x{shape[1]}/{dtype}"] = {
+                "batch": B, "s_max": s_max, "positions": [
+                    p0, p0 + DECODE_STEPS - 1], "ranks": rows,
+                "launches_a_rank": recs[-1]["launches"],
+                "whole_cache_bytes": one_dec[key]["cache_bytes"],
+                "one_rank": one_dec[key]}
+    emit(phase, arch=arch, n_layers=cfg.n_layers, steps=DECODE_STEPS,
+         meshes=[list(m) for m in meshes], backend=f"gloo (through the "
+         f"host, {len(ranks)} ranks on one card, not NVLink)",
+         f32_tol=DECODE_F32_TOL, bf16_factor=DECODE_BF16_FACTOR,
+         spawn_s=seconds, **report)
+    return _sum_launches(recs)
+
+
+# ------------------------------- whisper and llama-vision under a mesh
+
+#: the stub rows of the encdec and vlm memory in the distributed phases
+#: (by family): whisper-large-v3's 1500 frames, llama-3.2-vision-11b's
+#: 1024 patches, each of frontend_dim 1280
+CROSS_MEMORY = {"encdec": WHISPER_FRAMES, "vlm": VLM_PATCHES}
+#: per arch, as RECURRENT_TP: (bf16 train shape, the f32 hold's config
+#: changes, its shape) -- whisper B 2 x 448 tokens over 1500 frames, f32
+#: at 2 + 2 layers and 128 tokens; llama-vision B 1 x S 2048 over 1024
+#: patches, f32 at 2 layers with cross_attn_period 2 (at its period of 5,
+#: 2 layers hold no cross-attention: program_for makes 2 // 5 = 0
+#: groups) and S 512
+CROSS_TP = {"whisper-large-v3": ((2, WHISPER_TOKENS),
+                                 {"n_layers": 2, "n_encoder_layers": 2},
+                                 (2, 128)),
+            "llama-3.2-vision-11b": ((1, 2048), {"n_layers": 2,
+                                                 "cross_attn_period": 2},
+                                     (1, 512))}
+CROSS_ARCHS = tuple(CROSS_TP)
+#: dist_decode_whisper / dist_decode_llama_vision: B 4 against the model's
+#: own memory (the encoder over 4 x 1500 frames, 4 x 1024 projected
+#: patches), DECODE_STEPS steps from (S_max, first position): whisper to
+#: its 448-token limit, llama-vision to 2048; the keys below the first
+#: position random (``_fill_prefix``), on (1, 2) and (2, 1)
+CROSS_DECODE = {"whisper-large-v3": (448, 448 - DECODE_STEPS),
+                "llama-3.2-vision-11b": (2048, 2048 - DECODE_STEPS)}
+CROSS_MESHES = ((1, 2), (2, 1))
+
+
+def _cross_launches(cfg, train: bool, seq_split: bool = False) -> dict:
+    """Each kernel's launches a step of an encdec or vlm config: a train
+    step with remat="full" runs each group's blocks forward and again in
+    the recompute (the encoder's layers likewise), the tail's once, and
+    the final norm; self- and cross-attention through flash; a decode step
+    every block once, its self-attention through the partials mode where
+    the cache splits by sequence and its one-query cross-attention through
+    decode_attention.  LayerNorm (whisper) is no kernel."""
+    from repro_torch.models.transformer import program_for
+
+    grp, n_groups, rem = program_for(cfg)
+    out = dict.fromkeys(KERNELS + MESH_KERNELS, 0)
+    twice = 2 if train and cfg.remat == "full" else 1
+    norms = 2 if cfg.norm == "rmsnorm" else 0
+    own = ("flash_attention",) if train else (
+        MESH_KERNELS if seq_split else ("decode_attention",))
+    for kinds, times in ((grp, twice * n_groups), (rem, 1)):
+        for kind in kinds:
+            out["rmsnorm"] += norms * times
+            if kind != "xattn":
+                for name in own:
+                    out[name] += times
+            if kind in ("xattn", "dec_attn"):
+                out["flash_attention" if train else
+                    "decode_attention"] += times
+    if train and cfg.family == "encdec":
+        out["flash_attention"] += twice * cfg.n_encoder_layers
+    out["rmsnorm"] += norms // 2
+    return out
+
+
+def _decode_runs_cross():
+    return [(arch, dt, "b4", 4, *CROSS_DECODE[arch], True)
+            for arch in CROSS_ARCHS for dt in ("float32", "bfloat16")]
+
+
+def cross4_rank(torch, K, dev, rank: int, out: str) -> dict:
+    """``--gloo-program cross4``: one of four ranks of dist_tp_whisper (a
+    (2, 2) mesh: whisper's d dims stored over data, heads, MLP and
+    vocabulary over model)."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(2, 2, device=dev)
+    arch = CROSS_ARCHS[0]
+    return {arch: _family_tp_runs(torch, K, dev, mesh, arch)}
+
+
+def cross2_rank(torch, K, dev, rank: int, out: str) -> dict:
+    """``--gloo-program cross2``: one of two ranks of dist_tp_llama_vision
+    (a (1, 2) mesh) and of dist_decode_whisper / dist_decode_llama_vision
+    (on (1, 2), then on (2, 1), held against this process's one-rank runs
+    saved in ``out``)."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(1, 2, device=dev)
+    arch = CROSS_ARCHS[1]
+    res = {arch: _family_tp_runs(torch, K, dev, mesh, arch)}
+    for shape in CROSS_MESHES:
+        res[shape] = _decode_ranks(torch, K, dev, _decode_runs_cross(),
+                                   shape, out)
+    return res
+
+
+def dist_cross_phase(torch, K, dev, mesh) -> dict:
+    """``dist_tp_whisper``: whisper-large-v3 at full width (4 + 4 of its 32
+    + 32 layers), four gloo ranks on a (2, 2) mesh under its rules_for
+    storage (FSDP: every d dim over data, ``frontend_proj`` and the
+    encoder's final norm too; 10 of 20 heads, 2,560 of 5,120 MLP columns,
+    25,933 of 51,866 vocabulary rows a rank over model), B 2 x 448 tokens
+    over 1500 frames, the encoder's flash on a rank's 10 heads and the
+    cross-attention reading the memory through copy_to_model.
+    ``dist_tp_llama_vision``: llama-3.2-vision-11b at full width (5 of its
+    40 layers: 4 self-attention layers and one gated cross-attention
+    layer, 2.1 B parameters), two gloo ranks on (1, 2) (16 of 32 heads, 4
+    of 8 KV heads, 7,168 of 14,336 MLP columns, 64,128 of 128,256
+    vocabulary rows), B 1 x S 2048 over 1024 patches.  Both at bf16 and
+    at f32 (CROSS_TP), held against this process's runs of the same
+    batches on the 1-rank NCCL (1, 1) mesh as ``dist_tp_zamba2`` is.
+    ``dist_decode_whisper`` / ``dist_decode_llama_vision``: decode under
+    ``serve_rules`` on (1, 2) and (2, 1), B 4, f32 and bf16, DECODE_STEPS
+    steps (CROSS_DECODE), each rank's cache its KV block and its batch
+    rows of the memory, against this process's one-rank runs as
+    ``dist_decode_phase`` holds them.  Returns the launches by path."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_cross_")
+    failed = []
+    try:
+        one, g32 = _one_rank_tp(torch, K, dev, mesh, CROSS_ARCHS)
+        runs = _decode_runs_cross()
+        one_dec = _decode_one_rank(torch, K, dev, runs, out)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        four = _spawn_ranks(torch, "cross4", 4, out)
+        four_s = time.perf_counter() - t0
+        two = _spawn_ranks(torch, "cross2", 2, out)
+        two_s = time.perf_counter() - t0 - four_s
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    by_path = {}
+    for arch, ranks, shape, seconds in (
+            (CROSS_ARCHS[0], four, (2, 2), four_s),
+            (CROSS_ARCHS[1], two, (1, 2), two_s)):
+        phase = "dist_tp_" + _cross_tag(arch)
+        by_path[phase] = _hold_tp_ranks(
+            torch, phase, arch, ranks, one[arch], g32[arch], shape, seconds,
+            failed, _cross_launches)
+    del one, g32
+    for arch in CROSS_ARCHS:
+        phase = "dist_decode_" + _cross_tag(arch)
+        by_path[phase] = _hold_decode_ranks(
+            torch, phase, arch, two, runs, one_dec, CROSS_MESHES, two_s,
+            failed, _cross_launches)
+    check(not failed, "; ".join(failed))
+    return by_path
+
+
+def _cross_tag(arch: str) -> str:
+    return {"whisper-large-v3": "whisper",
+            "llama-3.2-vision-11b": "llama_vision"}[arch]
 
 
 #: --gloo-program -> (world size, the rank's function)
@@ -5542,7 +5834,8 @@ GLOO_PROGRAMS = {"moe": (2, moe_rank), "tp": (2, tp_rank),
                  "zero1": (4, zero1_rank),
                  "decode_qwen3": (4, decode_qwen3_rank),
                  "decode_pair": (2, decode_pair_rank),
-                 "recurrent": (2, recurrent_rank)}
+                 "recurrent": (2, recurrent_rank),
+                 "cross4": (4, cross4_rank), "cross2": (2, cross2_rank)}
 
 
 def distributed_phase(torch, K, dev) -> dict:
@@ -5560,6 +5853,7 @@ def distributed_phase(torch, K, dev) -> dict:
         by_path["dist_zero1_save"] = dist_zero1_phase(torch, K, dev, mesh)
         by_path.update(dist_decode_phase(torch, K, dev, mesh))
         by_path.update(dist_recurrent_phase(torch, K, dev, mesh))
+        by_path.update(dist_cross_phase(torch, K, dev, mesh))
     return by_path
 
 
@@ -5586,8 +5880,6 @@ def rmsnorm_only(torch, K, dev, build_) -> int:
 def main() -> int:
     import argparse
 
-    import torch
-
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rmsnorm-only", action="store_true",
                     help="time only rmsnorm (for comparing two checkouts)")
@@ -5600,14 +5892,23 @@ def main() -> int:
     ap.add_argument("--gloo-program", default="moe",
                     choices=tuple(GLOO_PROGRAMS), help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a card",
-              file=sys.stderr)
-        return 2
     src = os.path.abspath(args.src)
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         print(f"chip_smoke: no repro_torch under {src}; run it from a "
               f"checkout of the repository", file=sys.stderr)
+        return 2
+    # the bytecode of torch and of what it imports later (the modules of
+    # the first checkpointed training step) written under build/ by the
+    # first process and read by every gloo rank process, which would
+    # otherwise compile it again where the machine writes no bytecode
+    # (PYTHONDONTWRITEBYTECODE; a rank's first step took 15-24 s there)
+    sys.pycache_prefix = os.path.join(ROOT, "build", "pycache")
+    sys.dont_write_bytecode = False
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a card",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, src)
 

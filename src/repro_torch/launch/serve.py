@@ -29,10 +29,10 @@ or the encoder output / projected patches passed as ``memory``.
 
 Under an active sharding context (decode under a mesh; rules from
 ``launch.dryrun.serve_rules``) ``generate`` allocates this rank's block of
-the cache, each step runs the rank's batch rows, and every rank returns
-the same tokens.  On a gloo mesh of more than one rank ask for
-``capture=False``: ``capture=True`` raises there
-(``serve.step.check_capturable``).
+the cache (for encdec and vlm the ``memory``'s batch rows too), each step
+runs the rank's batch rows, and every rank returns the same tokens.  On a
+gloo mesh of more than one rank ask for ``capture=False``:
+``capture=True`` raises there (``serve.step.check_capturable``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config, list_archs, reduced_config
+from repro_torch.distributed.context import active_ctx
 from repro_torch.models.transformer import Decoder, init_cache
 from repro_torch.serve.step import (CapturedServeStep, check_capturable,
                                     make_serve_step)
@@ -74,9 +75,11 @@ def generate(cfg, params: Union[dict, Decoder], prompt: torch.Tensor,
     the projected patches), written into the cache before the first step;
     without it, the reference's stub: 8 rows of zeros.
 
-    Under an active sharding context ``params`` are this rank's blocks and
-    ``prompt`` the whole batch; ``capture=True`` raises on a mesh whose
-    collectives cannot be captured (gloo's), on the CPU too."""
+    Under an active sharding context ``params`` are this rank's blocks,
+    ``prompt`` and ``memory`` the whole batch's, of which the cache takes
+    this rank's rows (``ShardingCtx.batch_rows``); ``capture=True`` raises
+    on a mesh whose collectives cannot be captured (gloo's), on the CPU
+    too."""
     if capture:
         check_capturable()
     dev = resolve_device(device)
@@ -111,7 +114,9 @@ def generate(cfg, params: Union[dict, Decoder], prompt: torch.Tensor,
             return serve_step(params, cache, toks[:, t:t + 1], positions[t],
                               rng)[0]
     if mem_len and memory is not None:
-        cache["memory"].copy_(memory)
+        ctx = active_ctx()
+        rows = slice(0, B) if ctx is None else ctx.batch_rows(B)[0]
+        cache["memory"].copy_(memory[rows])
     nxt = None
     with torch.inference_mode():
         # teacher-forced prefill through the decode path (exact cache build)

@@ -36,6 +36,10 @@ whole (``kv_heads`` masked to replicated: fewer KV heads than ranks), a
 rank cuts out the KV heads its query heads read (head ``h`` reads KV head
 ``h // G``), so their gradients, and those of ``q_norm`` / ``k_norm``,
 are partial sums that the train step adds over ``model``.
+Cross-attention takes the same road: a rank projects its query heads
+from ``x`` and the KV heads they read from the memory ``kv_x``, which
+enters the region through ``copy_to_model`` as ``x`` does (the encoder's
+or the patch projection's gradient is the sum of every rank's heads').
 
 **Decode under a mesh** (:func:`attention_from_cache` with a cache
 ``block``, ``distributed.context.KVBlock``): the caches are this rank's
@@ -354,12 +358,11 @@ def attention(
     cross = kv_x is not None
     group, p = _heads_tp(p, cfg)
     if group is not None:
-        if cross:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention with its heads split over "
-                f"'model' (tensor parallelism of whisper and llama-vision: "
-                f"ROADMAP Queue 1)")
         x = C.copy_to_model(x, group)
+        if cross:
+            # the memory enters the region too: its gradient from this
+            # rank's heads is a part, summed over model
+            kv_x = C.copy_to_model(kv_x, group)
     kv_x = x if kv_x is None else kv_x
     Sk = kv_x.shape[1]
     positions = torch.arange(Sq, dtype=torch.int32, device=x.device)

@@ -79,7 +79,7 @@ __all__ = ["mamba2_specs", "mamba2_forward", "mamba2_decode",
            "MLSTMState",
            "slstm_specs", "slstm_forward", "slstm_decode", "slstm_init_state",
            "SLSTMState", "mamba_heads", "mamba_partial_leaves",
-           "state_whole"]
+           "state_whole", "check_heads"]
 
 
 def _mamba_dims(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -134,11 +134,17 @@ def _split_over_model(cfg: ModelConfig, kind: str) -> dict:
     return ctx.memo[key]
 
 
-def _heads_split(cfg: ModelConfig, kind: str, split: dict):
-    raise NotImplementedError(
-        f"{cfg.name}: rules that split the {kind} block's {sorted(split)} "
-        f"over 'model' (its heads; xlstm's rules keep them whole): ROADMAP "
-        f"Queue 1 item 2")
+def check_heads(cfg: ModelConfig, kind: str) -> None:
+    """Raise ``NotImplementedError``, before any collective, where the
+    active rules split the heads of an ``"mlstm"`` or ``"slstm"`` block
+    over ``model`` (the mLSTM takes its ``d_in`` split, ``_D_IN``; the
+    sLSTM runs replicated)."""
+    split = _split_over_model(cfg, kind)
+    if split.items() - (_D_IN.items() if kind == "mlstm" else set()):
+        raise NotImplementedError(
+            f"{cfg.name}: rules that split the {kind} block's "
+            f"{sorted(split)} over 'model' (its heads; xlstm's rules keep "
+            f"them whole): ROADMAP Queue 1 item 2")
 
 
 def mamba_heads(cfg: ModelConfig) -> Optional[slice]:
@@ -422,9 +428,8 @@ def _mlstm_proj(p: dict, cfg: ModelConfig, x: torch.Tensor):
     the output gate or ``None``); under tensor parallelism over ``d_in``
     q, k, v and the gates are summed over ``model`` from this rank's
     columns and the output gate is gathered whole (module docstring)."""
+    check_heads(cfg, "mlstm")
     split = _split_over_model(cfg, "mlstm")
-    if split.items() - _D_IN.items():
-        _heads_split(cfg, "mlstm", split)
     if not split:
         u, z_gate = _mlstm_in(p, cfg, x)
         q, k, v = _mlstm_qkv(p, cfg, u)
@@ -589,13 +594,6 @@ def _slstm_step(p: dict, state: SLSTMState,
     return SLSTMState(c=c, n=n, h=h, m=m_new), h
 
 
-def _slstm_whole(cfg: ModelConfig) -> None:
-    """The sLSTM runs replicated: rules that split its leaves raise."""
-    split = _split_over_model(cfg, "slstm")
-    if split:
-        _heads_split(cfg, "slstm", split)
-
-
 def _slstm_in(p: dict, x: torch.Tensor) -> torch.Tensor:
     """x ``[B, S, d]`` -> gate pre-activations ``[B, S, 4, H, hd]``."""
     d, g, H, hd = p["w_x"].shape
@@ -607,7 +605,7 @@ def slstm_forward(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """sLSTM over the sequence, a loop over time with f32 states from
     zero.  x ``[B, S, d]``."""
     B, S, _ = x.shape
-    _slstm_whole(cfg)
+    check_heads(cfg, "slstm")
     xg = _slstm_in(p, x).float()
     # the f32 casts of the step, made once for the whole loop
     pf = {"w_r": p["w_r"].float(), "b": p["b"].float()}
@@ -624,7 +622,7 @@ def slstm_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """x ``[B, 1, d]``, one step.  Writes the new ``c``, ``n``, ``h`` and
     ``m`` into ``state``'s tensors IN PLACE and returns the same
     ``state``."""
-    _slstm_whole(cfg)
+    check_heads(cfg, "slstm")
     new, h = _slstm_step(p, state, _slstm_in(p, x)[:, 0])
     for old, t in zip(state, new):
         old.copy_(t)

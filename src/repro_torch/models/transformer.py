@@ -53,28 +53,31 @@ store split over data axes (FSDP) are gathered before each block
 
 The hybrid (zamba2) and ssm (xlstm) families take the same road: their
 shared attention block and tied embedding as the dense family's, their
-Mamba2, mLSTM and sLSTM blocks as ``models.ssm`` says.
+Mamba2, mLSTM and sLSTM blocks as ``models.ssm`` says.  So do the encdec
+(whisper) and vlm (llama-vision) families: cross-attention on a rank's
+heads (``layers.attention``; the memory enters the region through
+``copy_to_model``), and :func:`encode` gathers ``frontend_proj`` and the
+encoder's final norm as :func:`_top` gathers ``embed``, each encoder
+block its own leaves.
 
-**Decode under a mesh** (the dense, MoE, hybrid and ssm families,
-:data:`SHARDED_FAMILIES`, under rules such as
-``launch.dryrun.serve_rules``'s): :func:`init_cache` allocates this rank's
-block of every cache leaf (``ShardingCtx.kv_block`` for a KV leaf: batch
-rows, keys and KV heads; ``ShardingCtx.block`` for a recurrent state:
-batch rows, and heads or ``d_inner`` where the rules cut them), never the
-whole cache.  :func:`decode_step` takes the global ``token`` ``[B, 1]``,
-runs this rank's batch rows (``ShardingCtx.batch_rows`` of the global
-batch) through the layers (FSDP leaves gathered per layer, heads, MLP
-columns and vocabulary over ``model``, attention over the cache block as
-``layers.attention_from_cache`` says, the MoE one-hot path over every
+**Decode under a mesh** (every family, under rules such as
+``launch.dryrun.serve_rules``'s): :func:`init_cache` allocates this
+rank's block of every cache leaf (``ShardingCtx.kv_block`` for a KV leaf:
+batch rows, keys and KV heads; ``ShardingCtx.block`` for a recurrent
+state: batch rows, and heads or ``d_inner`` where the rules cut them; the
+``memory`` of encdec and vlm: batch rows, ``ShardingCtx.batch_rows``),
+never the whole cache.  :func:`decode_step` takes the global ``token``
+``[B, 1]``, runs this rank's batch rows (``ShardingCtx.batch_rows`` of
+the global batch) through the layers (FSDP leaves gathered per layer,
+heads, MLP columns and vocabulary over ``model``, attention over the
+cache block as ``layers.attention_from_cache`` says, cross-attention of
+the rank's heads over its memory rows, the MoE one-hot path over every
 rank's tokens as ``models.moe`` says, a Mamba2 block on its block of the
 heads; a block that computes with a whole state the rules cut over
 ``model`` gathers it and writes back its block) and gathers the logits
 over the vocabulary and the batch rows, so every rank returns the same
 ``[B, V]``.  It is forward-only (it raises with grad enabled on
-parameters that require it).  The encdec and vlm families still raise
-where the rules split their dense leaves (their tensor parallelism:
-ROADMAP Queue 1 item 2); where the rules split none (a data-only mesh),
-their cache stays whole and every rank decodes the whole batch.
+parameters that require it).
 """
 
 from __future__ import annotations
@@ -103,12 +106,7 @@ from repro_torch.models.layers import (apply_norm, attention,
 
 __all__ = ["program_for", "model_specs", "encode", "forward", "lm_loss",
            "prefill", "cache_specs", "init_cache", "decode_step",
-           "check_family_rules", "SHARDED_FAMILIES",
            "num_params", "active_params", "Decoder"]
-
-#: the families whose tensor parallelism, and decode under a mesh with the
-#: cache cut to each rank's block, are ported
-SHARDED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 # ------------------------------------------------------------------ programs
@@ -367,13 +365,11 @@ def _remat_wrap(cfg: ModelConfig, fn):
 def _top(params: dict, cfg: ModelConfig) -> dict:
     """The leaves outside the stack -- ``embed``, ``unembed``,
     ``final_norm`` -- as the model computes with them (FSDP dims
-    gathered, ``models.common.fsdp_gather``); first, under a context,
-    the family check (:func:`check_family_rules`)."""
+    gathered, ``models.common.fsdp_gather``)."""
     top = {k: params[k] for k in ("embed", "unembed", "final_norm")
            if k in params}
     if active_ctx() is None:
         return top
-    check_family_rules(cfg)
     specs = model_specs(cfg)
     return fsdp_gather(top, {k: specs[k] for k in top})
 
@@ -437,14 +433,19 @@ def encode(params: dict, cfg: ModelConfig, batch: dict, *,
     encoder (bidirectional attention blocks, no RoPE, its final norm) over
     the stub frame embeddings ``batch["frames"]``, for vlm the projected
     ``batch["patches"]``; ``None`` for the other families.  A decode step
-    reads it from ``cache["memory"]``."""
-    if cfg.family == "vlm":
-        return torch.matmul(batch["patches"].to(cfg.torch_dtype),
-                            params["frontend_proj"])
-    if cfg.family != "encdec":
+    reads it from ``cache["memory"]``.
+
+    Under an active context ``frontend_proj`` and the encoder's final
+    norm have their FSDP dims gathered as :func:`_top` gathers ``embed``,
+    each encoder block its own (:func:`_apply_block`, again in the
+    recompute)."""
+    if cfg.family not in ("vlm", "encdec"):
         return None
-    x = torch.matmul(batch["frames"].to(cfg.torch_dtype),
-                     params["frontend_proj"])
+    specs = model_specs(cfg)
+    proj = fsdp_gather(params["frontend_proj"], specs["frontend_proj"])
+    if cfg.family == "vlm":
+        return torch.matmul(batch["patches"].to(cfg.torch_dtype), proj)
+    x = torch.matmul(batch["frames"].to(cfg.torch_dtype), proj)
     enc = params["encoder"]
 
     def layer_fn(x, p):
@@ -454,7 +455,8 @@ def encode(params: dict, cfg: ModelConfig, batch: dict, *,
     layer_fn = _remat_wrap(cfg, layer_fn)
     for layer in range(cfg.n_encoder_layers):
         x = layer_fn(x, _layer(enc["blocks"], layer)["b0_attn_bidir"])
-    return _norm(cfg, enc["final_norm"], x, plain=plain)
+    final = fsdp_gather(enc["final_norm"], specs["encoder"]["final_norm"])
+    return _norm(cfg, final, x, plain=plain)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -672,21 +674,22 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     memory in the compute dtype, recurrent states (``_CACHE_F32``) in
     f32.  The caller writes ``memory`` (encdec, vlm) before decoding.
 
-    Under an active sharding context, for the families that decode under
-    a mesh (:data:`SHARDED_FAMILIES`), each leaf is this rank's block of
+    Under an active sharding context each leaf is this rank's block of
     the ``batch x s_max`` cache: a KV leaf's as ``ShardingCtx.kv_block``
     gives it, which the decode step then finds by the batch and its local
     shape, a recurrent state's as ``ShardingCtx.block`` gives it from its
-    logical axes (a stacked leaf's ``layers`` dim stays whole).  The other
-    families' caches stay whole: their decode step runs the whole batch
-    on every rank."""
+    logical axes (a stacked leaf's ``layers`` dim stays whole), the
+    ``memory``'s its batch rows (``ShardingCtx.batch_rows``: the
+    cross-attention reads every frame and the whole ``d``, as the
+    reference's compute rules lay it out)."""
     ctx = active_ctx()
-    if cfg.family not in SHARDED_FAMILIES:
-        ctx = None
 
-    def shape_of(leaf: ParamSpec) -> tuple:
+    def shape_of(name: str, leaf: ParamSpec) -> tuple:
         if ctx is None:
             return leaf.shape
+        if name == "memory":
+            rows = ctx.batch_rows(batch)[0]
+            return (rows.stop - rows.start, *leaf.shape[1:])
         if tuple(leaf.logical[-4:]) == KV_CACHE_LOGICAL:
             return (*leaf.shape[:-4],
                     *ctx.kv_block(leaf.shape[-4:]).local_shape)
@@ -697,7 +700,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
     def mk(node: Any) -> Any:
         return {name: mk(leaf) if isinstance(leaf, dict) else torch.zeros(
-                    shape_of(leaf), device=device,
+                    shape_of(name, leaf), device=device,
                     dtype=torch.float32 if name in _CACHE_F32
                     else cfg.torch_dtype)
                 for name, leaf in node.items()}
@@ -712,6 +715,8 @@ def _state_cuts(ctx, cfg: ModelConfig, kind: str, batch: int) -> list:
     step gathers it and writes back its block (once per context)."""
     key = ("state_cuts", cfg, kind, batch)
     if key not in ctx.memo:
+        if kind in ("mlstm", "slstm"):
+            ssm.check_heads(cfg, kind)     # before the gather below
         cuts = []
         if ctx.axis_size("model") > 1 and ssm.state_whole(cfg, kind):
             for name, s in _block_cache_specs(cfg, kind, batch, 1).items():
@@ -797,9 +802,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     sharding context, ``params`` are this rank's blocks and ``cache`` the
     blocks ``init_cache`` allocated under the same context; ``token`` is
     the whole batch and every rank returns the whole ``[B, V]`` (module
-    docstring).  :func:`check_family_rules` raises first for the families
-    whose decode under a mesh waits."""
-    check_family_rules(cfg)
+    docstring)."""
     ctx = active_ctx()
     B = token.shape[0]
     block, rows, batch_axes = None, slice(0, B), ()
@@ -809,9 +812,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             raise NotImplementedError(
                 f"{cfg.name}: decode under a mesh is forward-only (its "
                 f"collectives carry no gradient); run it under no_grad")
-        if cfg.family in SHARDED_FAMILIES:
-            rows, batch_axes = ctx.batch_rows(B)
-            block = _cache_block(ctx, cfg, cache, B)
+        rows, batch_axes = ctx.batch_rows(B)
+        block = _cache_block(ctx, cfg, cache, B)
     top = _top(params, cfg)
     x = _positions_embed(cfg, top, token[rows])
     grp, n_groups, rem = program_for(cfg)
@@ -869,35 +871,6 @@ def _cache_block(ctx, cfg: ModelConfig, cache: dict, batch: int):
         if key.rsplit("/", 1)[-1] in ("k", "v"):
             return ctx.kv_block_of(batch, t.shape[-4:])
     return None
-
-
-def _split_dense(cfg: ModelConfig, ctx) -> list:
-    """The dense (non-expert) leaves of ``cfg`` that the context's rules
-    split over a mesh axis larger than one (once per context and
-    config: the decode step asks every call)."""
-    key = ("split_dense", cfg)
-    if key not in ctx.memo:
-        ctx.memo[key] = [k for k, s in tree_leaves(model_specs(cfg))
-                         if "expert" not in s.logical
-                         and any(ctx.layout(s.logical, s.shape))]
-    return ctx.memo[key]
-
-
-def check_family_rules(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` where the active rules split a dense
-    (non-expert) leaf of a family whose tensor parallelism is not ported:
-    the encdec and vlm families split their heads, MLP and vocabulary
-    (the forward, the train step and decode under a mesh alike)."""
-    ctx = active_ctx()
-    if ctx is None or cfg.family in SHARDED_FAMILIES:
-        return
-    split = _split_dense(cfg, ctx)
-    if split:
-        raise NotImplementedError(
-            f"{cfg.name}: the rules split its dense leaves ({split[:3]}... "
-            f"over {ctx.mesh.shape}): tensor parallelism of the "
-            f"{cfg.family} family, its decode under a mesh too, is ROADMAP "
-            f"Queue 1 item 2")
 
 
 # -------------------------------------------------------------------- module

@@ -27,8 +27,7 @@ import torch
 from repro_torch import kernels
 from repro_torch._device import resolve_device
 from repro_torch.models.common import ModelConfig, tree_leaves
-from repro_torch.models.transformer import (check_family_rules, decode_step,
-                                            forward, init_cache)
+from repro_torch.models.transformer import decode_step, forward, init_cache
 
 __all__ = ["make_serve_step", "make_prefill_step", "CapturedServeStep",
            "check_capturable"]
@@ -131,9 +130,9 @@ class CapturedServeStep:
     Under an active sharding context it captures this rank's share of the
     step, with its block of the cache (``init_cache``), on an NCCL mesh;
     before it allocates anything it raises ``NotImplementedError`` on a
-    mesh whose collectives cannot be captured (:func:`check_capturable`)
-    and for the families whose decode under a mesh waits
-    (``models.transformer.check_family_rules``).
+    mesh whose collectives cannot be captured (:func:`check_capturable`).
+    For encdec and vlm the cache's ``memory`` is then this rank's batch
+    rows, which the caller writes.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, batch: int,
@@ -141,7 +140,6 @@ class CapturedServeStep:
                  generator: Optional[torch.Generator] = None, *,
                  device=None, mem_len: int = 0):
         # before anything is allocated
-        check_family_rules(cfg)
         check_capturable()
         dev = resolve_device(device)
         if dev.type != "cuda":

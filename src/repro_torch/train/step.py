@@ -46,11 +46,13 @@ updates the local blocks in place, and with ZeRO-1 moments
 says) only the moments' block of each, all-gathered after.  The reported
 loss is the mean over the batch axes.
 
-Rules the step cannot honour raise ``NotImplementedError`` before the
-first collective (:func:`check_train_rules`): tensor parallelism and
-FSDP of the encdec and vlm families, a ``seq_sp`` rule
-(sequence-parallel norm segments) and a ``layers`` rule (pipeline
-stages) wait for later slices (ROADMAP Queue 1 item 2).
+Every family trains under these rules: the encdec and vlm families'
+cross-attention on a rank's heads, their encoder and ``frontend_proj``
+gathered where stored FSDP (``models.transformer``).  Rules the step
+cannot honour raise ``NotImplementedError`` before the first collective
+(:func:`check_train_rules`): a ``seq_sp`` rule (sequence-parallel norm
+segments), a ``layers`` rule (pipeline stages) and rules that split the
+mLSTM's or sLSTM's heads wait for later slices (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -66,9 +68,8 @@ from repro_torch.distributed.context import (FSDP_DIMS, TP_DIMS,
                                              ShardingCtx, active_ctx)
 from repro_torch.launch.dryrun import opt_rules_for
 from repro_torch.models.common import ModelConfig, tree_leaves, tree_map
-from repro_torch.models.ssm import mamba_partial_leaves
-from repro_torch.models.transformer import (SHARDED_FAMILIES, lm_loss,
-                                            model_specs)
+from repro_torch.models.ssm import check_heads, mamba_partial_leaves
+from repro_torch.models.transformer import lm_loss, model_specs, program_for
 from repro_torch.optim.adamw import (AdamWConfig, adamw_apply, adamw_init,
                                      zero1_layout)
 from repro_torch.weights import unflatten
@@ -237,6 +238,10 @@ def check_train_rules(ctx, cfg: ModelConfig) -> None:
         raise NotImplementedError(_where(
             f"{cfg.name}: the batch split over 'model' and tensor "
             f"parallelism over it at once"))
+    grp, _, rem = program_for(cfg)
+    for kind in ("mlstm", "slstm"):
+        if kind in grp + rem:
+            check_heads(cfg, kind)
     flat = dict(tree_leaves(model_specs(cfg)))
     for key, s in flat.items():
         split = ctx.layout(s.logical, s.shape)
@@ -250,11 +255,6 @@ def check_train_rules(ctx, cfg: ModelConfig) -> None:
         for name, axes in zip(s.logical, split):
             if not axes:
                 continue
-            if cfg.family not in SHARDED_FAMILIES:
-                raise NotImplementedError(_where(
-                    f"{key}: the rules split its {name!r} dim over "
-                    f"{axes}: tensor parallelism and FSDP of the "
-                    f"{cfg.family} family ({cfg.name}) are not ported"))
             if name in TP_DIMS and axes == ("model",):
                 continue
             if name in FSDP_DIMS and "model" not in axes and list(axes) \
@@ -285,8 +285,11 @@ def check_train_rules(ctx, cfg: ModelConfig) -> None:
 def _partial_over_model(ctx, cfg: ModelConfig, flat: dict, key: str,
                         stored: set) -> bool:
     """Whether the leaf at ``key``, whole over ``model``, is used on this
-    rank's heads only: a leaf of an attention whose query heads are split
-    over ``model``, or of a Mamba2 block on its heads."""
+    rank's heads only: a leaf of an attention (self or cross) whose query
+    heads are split over ``model``, or of a Mamba2 block on its heads.
+    The vlm ``xattn`` block's ``gate`` is not: it scales the
+    cross-attention's output after the sum over ``model``, so every rank
+    holds its whole gradient."""
     parent, _, name = key.rpartition("/")
     if "model" in stored:
         return False

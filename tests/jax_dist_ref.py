@@ -113,11 +113,26 @@ def dp_train(data: dict, cases: list) -> dict:
     return out
 
 
+#: the stub inputs of the encdec and vlm families, by batch key
+STUBS = ("frames", "patches")
+
+
+def _batch(data: dict, arch: str, i: int, jnp) -> dict:
+    """Batch ``i`` of ``arch``: its tokens, and its frames or patches
+    where the inputs hold them (``STUBS/ARCH`` ``[steps, B, n, F]``)."""
+    out = {"tokens": jnp.asarray(data[f"tokens/{arch}"][i])}
+    for k in STUBS:
+        if f"{k}/{arch}" in data:
+            out[k] = jnp.asarray(data[f"{k}/{arch}"][i])
+    return out
+
+
 def tp_train(data: dict, cases: list) -> dict:
     """``make_train_step`` jitted under ``activate`` with the compute rules
     of ``repro.launch.dryrun.rules_for`` per (name, arch, D, M, steps,
     loss_dtype, remat): the loss and clip norm of each step, the final
-    parameters, and the gradients of the first batch's ``lm_loss``."""
+    parameters, and the gradients of the first batch's ``lm_loss``
+    (batches: ``_batch``)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -143,14 +158,13 @@ def tp_train(data: dict, cases: list) -> dict:
                         for k, v in data.items() if k.startswith(arch + "/")})
         opt = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=1,
                           decay_steps=steps)
-        toks = data[f"tokens/{arch}"]
         with activate(make_local_mesh(D, M), rules):
-            grads = jax.jit(jax.grad(lambda p, t: lm_loss(p, cfg, {
-                "tokens": t})))(params, jnp.asarray(toks[0]))
+            grads = jax.jit(jax.grad(lambda p, b: lm_loss(p, cfg, b)))(
+                params, _batch(data, arch, 0, jnp))
             state = init_train_state(params, opt)
             step = jax.jit(make_train_step(cfg, opt))
             for i in range(steps):
-                state, m = step(state, {"tokens": jnp.asarray(toks[i])})
+                state, m = step(state, _batch(data, arch, i, jnp))
                 out[f"{name}/loss{i}"] = np.asarray(m["loss"])
                 out[f"{name}/grad_norm{i}"] = np.asarray(m["grad_norm"])
         for k, v in _flat(grads).items():
@@ -166,7 +180,10 @@ def decode(data: dict, cases: list) -> dict:
     cell's, as ``run_cell`` composes them) per (name, arch, D, M, B,
     S_max, prompt_len, cf): the prompt teacher-forced, then greedy to
     S_max tokens, as the port's ``generate`` runs it; the tokens, each
-    step's logits and the cache's KV leaves after each step."""
+    step's logits and the cache's leaves after each step.  encdec and vlm
+    decode against the memory of ``frames/NAME`` / ``patches/NAME`` ``[B,
+    n, F]``: the encoder's output or the projected patches, computed
+    under the same mesh and written into the cache first."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -176,7 +193,8 @@ def decode(data: dict, cases: list) -> dict:
     from repro.distributed.context import activate
     from repro.launch.dryrun import decode_rules, rules_for
     from repro.launch.mesh import make_local_mesh
-    from repro.models.transformer import decode_step, init_cache
+    from repro.models.transformer import (_encoder_forward, decode_step,
+                                          init_cache)
 
     out = {}
     for name, arch, D, M, B, s_max, prompt_len, cf in cases:
@@ -190,7 +208,17 @@ def decode(data: dict, cases: list) -> dict:
                       decode_rules(cfg, rules, B, model_axis=M)):
             step = jax.jit(lambda p, c, t, pos: decode_step(p, cfg, c, t,
                                                             pos))
-            cache = init_cache(cfg, B, s_max)
+            stub = next((k for k in STUBS if f"{k}/{name}" in data), None)
+            if stub is None:
+                cache = init_cache(cfg, B, s_max)
+            else:
+                src = jnp.asarray(data[f"{stub}/{name}"])
+                cache = init_cache(cfg, B, s_max, src.shape[1])
+                cache["memory"] = jax.jit(
+                    lambda p, f: _encoder_forward(cfg, p, f)
+                    if cfg.family == "encdec" else jnp.einsum(
+                        "bpf,fd->bpd", f.astype(cfg.jdtype),
+                        p["frontend_proj"]))(params, src)
             nxt = None
             for t in range(s_max):
                 if t >= prompt_len:

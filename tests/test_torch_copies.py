@@ -241,11 +241,11 @@ def _reference_dryrun():
 def test_serve_rules_are_the_reference_decode_cell_composition(shape):
     """For every registry arch and batch in {1, 4, 16}: ``serve_rules``
     lays out every parameter as the reference's ``run_cell`` stores it
-    (``rules_for``'s storage rules) and, for the families whose cache
-    ``init_cache`` cuts to a rank's block, every cache leaf -- KV leaves
-    and recurrent states -- as it decodes it (``decode_rules`` of the
-    compute rules at the mesh's model size), and its rules are
-    ``decode_rules`` of the storage rules."""
+    (``rules_for``'s storage rules) and every cache leaf ``init_cache``
+    cuts to a rank's block -- KV leaves, recurrent states, and the
+    ``memory`` of encdec and vlm by its batch rows -- as it decodes it
+    (``decode_rules`` of the compute rules at the mesh's model size), and
+    its rules are ``decode_rules`` of the storage rules."""
     import repro.configs as jax_configs
 
     from repro_torch.configs import get_config, list_archs
@@ -253,8 +253,7 @@ def test_serve_rules_are_the_reference_decode_cell_composition(shape):
     from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
     from repro_torch.launch import dryrun
     from repro_torch.models.common import tree_leaves
-    from repro_torch.models.transformer import (SHARDED_FAMILIES,
-                                                cache_specs, model_specs)
+    from repro_torch.models.transformer import cache_specs, model_specs
 
     ref = _reference_dryrun()
     D, M = shape
@@ -273,9 +272,13 @@ def test_serve_rules_are_the_reference_decode_cell_composition(shape):
             for key, sp in tree_leaves(model_specs(cfg)):
                 assert ours.spec(sp.logical, sp.shape) == theirs_p.spec(
                     sp.logical, sp.shape), (arch, batch, key)
-            if cfg.family not in SHARDED_FAMILIES:
-                continue
             for key, sp in tree_leaves(cache_specs(cfg, batch, 4096, 8)):
+                if key == "memory":     # init_cache cuts its batch rows
+                    assert _entries(ours.spec(("batch",), (batch,)), 3,
+                                    3) == _entries(theirs_c.spec(
+                                        sp.logical, sp.shape), 3, 3), (
+                        arch, batch, key)
+                    continue
                 # init_cache cuts a leaf's own dims, the layers' stay whole
                 lead = int(sp.logical[0] == "layers")
                 n = len(sp.shape) - lead

@@ -710,6 +710,11 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (2, 1100, 1100, 4, 2, 128, True, None),
     (1, 700, 700, 4, 1, 256, True, 128),
     (2, 96, 300, 4, 4, 64, False, None),
+    # the cross-attention of a tensor-parallel rank: whisper-large-v3's 10
+    # of 20 heads over its 1500 frames, llama-3.2-vision's 16 of 32 heads
+    # (4 of 8 KV heads) over 1024 patches
+    (1, 448, 1500, 10, 10, 64, False, None),
+    (1, 2048, 1024, 16, 4, 128, False, None),
 ], ids=str)
 def test_flash_attention_gradients_match_plain(card, case, dtype):
     B, Sq, Sk, H, KV, hd, causal, window = case
@@ -1026,6 +1031,42 @@ def test_vocab_parallel_loss_on_one_rank_matches_the_plain_loss(
     (gb,) = torch.autograd.grad(want.mean(), b)
     torch.testing.assert_close(nll, want, atol=1e-5, rtol=1e-6)
     torch.testing.assert_close(ga.float(), gb.float(), atol=2e-5, rtol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-11b"])
+def test_captured_cross_step_under_a_one_rank_mesh(card, nccl_mesh, arch):
+    """``generate`` of an encdec or vlm model under ``serve_rules`` on the
+    1-rank NCCL mesh, every step a replay of the captured step, against
+    its own memory (``encode`` of random frames or patches, written by
+    ``generate`` into the captured cache's rows): the tokens of the eager
+    step without the mesh.  The VLM's gates are set to 0.5."""
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import serve_rules
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import Decoder, encode
+
+    cfg = _card_config(arch)
+    params = Decoder(cfg, device=card).tree()
+    for blk in params["blocks"].values():
+        if "gate" in blk:
+            blk["gate"].fill_(0.5)
+    B, M = 2, 24
+    g = torch.Generator(card).manual_seed(8)
+    stub = "frames" if cfg.family == "encdec" else "patches"
+    with torch.inference_mode():
+        memory = encode(params, cfg, {stub: torch.randn(
+            (B, M, cfg.frontend_dim), device=card, generator=g)})
+    prompt = torch.randint(0, cfg.vocab_size, (B, 3), device=card,
+                           generator=g)
+    want = generate(cfg, params, prompt, 5, device=card, capture=False,
+                    memory=memory)
+    log = []
+    with activate(nccl_mesh, serve_rules(cfg, nccl_mesh, B)):
+        got = generate(cfg, params, prompt, 5, device=card, memory=memory,
+                       step_log=log)
+    assert log and log[0].replays == 8
+    assert log[0].cache["memory"].shape == (B, M, cfg.d_model)
+    assert torch.equal(got, want)
 
 
 def test_sharded_save_on_one_rank_is_the_whole_save(card, nccl_mesh,

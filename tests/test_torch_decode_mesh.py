@@ -1,12 +1,12 @@
-"""Decode under a mesh for the dense, MoE, hybrid and ssm families: the
-port's serving step on gloo ranks under ``launch.dryrun.serve_rules``
-against the JAX reference's GSPMD decode on the same mesh.
+"""Decode under a mesh for every family: the port's serving step on gloo
+ranks under ``launch.dryrun.serve_rules`` against the JAX reference's
+GSPMD decode on the same mesh.
 
 The rules are the reference's for a ``decode`` cell (``run_cell``):
 ``rules_for`` of the registry arch, then ``decode_rules`` at the cell's
 batch and model size.  The port's ranks hold their blocks of the
 parameters and, from ``init_cache`` under the context, only their block
-of the KV cache; the reference jits ``repro.models.transformer.
+of the cache; the reference jits ``repro.models.transformer.
 decode_step`` under ``activate`` on forced host devices.  Each case
 teacher-forces a prompt and decodes greedily to S_max tokens (reduced
 configs at f32, weights and prompts drawn with numpy, zero- and one-init
@@ -24,10 +24,10 @@ where it does; (b) B <= 8 with KV % M != 0, split by sequence over
 attention); (c) B > 8 with KV % M != 0; (d) B > 8 with KV % M == 0.
 gemma3 crosses its window of 16 over every block boundary; qwen2.5 and
 kimi store their dense leaves FSDP; olmoe and kimi route through the
-one-hot MoE path across ranks at capacities that drop pairs.  Four cases
-(qwen3, kimi, zamba2, xlstm) save their blocks as a sharded checkpoint and
-serve it again from ``restore_checkpoint(shardings=)``, against the
-unsharded restore.
+one-hot MoE path across ranks at capacities that drop pairs.  Five cases
+(qwen3, kimi, zamba2, xlstm, whisper) save their blocks as a sharded
+checkpoint and serve it again from ``restore_checkpoint(shardings=)``,
+against the unsharded restore.
 
 zamba2 and xlstm decode with their recurrent states cut to a rank's
 block, held after every step like the KV leaves: zamba2 on (1, 2) (Mamba2
@@ -40,12 +40,20 @@ cache has no KV leaf (the step finds its rows from the global batch), on
 (1, 2) (the mLSTM's ``d_in`` over ``model``, its states whole), (2, 2)
 and (2, 1) (states cut by batch rows).
 
+whisper and llama-vision decode against the memory ``encode`` makes of 12
+frames or patches (the reference's encoder or patch projection on its
+side), each rank's cache holding its batch rows of it: whisper on (2, 2)
+at B 1 (FSDP storage, the keys over ``data``: the partials path) and on
+(1, 2); llama-vision on (2, 2) (batch rows over ``data``) and on (1, 4)
+(its 2 KV heads whole, the keys over ``model``); their cross-attention on
+a rank's heads.
+
 In process: the partials mode's plain versions, cut into blocks at random
 offsets and merged, against the whole-cache plain version (and at one
 block, bit for bit against the split-K arithmetic); the layouts pinned
-from the specs; the families whose decode under a mesh waits (whisper,
-llama-vision), and the one-hot path under grad on a mesh of more than
-one rank, raise naming ROADMAP.
+from the specs; rules that split the mLSTM's or sLSTM's heads, and the
+one-hot path under grad on a mesh of more than one rank, raise naming
+ROADMAP.
 """
 
 import math
@@ -98,6 +106,10 @@ CASES = [
     ("xlstm_1x2_b4", "xlstm-125m", 1, 2, 4, 8, 3, 1.25, False),
     ("xlstm_2x2_b4", "xlstm-125m", 2, 2, 4, 8, 3, 1.25, True),
     ("xlstm_2x1_b4", "xlstm-125m", 2, 1, 4, 8, 3, 1.25, False),
+    ("whisper_2x2_b1", "whisper-large-v3", 2, 2, 1, 8, 3, 1.25, True),
+    ("whisper_1x2_b4", "whisper-large-v3", 1, 2, 4, 8, 3, 1.25, False),
+    ("vision_2x2_b4", "llama-3.2-vision-11b", 2, 2, 4, 8, 3, 1.25, False),
+    ("vision_1x4_b4", "llama-3.2-vision-11b", 1, 4, 4, 8, 3, 1.25, False),
 ]
 NAMES = [c[0] for c in CASES]
 BY_NAME = {c[0]: c for c in CASES}
@@ -123,7 +135,15 @@ LAYOUTS = {
     "zamba2_2x2_b1": ("a", (), ("data",), ("model",)),
     "zamba2_1x4_b4": ("a", (), (), ("model",)),
     "zamba2_2x1_b4": ("a", ("data",), (), ()),
+    "whisper_2x2_b1": ("a", (), ("data",), ("model",)),
+    "whisper_1x2_b4": ("a", (), (), ("model",)),
+    "vision_2x2_b4": ("a", ("data",), (), ("model",)),
+    "vision_1x4_b4": ("b", (), ("model",), ()),
 }
+#: the memory rows of the encdec and vlm cases (frames / patches), and
+#: the stub input each family's memory comes from
+MEMORY_LEN = 12
+STUB = {"encdec": "frames", "vlm": "patches"}
 #: the cases with KV leaves
 KV_NAMES = [n for n in NAMES if n in LAYOUTS]
 #: the recurrent states each case is meant to cut: per leaf, the parts
@@ -150,19 +170,27 @@ def _cfg(name):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("decode_mesh")
     rng = np.random.default_rng(25)
+    # the encdec and vlm cases draw from their own generator: the other
+    # cases keep their inputs
+    cross = np.random.default_rng(29)
     data = {}
     for arch in ARCHS:
+        g = cross if reduced_config(arch).family in STUB else rng
         cfg = reduced_config(arch).replace(dtype="float32")
         for k, s in tree_leaves(model_specs(cfg)):
-            v = numpy_params({k: s}, rng)[k]
+            v = numpy_params({k: s}, g)[k]
             if s.init in ("zeros", "ones"):     # off the init: no path hides
-                v = v + 0.1 * rng.standard_normal(v.shape).astype(np.float32)
+                v = v + 0.1 * g.standard_normal(v.shape).astype(np.float32)
             data[f"{arch}/{k}"] = v
     for name, arch, B, prompt_len in [(c[0], c[1], c[4], c[6])
                                       for c in CASES]:
-        V = reduced_config(arch).vocab_size
-        data[f"prompt/{name}"] = rng.integers(
-            0, V, (B, prompt_len)).astype(np.int64)
+        cfg = reduced_config(arch)
+        g = cross if cfg.family in STUB else rng
+        data[f"prompt/{name}"] = g.integers(
+            0, cfg.vocab_size, (B, prompt_len)).astype(np.int64)
+        if cfg.family in STUB:
+            data[f"{STUB[cfg.family]}/{name}"] = g.standard_normal(
+                (B, MEMORY_LEN, cfg.frontend_dim)).astype(np.float32)
     inputs = os.path.join(str(tmp), "inputs.npz")
     np.savez(inputs, **data)
     cases = [list(c) for c in CASES]
@@ -231,8 +259,11 @@ def test_each_rank_holds_its_cache_block(runs, name):
                 cfg.n_kv_heads // parts[head_axes])
         for key, sl in r["slices"].items():
             full = ref[f"{name}/cache0/{key}"].shape
-            *_, kind, leaf = key.split("/")
-            if leaf in ("k", "v"):
+            *_, kind, leaf = ("", *key.split("/"))
+            if key == "memory":     # the KV block's batch rows
+                assert [tuple(x) for x in sl] == [tuple(r["block"][0])] + [
+                    (0, n) for n in full[1:]], key
+            elif leaf in ("k", "v"):
                 assert [tuple(x) for x in sl[-4:-1]] == [
                     tuple(x) for x in r["block"]], key
             else:
@@ -357,7 +388,8 @@ def test_restore_then_serve(runs, name):
     """The ranks' blocks saved as one sharded checkpoint, restored with
     ``shardings=`` under ``serve_rules`` (every block as it was) and
     served again: each step's logits as the unsharded restore's in this
-    process serves them, within 1e-5 of their largest entry."""
+    process serves them (against the memory it encodes), within 1e-5 of
+    their largest entry."""
     from repro_torch.checkpoint import restore_checkpoint
 
     _, ref, ranks, root = runs
@@ -367,7 +399,7 @@ def test_restore_then_serve(runs, name):
                                      model_specs(cfg), device="cpu")
     assert step == 1
     toks = torch.from_numpy(ref[f"{name}/tokens"]).long()
-    cache = init_cache(cfg, B, s_max, "cpu")
+    cache = _cache_with_memory(runs[0], name, whole, cfg)
     with torch.no_grad():
         want = [decode_step(whole, cfg, cache, toks[:, t:t + 1],
                             torch.tensor(t, dtype=torch.int32))[0].numpy()
@@ -377,6 +409,51 @@ def test_restore_then_serve(runs, name):
         for t in range(s_max):
             _close(r["restored_logits"][t], want[t],
                    f"{name} restored step {t}", _tol(name))
+
+
+def _cache_with_memory(data: dict, name: str, params: dict, cfg) -> dict:
+    """The unsharded cache of case ``name``, for encdec and vlm with the
+    memory of its frames or patches (``encode`` of the whole batch)
+    written in."""
+    from repro_torch.models.transformer import encode
+
+    _, _, _, _, B, s_max, _, _, _ = BY_NAME[name]
+    if cfg.family not in STUB:
+        return init_cache(cfg, B, s_max, "cpu")
+    stub = STUB[cfg.family]
+    with torch.no_grad():
+        memory = encode(params, cfg, {stub: torch.from_numpy(
+            data[f"{stub}/{name}"])})
+    cache = init_cache(cfg, B, s_max, "cpu", mem_len=memory.shape[1])
+    cache["memory"].copy_(memory)
+    return cache
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES
+                                  if _cfg(c[0]).family in STUB])
+def test_each_rank_holds_its_memory_rows(runs, name):
+    """The encdec and vlm caches hold only the rank's batch rows of the
+    memory (every frame or patch, the whole ``d``), and those rows are
+    ``encode``'s: the reference's memory, which its own encoder or patch
+    projection wrote, cut to the rows, within 1e-5 of its largest entry,
+    and nonzero."""
+    data, ref, ranks, _ = runs
+    _, _, D, M, B, _, _, _, _ = BY_NAME[name]
+    cfg = _cfg(name)
+    want = ref[f"{name}/cache0/memory"]
+    assert want.shape == (B, MEMORY_LEN, cfg.d_model)
+    assert np.abs(want).max(axis=(1, 2)).min() > 0
+    rows = set()
+    for r in ranks[name]:
+        (b0, b1), *rest = r["slices"]["memory"]
+        assert rest == [(0, MEMORY_LEN), (0, cfg.d_model)]
+        assert (b0, b1) == tuple(r["block"][0])
+        assert b1 - b0 == (B // D if B % D == 0 else B)
+        rows.add((b0, b1))
+        for t in (0, BY_NAME[name][5] - 1):
+            _close(r["caches"][t]["memory"], want[b0:b1],
+                   f"{name} step {t} memory rows")
+    assert len(rows) == (D if B % D == 0 else 1)
 
 
 def test_capture_on_a_gloo_mesh_raises(runs):
@@ -451,25 +528,31 @@ def test_partials_at_offset_zero_are_the_split_k_arithmetic(n_split):
 
 # ------------------------------------------------------------- raises
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3",
-                                  "llama-3.2-vision-11b"])
-def test_families_that_wait_raise_under_serve_rules(arch):
-    """Before any collective (a shape-only mesh has none)."""
-    from repro_torch.serve.step import CapturedServeStep
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_rules_that_split_xlstm_heads_raise_under_a_mesh(kind,
+                                                         monkeypatch):
+    """Decode under rules that split an mLSTM's or sLSTM's heads over
+    ``model`` raises before any collective (a shape-only mesh has none; the
+    cache is the block of the rank at (data 0, model 0)): ``decode_step``
+    and the eager ``generate``, naming the block and ROADMAP."""
+    from repro_torch.launch.serve import generate
+    from test_torch_tp import _xlstm_heads_split
 
-    cfg = reduced_config(arch).replace(dtype="float32")
-    mesh = Mesh((1, 2), ("data", "model"))
+    cfg, rules = _xlstm_heads_split(kind)
     params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
                          torch.float32, "cpu")
-    with activate(mesh, dryrun.serve_rules(cfg, mesh, 4)):
-        for fn in (lambda: decode_step(params, cfg, {}, torch.zeros(
-                       (4, 1), dtype=torch.long), torch.zeros(
+    tok = torch.zeros((4, 1), dtype=torch.long)
+    monkeypatch.setattr(Mesh, "coordinate",
+                        lambda self: {"data": 0, "model": 0})
+    with activate(Mesh((1, 2), ("data", "model")), rules), torch.no_grad():
+        cache = init_cache(cfg, 4, 8, "cpu")
+        for fn in (lambda: decode_step(params, cfg, cache, tok, torch.zeros(
                        (), dtype=torch.int32)),
-                   lambda: CapturedServeStep(cfg, params, 4, 8,
-                                             device="cpu")):
+                   lambda: generate(cfg, params, tok, 2, device="cpu",
+                                    capture=False)):
             with pytest.raises(NotImplementedError) as e:
                 fn()
-            assert cfg.family in str(e.value)
+            assert kind in str(e.value)
             assert "ROADMAP Queue 1 item 2" in str(e.value)
 
 

@@ -13,9 +13,9 @@ feeding its batch rows and holding its parameter shards; the reference in
 one process with four forced host devices (``tests/jax_dist_ref.py``).
 Rules keep the dense leaves whole (``qheads/kv_heads/mlp/vocab=None``, as
 the reference's ``tests/test_pipeline.py`` has them; the tensor-parallel
-step is ``tests/test_torch_tp.py``'s); rules that split a dense leaf of a
-family whose tensor parallelism waits (llama-vision here) over ``model``
-make the port's step raise.  Tolerances (f32,
+step is ``tests/test_torch_tp.py``'s); the default rules, which split
+xlstm's mLSTM heads over ``model`` (its own rules keep them whole), make
+the port's step raise.  Tolerances (f32,
 ``tests/test_torch_train.py``'s for loss curves): losses rtol 1e-4, clip
 norms rtol 1e-3, parameters after two steps atol = rtol = 1e-4.  Against
 the single-process step the same, and for olmoe only at capacity factor
@@ -46,7 +46,7 @@ CASES = [("qwen3_2x1", "qwen3-1.7b", 2, 1, "none", 1.25, STEPS, "whole"),
           "whole_fsdp"),
          ("olmoe_2x2_cf64", "olmoe-1b-7b", 2, 2, "full", 64.0, STEPS,
           "whole"),
-         ("vlm_1x2_tp", "llama-3.2-vision-11b", 1, 2, "none", 1.25, 1,
+         ("xlstm_1x2_tp", "xlstm-125m", 1, 2, "none", 1.25, 1,
           "default")]
 HELD = [c[0] for c in CASES if c[-1] != "default"]
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -77,7 +77,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dp_train")
     rng = np.random.default_rng(0)
     data = {}
-    for arch in ("qwen3-1.7b", "olmoe-1b-7b", "llama-3.2-vision-11b"):
+    for arch in ("qwen3-1.7b", "olmoe-1b-7b", "xlstm-125m"):
         cfg = _cfg(arch)
         for k, v in numpy_params(model_specs(cfg), rng).items():
             data[f"{arch}/{k}"] = v
@@ -144,8 +144,8 @@ def test_dp_step_matches_the_single_process_step(runs, name):
 
 def test_rules_that_split_a_dense_leaf_over_model_raise(runs):
     _, _, ranks = runs
-    for r in ranks["vlm_1x2_tp"]:
-        assert "tensor parallelism" in r["raised"]
+    for r in ranks["xlstm_1x2_tp"]:
+        assert "mlstm block" in r["raised"] and "heads" in r["raised"]
         assert "ROADMAP Queue 1 item 2" in r["raised"]
 
 

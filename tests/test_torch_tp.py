@@ -1,15 +1,15 @@
-"""Tensor parallelism of the dense, MoE, hybrid and ssm families: the
-port's train step under the reference's production rules against the JAX
-reference's GSPMD step on the same mesh.
+"""Tensor parallelism of every family: the port's train step under the
+reference's production rules against the JAX reference's GSPMD step on
+the same mesh.
 
 The rules are ``launch.dryrun.rules_for``'s, the port's copy of the
 reference's: the port activates the storage rules (each rank holds its
 blocks: heads, MLP columns and vocabulary rows over ``model``, the ``d``
-dims of qwen2.5's and kimi's attention and embedding over ``data``,
-expert leaves over ``model`` and ``data``), the reference its compute
-rules (``constrain`` hints for GSPMD).  Cases, all reduced configs at
-f32, three AdamW steps (lr 1e-2, eps 1e-3, so that near-zero gradients
-do not turn into sign noise) of B 4 x S 16:
+dims of qwen2.5's, kimi's and whisper's leaves over ``data``, expert
+leaves over ``model`` and ``data``), the reference its compute rules
+(``constrain`` hints for GSPMD).  Cases, all reduced configs at f32, three
+AdamW steps (lr 1e-2, eps 1e-3, so that near-zero gradients do not turn
+into sign noise) of B 4 x S 16:
 
 - qwen3 (tied embedding, q/k norm): (1, 2) with both head dims split,
   under both ``loss_dtype``s; (1, 4), where its 2 KV heads are masked to
@@ -28,7 +28,16 @@ do not turn into sign noise) of B 4 x S 16:
   whole (290 columns) and the 2 SSM heads do not tile, so the Mamba2
   blocks run replicated with their ``d_inner`` leaves gathered;
 - xlstm (the mLSTM's ``d_in`` over ``model``, its heads and the sLSTM
-  replicated): (1, 2) and (2, 2) with ``remat="full"``.
+  replicated): (1, 2) and (2, 2) with ``remat="full"``;
+- whisper (the encoder and the decoder's self- and cross-attention on a
+  rank's heads over the memory of 12 frames, LayerNorm, tied vocabulary):
+  (1, 2), and (2, 2) with ``remat="full"``, where its FSDP storage puts
+  every ``d`` dim over ``data``, ``frontend_proj`` and the encoder's final
+  norm among them, gathered again in the recompute;
+- llama-vision (4 self-attention layers and a gated cross-attention layer
+  over 12 projected patches, the gates off their zero init): (1, 2), and
+  (1, 4), where its 2 KV heads are masked whole and each rank's query
+  head reads one.
 
 Each case compares the losses and clip norms of its steps, the gradients
 AdamW received at step 0 (each rank's block against the reference's full
@@ -49,19 +58,21 @@ The Mamba2 gated norm over ``d_inner`` cut over ``model`` (two gloo ranks
 of the same spawn): its sum of squares is all-reduced forward and
 backward; the block's output and every gradient match the unsharded
 block's within 1e-5, and with a stand-in whose backward is the identity
-the gradients miss by far more.
+the gradients miss by far more.  Likewise the cross-attention's memory:
+through ``copy_to_model`` the gradients of ``frontend_proj`` and the
+encoder match the unsharded model's; with a stand-in that passes the
+memory by they miss.
 
 In process, with a shape-only mesh (no process group, so a collective
-would fail): the step raises ``NotImplementedError`` before any
-collective for the families whose tensor parallelism waits (whisper,
-llama-vision; ``forward`` too), for a ``seq_sp`` rule and for
-``layers="pod"``.  Decode under rules that split a dense leaf (two gloo
-ranks, qwen3 and zamba2) gives the unsharded step's logits and tokens,
-its captured step raises on the gloo mesh, and whisper's decode still
-raises (``tests/test_torch_decode_mesh.py`` holds decode under a mesh
-against the reference).  The port's ``rules_for`` /
-``opt_rules_for`` / ``decode_rules`` equal the reference's for every
-registry arch.
+would fail): the step and ``forward`` raise ``NotImplementedError``
+before any collective for rules that split the mLSTM's or sLSTM's heads,
+for a ``seq_sp`` rule and for ``layers="pod"``.  Decode under rules that
+split a dense leaf (two gloo ranks, qwen3, zamba2 and whisper) gives the
+unsharded step's logits and tokens, its captured step raises on the gloo
+mesh, and decode under rules that split the mLSTM's heads raises
+(``tests/test_torch_decode_mesh.py`` holds decode under a mesh against
+the reference).  The port's ``rules_for`` / ``opt_rules_for`` /
+``decode_rules`` equal the reference's for every registry arch.
 """
 
 import itertools
@@ -109,6 +120,14 @@ CASES = [
      False),
     ("xlstm_2x2", "xlstm-125m", 2, 2, STEPS, "float32", "full", True,
      False),
+    ("whisper_1x2", "whisper-large-v3", 1, 2, STEPS, "float32", "none",
+     True, False),
+    ("whisper_2x2", "whisper-large-v3", 2, 2, STEPS, "float32", "full",
+     True, False),
+    ("vision_1x2", "llama-3.2-vision-11b", 1, 2, STEPS, "float32", "none",
+     True, False),
+    ("vision_1x4", "llama-3.2-vision-11b", 1, 4, STEPS, "float32", "none",
+     True, False),
 ]
 NAMES = [c[0] for c in CASES]
 REF_PROCS = 4
@@ -116,6 +135,12 @@ ARCHS = sorted({c[1] for c in CASES})
 #: zamba2's gradients and parameters (module docstring: the reference's
 #: own layouts differ by 8.7e-5, rounding-sized weight moves by 2.8e-4)
 ZAMBA2_TOL = 3e-4
+#: the memory rows of the encdec and vlm batches (frames / patches: fewer
+#: than S, so no tensor of the decoder has the memory's shape), and the
+#: stub input each family's memory comes from
+MEMORY_LEN = 12
+STUB = {"encdec": "frames", "vlm": "patches"}
+CROSS_ARCHS = ("llama-3.2-vision-11b", "whisper-large-v3")
 
 
 @pytest.fixture(scope="module")
@@ -124,12 +149,15 @@ def runs(tmp_path_factory):
     rng = np.random.default_rng(23)
     data = {}
     for arch in ARCHS:
+        if arch in CROSS_ARCHS:
+            continue
         cfg = reduced_config(arch).replace(dtype="float32")
         for k, v in numpy_params(model_specs(cfg), rng).items():
             data[f"{arch}/{k}"] = v
         data[f"tokens/{arch}"] = rng.integers(
             0, cfg.vocab_size, (STEPS, B, S)).astype(np.int32)
     data.update(_mamba_inputs(rng))
+    data.update(_cross_inputs(np.random.default_rng(27)))
     inputs = os.path.join(str(tmp), "inputs.npz")
     np.savez(inputs, **data)
     cases = [list(c) for c in CASES]
@@ -150,6 +178,22 @@ def runs(tmp_path_factory):
     for r in refs:
         ref.update(collect_reference(r))
     return data, ref, ranks
+
+
+def _cross_inputs(rng) -> dict:
+    """The encdec and vlm archs' leaves (the vlm gates moved off their
+    zero init, so that the cross-attention adds something), tokens and
+    frames or patches ``[STEPS, B, MEMORY_LEN, frontend_dim]``."""
+    out = {}
+    for arch in CROSS_ARCHS:
+        cfg = reduced_config(arch).replace(dtype="float32")
+        for k, v in numpy_params(model_specs(cfg), rng).items():
+            out[f"{arch}/{k}"] = v + 0.5 * k.endswith("/gate")
+        out[f"tokens/{arch}"] = rng.integers(
+            0, cfg.vocab_size, (STEPS, B, S)).astype(np.int32)
+        out[f"{STUB[cfg.family]}/{arch}"] = rng.standard_normal(
+            (STEPS, B, MEMORY_LEN, cfg.frontend_dim)).astype(np.float32)
+    return out
 
 
 def _mamba_inputs(rng) -> dict:
@@ -286,6 +330,95 @@ def test_each_rank_holds_its_recurrent_blocks(runs, name):
                 n // k for n, k in zip(full[key][lead:], parts)), key
 
 
+#: the blocks the encdec and vlm cases are meant to exercise, as
+#: RECURRENT_BLOCKS: cross-attention heads over ``model`` (llama-vision's
+#: 2 KV heads whole at (1, 4)), whisper's ``d`` dims over ``data`` at (2,
+#: 2) -- ``frontend_proj`` and the encoder's final norm among them
+CROSS_BLOCKS = {
+    "whisper_1x2": {"blocks/b0_dec_attn/xattn/wq": (1, 2, 1),
+                    "blocks/b0_dec_attn/xattn/wk": (1, 2, 1),
+                    "blocks/b0_dec_attn/xattn/wo": (2, 1, 1),
+                    "encoder/blocks/b0_attn_bidir/attn/wq": (1, 2, 1),
+                    "encoder/blocks/b0_attn_bidir/mlp/wi": (1, 2),
+                    "encoder/final_norm/scale": (1,),
+                    "frontend_proj": (1, 1), "embed": (2, 1)},
+    "whisper_2x2": {"blocks/b0_dec_attn/xattn/wq": (2, 2, 1),
+                    "blocks/b0_dec_attn/xattn/wv": (2, 2, 1),
+                    "blocks/b0_dec_attn/xattn/wo": (2, 1, 2),
+                    "blocks/b0_dec_attn/ln_x/bias": (2,),
+                    "encoder/blocks/b0_attn_bidir/attn/wq": (2, 2, 1),
+                    "encoder/blocks/b0_attn_bidir/mlp/wi": (2, 2),
+                    "encoder/final_norm/scale": (2,),
+                    "frontend_proj": (1, 2), "embed": (2, 2)},
+    "vision_1x2": {"blocks/b4_xattn/xattn/wq": (1, 2, 1),
+                   "blocks/b4_xattn/xattn/wk": (1, 2, 1),
+                   "blocks/b4_xattn/xattn/wo": (2, 1, 1),
+                   "blocks/b4_xattn/gate": (1,),
+                   "blocks/b4_xattn/mlp/wg": (1, 2),
+                   "frontend_proj": (1, 1), "unembed": (1, 2)},
+    "vision_1x4": {"blocks/b4_xattn/xattn/wq": (1, 4, 1),
+                   "blocks/b4_xattn/xattn/wk": (1, 1, 1),
+                   "blocks/b4_xattn/xattn/wo": (4, 1, 1),
+                   "blocks/b4_xattn/gate": (1,),
+                   "frontend_proj": (1, 1), "unembed": (1, 4)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(CROSS_BLOCKS))
+def test_each_rank_holds_its_cross_blocks(runs, name):
+    """Each rank's parameters are its blocks as the case is meant to cut
+    them: the cross-attention's heads and the MLP's columns over
+    ``model``, whisper's encoder likewise, and at (2, 2) whisper's ``d``
+    dims over ``data`` (FSDP), ``frontend_proj`` and the encoder's final
+    norm with them; the vlm ``gate`` whole."""
+    data, _, ranks = runs
+    arch = next(c[1] for c in CASES if c[0] == name)
+    full = {k[len(arch) + 1:]: v.shape for k, v in data.items()
+            if k.startswith(arch + "/")}
+    for r in ranks[name]:
+        for key, parts in CROSS_BLOCKS[name].items():
+            shape = tuple(r["params"][key].shape)
+            lead = len(shape) - len(parts)
+            assert shape[lead:] == tuple(
+                n // k for n, k in zip(full[key][lead:], parts)), key
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
+                                  "llama-3.2-vision-11b"])
+def test_memory_gradient_needs_copy_to_model(runs, arch):
+    """The cross-attention's memory enters the tensor-parallel region
+    through ``copy_to_model``, as its input does.  On a (1, 2) mesh every
+    rank's gradient of ``frontend_proj``, and of each encoder leaf's block,
+    is the unsharded model's within 1e-5; with a stand-in that passes the
+    memory by (a rank keeps its heads' part of the memory's gradient) they
+    miss by more than 1e-2."""
+    from repro_torch.models.transformer import lm_loss
+
+    data, _, ranks = runs
+    cfg = reduced_config(arch).replace(dtype="float32")
+    stub = STUB[cfg.family]
+    p = {k[len(arch) + 1:]: torch.tensor(v, requires_grad=True)
+         for k, v in data.items() if k.startswith(arch + "/")}
+    loss = lm_loss(unflatten(p), cfg, {
+        "tokens": torch.from_numpy(data[f"tokens/{arch}"][0]),
+        stub: torch.from_numpy(data[f"{stub}/{arch}"][0])})
+    res = ranks[f"memory_grads/{arch}"]
+    assert len(res) == 2
+    keys = sorted(res[0]["sound"])
+    assert "frontend_proj" in keys and (cfg.family == "vlm") == (
+        len(keys) == 1)
+    want = dict(zip(keys, torch.autograd.grad(loss, [p[k] for k in keys])))
+    missed = []
+    for r in res:
+        for k in keys:
+            blk = tuple(slice(a, b) for a, b in r["slices"][k])
+            w = want[k][blk].numpy()
+            _close(r["sound"][k], w, f"{arch} gradient {k}")
+            if k == "frontend_proj":
+                missed.append(_rel(r["memory_skips_copy"][k], w))
+    assert min(missed) > 1e-2, missed
+
+
 def test_mamba_gated_norm_gradient_needs_its_all_reduce(runs):
     """Trap 2: the gated RMSNorm averages over the whole ``d_inner``, cut
     over ``model`` on the (1, 2) mesh.  With ``collectives.shared_sum``
@@ -390,20 +523,32 @@ def _step_raises(cfg, rules, D=1, M=2):
     return str(e.value)
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3",
-                                  "llama-3.2-vision-11b"])
-def test_families_that_wait_raise_before_any_collective(arch):
-    """The train step, and ``forward`` under the same rules."""
+def _xlstm_heads_split(kind: str):
+    """Reduced xlstm (only sLSTM blocks for ``kind="slstm"``) and rules
+    that split its cells' heads over ``model`` (``qheads``; the
+    vocabulary whole, so no collective runs before the blocks)."""
+    cfg = reduced_config("xlstm-125m").replace(dtype="float32")
+    if kind == "slstm":
+        cfg = cfg.replace(slstm_every=1)
+    _, storage = dryrun.rules_for(cfg, False)
+    return cfg, storage.override(qheads="model", vocab=None)
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_rules_that_split_xlstm_heads_raise_before_any_collective(kind):
+    """Rules that split an mLSTM's or sLSTM's heads over ``model`` (no
+    registry rules do): the train step raises before any collective (a
+    shape-only mesh has none), and so does ``forward`` under the same
+    rules, naming the block and ROADMAP."""
     from repro_torch.models.transformer import forward
 
-    cfg = reduced_config(arch).replace(dtype="float32")
-    _, storage = dryrun.rules_for(cfg, False)
-    msg = _step_raises(cfg, storage)
-    assert cfg.family in msg and "ROADMAP Queue 1 item 2" in msg
+    cfg, rules = _xlstm_heads_split(kind)
+    msg = _step_raises(cfg, rules)
+    assert kind in msg and "ROADMAP Queue 1 item 2" in msg
     params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
                          torch.float32, "cpu")
-    with activate(_shape_only(1, 2), storage):
-        with pytest.raises(NotImplementedError, match=cfg.family):
+    with activate(_shape_only(1, 2), rules):
+        with pytest.raises(NotImplementedError, match=kind):
             forward(params, cfg, {"tokens": torch.zeros((1, 4),
                                                         dtype=torch.long)})
 
@@ -423,23 +568,29 @@ def test_seq_sp_and_pipeline_rules_raise(what):
 
 
 def test_decode_under_rules_that_split_a_dense_leaf_raises(tmp_path):
-    """Decode under rules that split dense leaves: qwen3 and zamba2 decode
-    now (two gloo ranks on a (1, 2) mesh, heads, MLP, SSM heads and
-    vocabulary split, each rank's block of the cache; every rank's logits
-    and greedy tokens are the unsharded step's), and ``CapturedServeStep``
-    raises on that gloo mesh and on a shape-only one; whisper, whose
-    tensor parallelism waits, still raises naming ROADMAP.  On a (1, 1)
+    """Decode under rules that split dense leaves: qwen3, zamba2 and
+    whisper decode (two gloo ranks on a (1, 2) mesh, heads, MLP, SSM heads,
+    cross-attention heads and vocabulary split, each rank's block of the
+    cache and its rows of whisper's memory; every rank's logits and greedy
+    tokens are the unsharded step's), and ``CapturedServeStep`` raises on
+    that gloo mesh and on a shape-only one.  Rules that split the mLSTM's
+    heads still raise, naming ROADMAP, before any collective.  On a (1, 1)
     mesh nothing is split: the step decodes."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import encode
     from repro_torch.serve.step import CapturedServeStep
 
     rng = np.random.default_rng(11)
     cfgs, data = {}, {}
-    for arch in ("qwen3-1.7b", "zamba2-7b"):
+    for arch in ("qwen3-1.7b", "zamba2-7b", "whisper-large-v3"):
         cfgs[arch] = reduced_config(arch).replace(dtype="float32")
         for k, v in numpy_params(model_specs(cfgs[arch]), rng).items():
             data[f"{arch}/{k}"] = v
         data[f"prompt/{arch}"] = rng.integers(
             0, cfgs[arch].vocab_size, (2, 3)).astype(np.int64)
+    frames = rng.standard_normal((2, MEMORY_LEN, cfgs[
+        "whisper-large-v3"].frontend_dim)).astype(np.float32)
+    data["frames/whisper-large-v3"] = frames
     inputs = os.path.join(str(tmp_path), "inputs.npz")
     np.savez(inputs, **data)
     ranks = collect(spawn_ranks(
@@ -450,8 +601,12 @@ def test_decode_under_rules_that_split_a_dense_leaf_raises(tmp_path):
                             for k, v in data.items()
                             if k.startswith(arch + "/")})
         toks = ranks[0][arch]["tokens"]
-        cache = init_cache(cfg, 2, 8, "cpu")
         with torch.no_grad():
+            memory = encode(params, cfg, {"frames": torch.from_numpy(frames)})
+            cache = init_cache(cfg, 2, 8, "cpu", mem_len=0 if memory is None
+                               else MEMORY_LEN)
+            if memory is not None:
+                cache["memory"].copy_(memory)
             want = [decode_step(params, cfg, cache, toks[:, t:t + 1],
                                 torch.tensor(t, dtype=torch.int32))[0]
                     for t in range(8)]
@@ -472,16 +627,22 @@ def test_decode_under_rules_that_split_a_dense_leaf_raises(tmp_path):
     params = unflatten({k.split("/", 1)[1]: torch.tensor(v)
                         for k, v in data.items()
                         if k.startswith("qwen3-1.7b/")})
-    wcfg = reduced_config("whisper-large-v3").replace(dtype="float32")
-    wparams = init_params(model_specs(wcfg), torch.Generator().manual_seed(0),
+    xcfg, xrules = _xlstm_heads_split("mlstm")
+    xparams = init_params(model_specs(xcfg), torch.Generator().manual_seed(0),
                           torch.float32, "cpu")
     tok = torch.zeros((1, 1), dtype=torch.long)
     pos = torch.zeros((), dtype=torch.int32)
-    with activate(_shape_only(1, 2), dryrun.rules_for(wcfg, False)[1]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            decode_step(wparams, wcfg, {}, tok, pos)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            CapturedServeStep(wcfg, wparams, 1, 8, device="cpu")
+    with activate(_shape_only(1, 2), xrules), torch.no_grad():
+        # the cache of the rank at (data 0, model 0): a shape-only mesh
+        # has no coordinate of its own
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(Mesh, "coordinate",
+                       lambda self: {"data": 0, "model": 0})
+            xcache = init_cache(xcfg, 1, 8, "cpu")
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+                decode_step(xparams, xcfg, xcache, tok, pos)
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+                generate(xcfg, xparams, tok, 2, device="cpu", capture=False)
     # on a (1, 1) mesh nothing is split: the step decodes
     cache = init_cache(cfg, 1, 8, "cpu")
     with activate(_shape_only(1, 1), dryrun.rules_for(cfg, False)[1]):

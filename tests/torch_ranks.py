@@ -291,12 +291,28 @@ def dp_train(inputs: str, cases: list) -> dict:
     return out
 
 
+#: the stub inputs of the encdec and vlm families, by batch key
+STUBS = ("frames", "patches")
+
+
+def _batch(data: dict, arch: str, i: int, rows: slice) -> dict:
+    """This rank's ``rows`` of batch ``i`` of ``arch``: its tokens, and
+    its frames or patches where the inputs hold them (``STUBS/ARCH``
+    ``[steps, B, n, F]``)."""
+    out = {"tokens": torch.from_numpy(data[f"tokens/{arch}"][i][rows])}
+    for k in STUBS:
+        if f"{k}/{arch}" in data:
+            out[k] = torch.from_numpy(data[f"{k}/{arch}"][i][rows])
+    return out
+
+
 def tp_train(inputs: str, cases: list, root: str) -> dict:
     """The port's train step per case (name, arch, D, M, steps, loss_dtype,
     remat, zero1, save) whose mesh has this world's size, under the
     storage rules of ``launch.dryrun.rules_for`` (tensor parallelism, the
     dense FSDP of its archs, expert FSDP), from
-    ``init_sharded_train_state`` (ZeRO-1 moments with ``zero1``): each
+    ``init_sharded_train_state`` (ZeRO-1 moments with ``zero1``), on this
+    rank's rows of each batch (``_batch``): each
     step's loss and clip norm, the gradients AdamW received at step 0,
     the moments' bytes and the final blocks with their slices.  With
     ``save``: the state saved through an async ``CheckpointManager``
@@ -352,11 +368,10 @@ def tp_train(inputs: str, cases: list, root: str) -> dict:
 
             train_step.adamw_apply = recording
             try:
+                n = data[f"tokens/{arch}"].shape[1] // nb
                 for i in range(steps):
-                    toks = data[f"tokens/{arch}"][i]
-                    n = toks.shape[0] // nb
-                    state, m = step(state, {"tokens": torch.from_numpy(
-                        toks[bi * n:(bi + 1) * n])})
+                    state, m = step(state, _batch(
+                        data, arch, i, slice(bi * n, (bi + 1) * n)))
                     res["losses"].append(m["loss"].item())
                     res["grad_norms"].append(m["grad_norm"].item())
             finally:
@@ -401,6 +416,65 @@ def tp_train(inputs: str, cases: list, root: str) -> dict:
         out["mamba_block_w_in_whole"] = _mamba_block(
             data, "mamba_w_in_whole", MAMBA_W_IN_WHOLE_CFG(), (1, 4),
             ("shared_sum",))
+    if dist.get_world_size() == 2:
+        for arch in MEMORY_ARCHS:
+            if f"tokens/{arch}" in data:
+                out[f"memory_grads/{arch}"] = _memory_grads(data, arch)
+    return out
+
+
+#: the archs whose memory gradient the (1, 2) ranks report
+MEMORY_ARCHS = ("whisper-large-v3", "llama-3.2-vision-11b")
+
+
+def _memory_grads(data: dict, arch: str) -> dict:
+    """The gradients of ``lm_loss`` on batch 0 on a (1, 2) mesh under the
+    arch's ``rules_for`` storage rules, whose cross-attention reads the
+    memory on this rank's heads, per variant: ``copy_to_model`` as it is
+    (``sound``), and a stand-in that passes the memory by
+    (``memory_skips_copy``: the memory's gradient stays this rank's heads'
+    part) -- ``frontend_proj``'s, and every encoder leaf's with the slices
+    of this rank's blocks."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import activate
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import unflatten
+
+    cfg = reduced_config(arch).replace(dtype="float32")
+    full = {k[len(arch) + 1:]: v for k, v in data.items()
+            if k.startswith(arch + "/")}
+    real_copy, real_encode = C.copy_to_model, T.encode
+    out = {}
+    with activate(_mesh((1, 2)), rules_for(cfg.replace(name=arch),
+                                           False)[1]) as ctx:
+        specs = T.model_specs(cfg)
+        for variant in ("sound", "memory_skips_copy"):
+            local = {k: v.requires_grad_(True)
+                     for k, v in _local(ctx, specs, full).items()}
+            memory = []
+            if variant == "memory_skips_copy":
+                def encode(*a, **kw):
+                    memory.append(real_encode(*a, **kw))
+                    return memory[-1]
+
+                T.encode = encode
+                C.copy_to_model = lambda t, g: t if any(
+                    t is m for m in memory) else real_copy(t, g)
+            try:
+                loss = T.lm_loss(unflatten(local), cfg,
+                                 _batch(data, arch, 0, slice(None)))
+                keys = [k for k in sorted(local) if k == "frontend_proj"
+                        or k.startswith("encoder/")]
+                grads = torch.autograd.grad(loss, [local[k] for k in keys])
+            finally:
+                C.copy_to_model, T.encode = real_copy, real_encode
+            out[variant] = dict(zip(keys, grads))
+        out["slices"] = {
+            k: [(sl.start, sl.stop) for sl in ctx.mesh.local_slices(
+                ctx.spec(s.logical, s.shape), s.shape)]
+            for k, s in tree_leaves(specs)}
     return out
 
 
@@ -597,10 +671,13 @@ def decode(inputs: str, cases: list, root: str) -> dict:
     ``generate(capture=False)``, this rank's ``KVBlock``, each cache
     leaf's block as ``ShardingCtx.block`` gives it (a stacked leaf's
     layers whole), and what ``generate(capture=True)`` and
-    ``CapturedServeStep`` raise on the gloo mesh.  With ``save``: the
-    blocks saved as a sharded checkpoint under ``root/NAME``, restored
-    with ``shardings=`` under the same rules and decoded again (its
-    logits)."""
+    ``CapturedServeStep`` raise on the gloo mesh.  encdec and vlm decode
+    against the memory of ``frames/NAME`` / ``patches/NAME`` ``[B, n,
+    F]``: ``encode`` of the whole batch under the context, this rank's
+    rows written into the cache (``generate`` is given the whole).  With
+    ``save``: the blocks saved as a sharded checkpoint under ``root/NAME``,
+    restored with ``shardings=`` under the same rules and decoded again
+    (its logits)."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
@@ -609,8 +686,8 @@ def decode(inputs: str, cases: list, root: str) -> dict:
     from repro_torch.launch.dryrun import serve_rules
     from repro_torch.launch.serve import generate
     from repro_torch.models.common import local_tree, sharding_tree
-    from repro_torch.models.transformer import (cache_specs, init_cache,
-                                                model_specs)
+    from repro_torch.models.transformer import (cache_specs, encode,
+                                                init_cache, model_specs)
     from repro_torch.serve.step import CapturedServeStep, make_serve_step
     from repro_torch.weights import unflatten
 
@@ -630,7 +707,21 @@ def decode(inputs: str, cases: list, root: str) -> dict:
                 as ctx, torch.no_grad():
             specs = model_specs(cfg)
             params = unflatten(_local(ctx, specs, full))
-            cache = init_cache(cfg, B, s_max, "cpu")
+            stub = next((k for k in STUBS if f"{k}/{name}" in data), None)
+            memory, mem_len = None, 0
+            if stub is not None:
+                memory = encode(params, cfg, {stub: torch.from_numpy(
+                    data[f"{stub}/{name}"])})
+                mem_len = memory.shape[1]
+            rows = ctx.batch_rows(B)[0]
+
+            def new_cache():
+                c = init_cache(cfg, B, s_max, "cpu", mem_len=mem_len)
+                if memory is not None:
+                    c["memory"].copy_(memory[rows])
+                return c
+
+            cache = new_cache()
             step = make_serve_step(cfg)
             res["tokens"], res["logits"], res["caches"] = _serve_loop(
                 step, params, cache, prompt, s_max)
@@ -639,18 +730,24 @@ def decode(inputs: str, cases: list, root: str) -> dict:
                             for sl in (blk.rows, blk.keys, blk.heads)]
             res["seq_axes"], res["batch_axes"] = blk.seq_axes, blk.batch_axes
             res["slices"] = {}
-            for key, sp in tree_leaves(cache_specs(cfg, B, s_max)):
+            for key, sp in tree_leaves(cache_specs(cfg, B, s_max, mem_len)):
+                if key == "memory":     # its batch rows (init_cache)
+                    res["slices"][key] = [(rows.start, rows.stop)] + [
+                        (0, n) for n in sp.shape[1:]]
+                    continue
                 lead = int(sp.logical[0] == "layers")
                 res["slices"][key] = [(0, n) for n in sp.shape[:lead]] + [
                     (sl.start, sl.stop) for sl in ctx.block(
                         sp.logical[lead:], sp.shape[lead:])]
             res["generate"] = generate(cfg, params, prompt, s_max - prompt_len,
-                                       device="cpu", capture=False)
+                                       device="cpu", capture=False,
+                                       memory=memory)
             for what, fn in (
                     ("generate", lambda: generate(cfg, params, prompt, 1,
                                                   device="cpu")),
                     ("captured", lambda: CapturedServeStep(
-                        cfg, params, B, s_max, device="cpu"))):
+                        cfg, params, B, s_max, device="cpu",
+                        mem_len=mem_len))):
                 try:
                     fn()
                     res[f"{what}_raised"] = None
@@ -666,7 +763,7 @@ def decode(inputs: str, cases: list, root: str) -> dict:
                 res["restored_equal"] = all(
                     torch.equal(a, b) for (_, a), (_, b) in zip(
                         tree_leaves(restored), tree_leaves(params)))
-                cache = init_cache(cfg, B, s_max, "cpu")
+                cache = new_cache()
                 _, res["restored_logits"], _ = _serve_loop(
                     step, restored, cache, prompt, s_max)
         out[name] = res
