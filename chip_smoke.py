@@ -111,7 +111,7 @@ Phases (one JSON line each, ``"phase"`` names them):
    prints its peak device memory.
 12. ``xlstm_prefill`` / ``xlstm_generate``: xlstm-125m at full width and
    depth (6 x (mLSTM, sLSTM), d 768), its zero-init ``b_if`` and ``b``
-   set nonzero: prefill at B 1 x S 512 (13 rmsnorm launches per forward,
+   set nonzero: prefill at B 1 x S 256 (13 rmsnorm launches per forward,
    no other kernel: the cells' loops over time are host-bound), held at
    bf16 and f32; the captured ``generate`` at B 4, 16 + 32; one captured
    step at position 524,287 (the reference's ``long_500k``; the state has
@@ -264,7 +264,7 @@ Phases (one JSON line each, ``"phase"`` names them):
    the whole cache's.
 23. The encdec and vlm families under a mesh, last in the distributed
    phase (``dist_cross_phase``).  ``dist_tp_whisper``: whisper-large-v3
-   at full width with 4 + 4 of its 32 + 32 layers on four gloo ranks of a
+   at full width with 2 + 2 of its 32 + 32 layers on four gloo ranks of a
    (2, 2) mesh (``--gloo-program cross4``) under ``rules_for``: its FSDP
    storage puts every ``d`` dim over ``data`` (``frontend_proj`` and the
    encoder's final norm too, gathered before use and again in the
@@ -282,6 +282,33 @@ Phases (one JSON line each, ``"phase"`` names them):
    its batch rows, DECODE_STEPS steps to 448 and 2048 keys, f32 and bf16,
    held as ``dist_decode_phase`` holds its runs; each rank's memory and
    KV bytes must be its block's.
+24. The multi-pod production layout, last in the distributed phase
+   (``dist_multipod_phase``, ``--gloo-program multipod``): four gloo
+   ranks spawned once build two ``(pod, data, model)`` meshes and run
+   under ``rules_for(cfg, multi_pod=True)`` with ZeRO-1 moments
+   (``opt_rules_for(..., True)``), whose data axes ``("data", "pod")``
+   are out of mesh order (data-major, as JAX lays them out).
+   ``dist_multipod_olmoe_221``: olmoe-1b-7b at full width with 1 of its
+   16 layers on (2, 2, 1), its experts stored over ``("data", "pod")``
+   and gathered by the a2a path at M 1, B 4 x S 2048 at bf16 (2 steps)
+   and B 4 x S 512 at f32 (1 step); ``dist_multipod_whisper_221``:
+   whisper-large-v3 at full width with 2 + 2 layers on (2, 2, 1), its
+   ``d`` dims over ``("data", "pod")``, B 4 x 448 tokens over 1500
+   frames at bf16; ``dist_multipod_olmoe_212``: olmoe on (2, 1, 2) at B
+   2 x S 2047 (bf16) and 2 x 511 (f32), where M does not divide S, so
+   the MoE block trains through the one-hot path across ranks.  Each
+   against this process's run on the 1-rank NCCL mesh as
+   ``dist_tp_zamba2``, the MoE runs routed as that run routed
+   (``MoEProbe``'s replay, flips counted), each rank's parameter and moment
+   blocks checked against the data-major blocks of their specs.
+   ``dist_multipod_save``: the olmoe bf16 ZeRO-1 state saved sharded,
+   byte-identical to this process's save of the assembled state, and
+   restored with ``shardings=`` onto the mesh, bit-exact, two ranks at a
+   time.
+   ``dist_multipod_decode``: olmoe decode under
+   ``serve_rules(multi_pod=True)`` on (2, 2, 1), B 4, f32 and bf16, held
+   as ``dist_decode_phase`` holds its runs.  ``dist_multipod``: the
+   phase's seconds.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -407,15 +434,17 @@ GRAPH_ATOL = 1e-3
 #: 30 s grid) and 448 tokens (its decoder's limit), generate (B 4, 16 + 32)
 #: against its own encoder output; llama-3.2-vision-11b over 1024 patches
 #: and S 2048, generate (B 4, 16 + 16) against the projected patches
-#: S 2048 -> 512 once the encdec and vlm phases joined the script (the
-#: time limit): the prefill's time loop is host-bound, 11.1 s at 2048
-XLSTM_PREFILL_SHAPE = (1, 512)
+#: S 2048 -> 512 once the encdec and vlm phases joined the script, 512 ->
+#: 256 once the multi-pod phase did (the time limit): the prefill's time
+#: loop is host-bound, 11.1 s at 2048
+XLSTM_PREFILL_SHAPE = (1, 256)
 XLSTM_GENERATE = (4, 16, 32)
 XLSTM_LONG_POS = 524_287
 #: the xlstm prefill's device profile covers this many positions (its
 #: loops over time issue ~260 kernels a position; a trace of all 2048
-#: takes minutes to read), scaled to the whole prefill
-XLSTM_PROFILE_SEQ = 256
+#: takes minutes to read), scaled to the whole prefill; 256 -> 64 once
+#: the multi-pod phase joined the script (the time limit)
+XLSTM_PROFILE_SEQ = 64
 MOE_PREFILL_SHAPE = (1, 4096)
 MOE_GENERATE = (4, 16, 16)
 KIMI_LAYERS = 1
@@ -445,10 +474,11 @@ GRAD_SSM_SHAPE = (1, 2048, 112, 64, 64)
 GRAD_MODEL_SHAPE = (2, 1024)
 GRAD_MODEL_LAYERS = 2
 #: qwen3-1.7b trained at full size: B 4 x S 2048 batches from the
-#: pipeline over three loopback mirrors, TRAIN_STEPS steps, then
+#: pipeline over three loopback mirrors, TRAIN_STEPS steps (10 until the
+#: multi-pod phase joined the script: the time limit), then
 #: TRAIN_REPEAT steps on one batch (its loss must fall)
 TRAIN_SHAPE = (4, 2048)
-TRAIN_STEPS = 10
+TRAIN_STEPS = 6
 TRAIN_REPEAT = 4
 #: train_resume: qwen3-1.7b at full width with 2 layers, B 2 x S 1024
 RESUME_SHAPE = (2, 1024)
@@ -2884,16 +2914,20 @@ def set_nonzero_inits(torch, cfg, params, seed: int) -> list:
 
 class MoEProbe:
     """Wraps the port's MoE router (``moe._gates``) and slot assignment
-    (``moe._slots``) for the length of one call.  ``run(fn)`` counts the
-    (token, slot)
-    pairs that ``fn``'s MoE blocks drop past capacity; ``run(fn,
-    record=True)`` also returns the expert choice of every router call,
-    and ``run(fn, replay=choices)`` makes ``fn``'s routers take those
-    choices (each weighted by its own renormalised probability there) and
-    counts the (token, slot) entries where its own choice differed.  The
-    smoke uses the replay to hold a kernel path that has no f32 copy to
-    measure a floor against: bf16 rounding in a different order reorders
-    near-tied experts, and one reordered expert moves a token by O(1)."""
+    (``moe._slots``) while entered (``with probe.pin(...)``), or for the
+    length of one call.  ``run(fn)`` counts the (token, slot) pairs that
+    ``fn``'s MoE blocks drop past capacity; ``run(fn, record=True)`` also
+    returns the expert choice of every router call, and ``run(fn,
+    replay=choices)`` makes ``fn``'s routers take those choices (each
+    weighted by its own renormalised probability there) and counts the
+    (token, slot) entries where its own choice differed.  An a2a rank's
+    router sees its own rows of the batch: it takes its rows of a choice
+    (``ShardingCtx.batch_shard``).  The smoke uses the replay to hold a
+    kernel path that has no f32 copy to measure a floor against, and a
+    layout of ranks against one rank (``pin``): bf16 rounding in a
+    different order (a sum over ``model``, a GEMM of other rows)
+    reorders near-tied experts, and one reordered expert moves a token by
+    O(1)."""
 
     def __init__(self, torch, moe):
         self.torch, self.moe = torch, moe
@@ -2915,7 +2949,12 @@ class MoEProbe:
         if self.recorded is not None:
             self.recorded.append(idx)
         if self.replay is not None:
-            pin = self.replay.pop(0)
+            pin = self.replay.pop(0).to(idx.device)
+            if pin.shape[0] != idx.shape[0]:
+                from repro_torch.distributed.context import active_ctx
+
+                i, n = active_ctx().batch_shard()[0], idx.shape[0]
+                pin = pin[i * n:(i + 1) * n]
             self.flips.append((pin != idx).sum())
             probs = self.torch.softmax(xt.float() @ router.float(), dim=-1)
             vals = probs.gather(1, pin)
@@ -2923,23 +2962,43 @@ class MoEProbe:
             idx = pin
         return vals, idx, lb
 
-    def run(self, fn, *, record=False, replay=None):
+    def pin(self, *, record=False, replay=None) -> "MoEProbe":
+        """This probe, set to record the choices or to take ``replay``'s
+        (and to count drops and flips afresh) in its next ``with``."""
         self.dropped, self.flips = [], []
         self.recorded = [] if record else None
         self.replay = None if replay is None else list(replay)
+        return self
+
+    def __enter__(self):
         self.gates, self.slots = self.moe._gates, self.moe._slots
         self.moe._gates, self.moe._slots = self._gates, self._slots
-        try:
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._gates, self.moe._slots = self.gates, self.slots
+
+    def n_flips(self) -> int:
+        return int(sum(int(f) for f in self.flips))
+
+    def run(self, fn, *, record=False, replay=None):
+        with self.pin(record=record, replay=replay):
             out = fn()
-        finally:
-            self.moe._gates, self.moe._slots = self.gates, self.slots
-            recorded, self.recorded, self.replay = self.recorded, None, None
+        recorded, self.recorded, self.replay = self.recorded, None, None
         dropped = int(sum(int(d) for d in self.dropped))
         if record:
             return (out, dropped), recorded
         if replay is not None:
-            return (out, dropped), int(sum(int(f) for f in self.flips))
+            return (out, dropped), self.n_flips()
         return out, dropped
+
+
+def _pinned(torch, replay=None) -> "MoEProbe":
+    """A ``MoEProbe`` set to record the routing (no ``replay``) or to take
+    ``replay``'s, for a ``with`` around a run."""
+    from repro_torch.models import moe
+
+    return MoEProbe(torch, moe).pin(record=replay is None, replay=replay)
 
 
 def hold_fixed(torch, lk, lp, what: str) -> dict:
@@ -2979,7 +3038,7 @@ def family_model(torch, cfg, dev):
 
 def xlstm_phase(torch, K, dev) -> dict:
     """xlstm-125m at full width and depth (6 x (mLSTM, sLSTM), d 768):
-    ``xlstm_prefill`` at B 1 x S 512 (13 rmsnorm launches per forward: no
+    ``xlstm_prefill`` at B 1 x S 256 (13 rmsnorm launches per forward: no
     other kernel runs; the cells' loops over time are host-bound, timed
     once, with a kernels-only profile), ``xlstm_generate`` (B 4, 16 + 32)
     with four teacher-forced kernel-vs-plain steps, and one captured step
@@ -4198,8 +4257,9 @@ def dist_gloo_phase(torch, dev, mesh) -> None:
 #: TP_F32_TOL relative of each tensor's largest entry
 TP_SHAPE = (2, 2048)
 #: dist_tp_qwen3's bf16 depth: 28 -> 8 layers (the time limit, once the
-#: encdec and vlm phases joined the script)
-TP_LAYERS = 8
+#: encdec and vlm phases joined the script), 8 -> 2 once the multi-pod
+#: phase did
+TP_LAYERS = 2
 #: steps a TP run takes (3 until the encdec and vlm phases joined the
 #: script: the time limit)
 TP_STEPS = 2
@@ -4211,9 +4271,10 @@ TP_F32_TOL = 1e-4
 #: dist_zero1_save: four gloo ranks of a (2, 2) mesh under rules_for +
 #: opt_rules_for, qwen3-1.7b at full width with its 28 layers cut to
 #: ZERO1_LAYERS (four ranks share the card and the time budget; 8 until
-#: decode under a mesh joined the script), global batch B 4 x S 2048,
-#: TP_STEPS steps with ZeRO-1 moments and without
-ZERO1_LAYERS = 4
+#: decode under a mesh joined the script, 4 until the multi-pod phase
+#: did), global batch B 4 x S 2048, TP_STEPS steps with ZeRO-1 moments
+#: and without
+ZERO1_LAYERS = 2
 ZERO1_SHAPE = (4, 2048)
 
 
@@ -4249,14 +4310,20 @@ def _draw_full(torch, cfg, dev, seed: int) -> dict:
     return full
 
 
-def _sharded_train(torch, K, cfg, dev, mesh, opt, seed: int, batches: list):
+def _sharded_train(torch, K, cfg, dev, mesh, opt, seed: int, batches: list,
+                   multi_pod: bool = False, routing=None):
     """Parameters drawn whole on ``dev`` from ``seed`` (``_draw_full``, as
     every process draws them), this rank's blocks cut under
-    ``rules_for(cfg)``'s storage rules, ``init_sharded_train_state`` and
-    one train step per batch (this rank's rows of each of its tensors).
-    Returns the state, the leaves' slices, and a record: losses, clip
-    norms, ms per step, peak device bytes, the kernels' launches and step
-    0's reduced gradients (on the host)."""
+    ``rules_for(cfg, multi_pod)``'s storage rules,
+    ``init_sharded_train_state`` and one train step per batch (this
+    rank's rows of each of its tensors).  Returns the state, the leaves'
+    slices, and a record: losses, clip norms, ms per step, peak device
+    bytes, the kernels' launches and step 0's reduced gradients (on the
+    host); with ``multi_pod`` also ``blocks_ok``: every parameter block is
+    the whole draw's block ``_data_major`` names (bytes), every moment has
+    the shape of its block under ``opt_rules_for`` (``_data_major`` too),
+    and ``moment_bytes_want``, the bytes those blocks take.  ``routing``
+    (a pinned ``MoEProbe``, ``_pinned``) is entered around the steps."""
     import repro_torch.train.step as train_step
     from repro_torch.distributed import activate
     from repro_torch.launch.dryrun import rules_for
@@ -4264,20 +4331,38 @@ def _sharded_train(torch, K, cfg, dev, mesh, opt, seed: int, batches: list):
     from repro_torch.models.transformer import model_specs
     from repro_torch.weights import unflatten
 
-    _, storage = rules_for(cfg, False)
+    _, storage = rules_for(cfg, multi_pod)
     full = _draw_full(torch, cfg, dev, seed)
-    with activate(mesh, storage) as ctx:
+    blocks = {}
+    with nullcontext() if mesh is None else activate(mesh, storage) as ctx:
         specs = dict(tree_leaves(model_specs(cfg)))
-        slices = {k: ctx.mesh.local_slices(ctx.spec(s.logical, s.shape),
-                                           s.shape)
+        slices = {k: tuple(slice(0, n) for n in s.shape) if ctx is None
+                  else ctx.mesh.local_slices(ctx.spec(s.logical, s.shape),
+                                             s.shape)
                   for k, s in specs.items()}
         local = unflatten({k: t[slices[k]].clone()
                            for k, t in tree_leaves(full)})
+        if multi_pod:
+            octx = train_step._opt_ctx(ctx)
+            for k, s in specs.items():
+                blocks[k] = (_data_major(ctx, s.logical, s.shape),
+                             _data_major(octx, s.logical, s.shape))
+            blocks_ok = all(torch.equal(t, full_t[blocks[k][0]])
+                            for (k, t), (_, full_t) in zip(
+                                tree_leaves(local), tree_leaves(full)))
         del full
         torch.cuda.empty_cache()
-        state = train_step.init_sharded_train_state(local, cfg, opt)
+        state = (train_step.init_train_state(local, opt) if ctx is None
+                 else train_step.init_sharded_train_state(local, cfg, opt))
+        if multi_pod:
+            mdt = getattr(torch, opt.moment_dtype).itemsize
+            want = {k: tuple(sl.stop - sl.start for sl in blocks[k][1])
+                    for k in specs}
+            blocks_ok = blocks_ok and all(
+                tuple(m.shape) == want[k] for part in ("m", "v")
+                for k, m in tree_leaves(state["opt"][part]))
         step = train_step.make_train_step(cfg, opt)
-        bi, nb = ctx.batch_shard()
+        bi, nb = (0, 1) if ctx is None else ctx.batch_shard()
         real, seen = train_step.adamw_apply, []
 
         def recording(grads, *a, **kw):
@@ -4291,16 +4376,17 @@ def _sharded_train(torch, K, cfg, dev, mesh, opt, seed: int, batches: list):
         reset_counts(K)
         train_step.adamw_apply = recording
         try:
-            for b in batches:
-                n = b["tokens"].shape[0] // nb
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = step(state, {k: v[bi * n:(bi + 1) * n]
-                                        for k, v in b.items()})
-                rec["losses"].append(m["loss"].item())
-                rec["grad_norms"].append(m["grad_norm"].item())
-                torch.cuda.synchronize()
-                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            with nullcontext() if routing is None else routing:
+                for b in batches:
+                    n = b["tokens"].shape[0] // nb
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(state, {k: v[bi * n:(bi + 1) * n]
+                                            for k, v in b.items()})
+                    rec["losses"].append(m["loss"].item())
+                    rec["grad_norms"].append(m["grad_norm"].item())
+                    torch.cuda.synchronize()
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
         finally:
             train_step.adamw_apply = real
         rec["launches"] = counts(K)
@@ -4310,7 +4396,31 @@ def _sharded_train(torch, K, cfg, dev, mesh, opt, seed: int, batches: list):
             for k in ("m", "v") for _, t in tree_leaves(state["opt"][k]))
         rec["grads0"] = seen[0]
         rec["device"] = str(tree_leaves(state["params"])[0][1].device)
+        if multi_pod:
+            rec["blocks_ok"] = blocks_ok
+            rec["moment_bytes_want"] = 2 * mdt * sum(
+                math.prod(n) for n in want.values())
     return state, slices, rec
+
+
+def _data_major(ctx, logical, shape) -> tuple:
+    """The block of a leaf the rank at this coordinate holds under
+    ``ctx``'s rules, by hand: along each dim's entry the first named axis
+    is major (JAX's order; ``("data", "pod")`` under the multi-pod rules
+    is data-major), one ``slice`` per dim."""
+    coord = ctx.mesh.coordinate()
+    spec = ctx.spec(logical, shape)
+    out = []
+    for dim, n in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        idx, parts = 0, 1
+        for a in axes:
+            idx, parts = (idx * ctx.mesh.shape[a] + coord[a],
+                          parts * ctx.mesh.shape[a])
+        out.append(slice(idx * n // parts, (idx + 1) * n // parts))
+    return tuple(out)
 
 
 def _per_step_launches(cfg) -> dict:
@@ -4930,15 +5040,17 @@ def _decode_stub(torch, cfg, B: int, dev):
 
 
 def _decode_run(torch, K, cfg, params, dev, B, s_max, p0, first,
-                forced=None, ctx=None) -> dict:
-    """DECODE_STEPS serve steps from position ``p0`` over a cache whose
+                forced=None, ctx=None, routing=None,
+                steps: int = DECODE_STEPS) -> dict:
+    """``steps`` serve steps from position ``p0`` over a cache whose
     keys below it are random (``_fill_prefix``): greedy from ``first``
-    ``[B, 1]``, or teacher-forced on ``forced`` ``[B, DECODE_STEPS + 1]``;
+    ``[B, 1]``, or teacher-forced on ``forced`` ``[B, steps + 1]``;
     encdec and vlm against the memory ``encode`` makes of the whole
     batch's ``_decode_stub`` (under ``ctx`` too), of which the cache takes
     this rank's rows.  The tokens, every step's logits (f32, on the host),
     ms a step (host clock to a synchronize), the launches and the peak
-    memory."""
+    memory.  ``routing`` (a pinned ``MoEProbe``, ``_pinned``) is entered
+    around the steps."""
     from repro_torch.models.transformer import encode, init_cache
     from repro_torch.serve.step import make_serve_step
 
@@ -4958,15 +5070,16 @@ def _decode_run(torch, K, cfg, params, dev, B, s_max, p0, first,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(K)
-        for i in range(DECODE_STEPS):
-            tok = toks[-1] if forced is None else forced[:, i:i + 1]
-            pos = torch.tensor(p0 + i, dtype=torch.int32, device=dev)
-            t0 = time.perf_counter()
-            nxt, lg, _ = step(params, cache, tok, pos)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            toks.append(nxt)
-            logits.append(lg.cpu())
+        with nullcontext() if routing is None else routing:
+            for i in range(steps):
+                tok = toks[-1] if forced is None else forced[:, i:i + 1]
+                pos = torch.tensor(p0 + i, dtype=torch.int32, device=dev)
+                t0 = time.perf_counter()
+                nxt, lg, _ = step(params, cache, tok, pos)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                toks.append(nxt)
+                logits.append(lg.cpu())
         launches = mesh_counts(K)
     return {"tokens": torch.cat(toks, dim=1).cpu(), "logits": logits,
             "ms": ms, "launches": launches, "cache_bytes": cache_bytes,
@@ -5022,18 +5135,26 @@ def _decode_hold(torch, got: dict, ref: dict, dtype: str) -> dict:
 
 def _dist_config(arch: str):
     """``arch``'s registry config with its depth cut as DIST_LAYERS says
-    where a distributed phase cuts it."""
+    where a distributed phase cuts it; ``ARCH:N:CF`` cuts it to N layers
+    at capacity factor CF."""
     from repro_torch.configs import get_config
 
-    return get_config(arch).replace(**DIST_LAYERS.get(arch, {}))
+    arch, *cut = arch.split(":")
+    cfg = get_config(arch).replace(**DIST_LAYERS.get(arch, {}))
+    if cut:
+        cfg = cfg.replace(n_layers=int(cut[0]),
+                          capacity_factor=float(cut[1]))
+    return cfg
 
 
-def _decode_one_rank(torch, K, dev, runs, out: str) -> dict:
+def _decode_one_rank(torch, K, dev, runs, out: str, pin: bool = False,
+                     steps: int = DECODE_STEPS) -> dict:
     """The one-rank runs (no mesh) of ``runs``, (arch, dtype, tag, B,
     S_max, first position, held), arch by arch from one f32 draw (bf16
     its rounding): greedy from seeded first tokens, and for each bf16 run
     the f32 model forced on its tokens.  What the ranks hold against goes
-    to ``out/ref.pt``; the runs' numbers are returned."""
+    to ``out/ref.pt``, with ``pin`` each run's routing (``_pinned``) for
+    the ranks to take; the runs' numbers are returned."""
     from repro_torch.models.common import tree_map
 
     ref, mine = {}, {}
@@ -5051,19 +5172,22 @@ def _decode_one_rank(torch, K, dev, runs, out: str) -> dict:
                 first = torch.randint(0, c.vocab_size, (B, 1), device=dev,
                                       generator=torch.Generator(device=dev)
                                       .manual_seed(DECODE_SEED))
+                routing = _pinned(torch) if pin else None
                 r = _decode_run(torch, K, c, params, dev, B, s_max, p0,
-                                first)
+                                first, routing=routing, steps=steps)
                 key = f"{arch}/{dtype}/{tag}"
                 ref[key] = {"tokens": r["tokens"], "logits": r["logits"]}
                 if dtype == "bfloat16":
                     toks = r["tokens"].to(dev)
                     f32 = _decode_run(torch, K, cfg.replace(dtype="float32"),
                                       p32, dev, B, s_max, p0, toks[:, :1],
-                                      toks)
+                                      toks, steps=steps)
                     ref[key] = {"tokens": r["tokens"],
                                 "f32_logits": f32["logits"],
                                 "one_rank_err": _rel_err(
                                     torch, r["logits"], f32["logits"])}
+                if pin:
+                    ref[key]["routing"] = [t.cpu() for t in routing.recorded]
                 mine[key] = {
                     "ms_per_step": statistics.median(r["ms"][1:]),
                     "peak_gb": r["peak_gb"], "launches": r["launches"],
@@ -5096,23 +5220,27 @@ class _DroppedBlock:
 
 
 def _decode_ranks(torch, K, dev, runs, shape, out: str,
-                  faults: tuple = ()) -> dict:
-    """This rank's runs of ``runs`` on a ``shape`` (data, model) mesh under
-    ``launch.dryrun.serve_rules``, each held against the one-rank runs in
-    ``ref.pt`` (``_decode_hold``); bf16 runs are forced on the one-rank
-    bf16 run's tokens.  ``faults``: (run key, dropped blocks) -- that run
-    again with each block left out of the merge (``_DroppedBlock``), its
-    distance from f32 recorded beside the sound run's."""
+                  faults: tuple = (), mesh=None, multi_pod: bool = False,
+                  steps: int = DECODE_STEPS) -> dict:
+    """This rank's runs of ``runs`` on a ``shape`` (data, model) mesh (or
+    ``mesh``) under ``launch.dryrun.serve_rules`` (``multi_pod``: the
+    multi-pod rules), each held against the one-rank runs in ``ref.pt``
+    (``_decode_hold``); bf16 runs are forced on the one-rank bf16 run's
+    tokens.  ``faults``: (run key, dropped blocks) -- that run again with
+    each block left out of the merge (``_DroppedBlock``), its distance
+    from f32 recorded beside the sound run's."""
     from repro_torch.distributed import activate
     from repro_torch.launch.dryrun import serve_rules
     from repro_torch.launch.mesh import make_local_mesh
 
-    mesh = make_local_mesh(*shape, device=dev)
+    if mesh is None:
+        mesh = make_local_mesh(*shape, device=dev)
     ref = torch.load(os.path.join(out, "ref.pt"), mmap=True)
     res, params, drawn = {}, None, None
     for arch, dtype, tag, B, s_max, p0, held in runs:
         cfg = _dist_config(arch).replace(dtype=dtype)
-        with activate(mesh, serve_rules(cfg, mesh, B)) as ctx:
+        with activate(mesh, serve_rules(cfg, mesh, B,
+                                        multi_pod=multi_pod)) as ctx:
             if drawn != (arch, dtype):
                 params = None
                 torch.cuda.empty_cache()
@@ -5120,9 +5248,11 @@ def _decode_ranks(torch, K, dev, runs, shape, out: str,
                 drawn = (arch, dtype)
             r = ref[f"{arch}/{dtype}/{tag}"]
             toks = r["tokens"].to(dev)
+            routing = (_pinned(torch, r["routing"]) if "routing" in r
+                       else None)
             got = _decode_run(torch, K, cfg, params, dev, B, s_max, p0,
                               toks[:, :1], None if dtype == "float32"
-                              else toks, ctx)
+                              else toks, ctx, routing, steps)
             blk = ctx.kv_block((B, s_max, cfg.n_kv_heads, cfg.hd))
             faulted = {}
             for drop in dict(faults).get(f"{arch}/{dtype}/{tag}", ()):
@@ -5133,6 +5263,8 @@ def _decode_ranks(torch, K, dev, runs, shape, out: str,
                                          r["f32_logits"])
         rec = _decode_hold(torch, got, r, dtype)
         rec["faulted"] = faulted
+        if routing is not None:
+            rec["routing_flips"] = routing.n_flips()
         rec.update(held=held, block=[(sl.start, sl.stop) for sl in
                                      (blk.rows, blk.keys, blk.heads)],
                    seq_axes=blk.seq_axes, batch_axes=blk.batch_axes,
@@ -5173,12 +5305,11 @@ def _per_step(arch: str, B: int, s_max: int, shape) -> dict:
     """Each kernel's launches a decode step of a rank: the attention
     through the partials mode where the cache splits by sequence, the
     whole-cache kernel elsewhere; four norms a layer and the final one."""
-    from repro_torch.configs import get_config
     from repro_torch.distributed import Mesh
     from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
     from repro_torch.launch.dryrun import serve_rules
 
-    cfg = get_config(arch)
+    cfg = _dist_config(arch)
     mesh = Mesh(shape, ("data", "model"))
     ctx = ShardingCtx(mesh, serve_rules(cfg, mesh, B))
     lay = ctx.layout(KV_CACHE_LOGICAL, (B, s_max, cfg.n_kv_heads, cfg.hd))
@@ -5316,10 +5447,15 @@ def serve_graph_mesh_phase(torch, K, dev, mesh) -> dict:
 #: one hybrid group of six Mamba2 blocks and the shared attention block,
 #: plus one tail Mamba2 block, 81 -> 7; xlstm-125m 12 -> 4, two (mLSTM,
 #: sLSTM) groups, for the time limit; whisper-large-v3
-#: 32 + 32 -> 4 + 4 layers; llama-3.2-vision-11b 40 -> 5, one group of 4
-#: self-attention layers and its gated cross-attention layer)
+#: 32 + 32 -> 2 + 2 layers (4 + 4 until the multi-pod phase joined the
+#: script); llama-3.2-vision-11b 40 -> 5, one group of 4 self-attention
+#: layers and its gated cross-attention layer; since the multi-pod phase
+#: joined, dist_decode_gemma3's gemma3-1b 26 -> 13 layers (two of its
+#: five-local, one-global groups and one local layer) and
+#: dist_decode_olmoe's olmoe-1b-7b 16 -> 8)
 DIST_LAYERS = {"zamba2-7b": {"n_layers": 7}, "xlstm-125m": {"n_layers": 4},
-               "whisper-large-v3": {"n_layers": 4, "n_encoder_layers": 4},
+               "gemma3-1b": {"n_layers": 13}, "olmoe-1b-7b": {"n_layers": 8},
+               "whisper-large-v3": {"n_layers": 2, "n_encoder_layers": 2},
                "llama-3.2-vision-11b": {"n_layers": 5}}
 #: per arch: (bf16 train shape, the f32 hold's config changes, its shape)
 #: -- zamba2 B 1 x S 2048; xlstm B 2 x S 64 (its time loop is bound by
@@ -5616,12 +5752,15 @@ def _hold_tp_ranks(torch, phase: str, arch: str, ranks: list, one: dict,
 
 def _hold_decode_ranks(torch, phase: str, arch: str, ranks: list,
                        runs: list, one_dec: dict, meshes: tuple,
-                       seconds: float, failed: list, launches) -> dict:
+                       seconds: float, failed: list, launches,
+                       axes: tuple = ("data", "model"),
+                       multi_pod: bool = False,
+                       steps: int = DECODE_STEPS) -> dict:
     """Every rank's decode runs of ``arch`` on each of ``meshes`` (the
-    ranks' results keyed by mesh shape) as ``_decode_ranks`` held them,
-    their launches against ``launches(cfg, False, cache split by
-    sequence)`` a step; the phase's line is emitted, each failure appended
-    to ``failed``.  Returns the launches."""
+    ranks' results keyed by mesh shape, of ``axes``) as ``_decode_ranks``
+    held them, their launches against ``launches(cfg, False, cache split
+    by sequence)`` a step; the phase's line is emitted, each failure
+    appended to ``failed``.  Returns the launches."""
     from repro_torch.distributed import Mesh
     from repro_torch.distributed.context import KV_CACHE_LOGICAL, ShardingCtx
     from repro_torch.launch.dryrun import serve_rules
@@ -5629,13 +5768,13 @@ def _hold_decode_ranks(torch, phase: str, arch: str, ranks: list,
     cfg = _dist_config(arch)
     report, recs = {}, []
     for shape in meshes:
-        m = Mesh(shape, ("data", "model"))
+        m = Mesh(shape, axes)
         for a, dtype, tag, B, s_max, p0, held in runs:
             if a != arch:
                 continue
-            lay = ShardingCtx(m, serve_rules(cfg, m, B)).layout(
+            lay = ShardingCtx(m, serve_rules(cfg, m, B, multi_pod)).layout(
                 KV_CACHE_LOGICAL, (B, s_max, cfg.n_kv_heads, cfg.hd))
-            want = {k: DECODE_STEPS * n for k, n in launches(
+            want = {k: steps * n for k, n in launches(
                 cfg, False, bool(lay[1])).items()}
             key = f"{arch}/{dtype}/{tag}"
             whole = one_dec[key]["cache_bytes"]
@@ -5664,15 +5803,16 @@ def _hold_decode_ranks(torch, phase: str, arch: str, ranks: list,
                 rows.append({k: rec[k] for k in (
                     "ok", "tokens_equal", "max_rel_err", "one_rank_err",
                     "least_cosine", "argmax_agree", "ms_per_step",
-                    "peak_gb", "cache_bytes", "batch_axes")})
+                    "peak_gb", "cache_bytes", "batch_axes",
+                    "routing_flips") if k in rec})
                 recs.append(rec)
-            report[f"{shape[0]}x{shape[1]}/{dtype}"] = {
+            report[f"{'x'.join(map(str, shape))}/{dtype}"] = {
                 "batch": B, "s_max": s_max, "positions": [
-                    p0, p0 + DECODE_STEPS - 1], "ranks": rows,
+                    p0, p0 + steps - 1], "ranks": rows,
                 "launches_a_rank": recs[-1]["launches"],
                 "whole_cache_bytes": one_dec[key]["cache_bytes"],
                 "one_rank": one_dec[key]}
-    emit(phase, arch=arch, n_layers=cfg.n_layers, steps=DECODE_STEPS,
+    emit(phase, arch=arch, n_layers=cfg.n_layers, steps=steps,
          meshes=[list(m) for m in meshes], backend=f"gloo (through the "
          f"host, {len(ranks)} ranks on one card, not NVLink)",
          f32_tol=DECODE_F32_TOL, bf16_factor=DECODE_BF16_FACTOR,
@@ -5773,7 +5913,7 @@ def cross2_rank(torch, K, dev, rank: int, out: str) -> dict:
 
 
 def dist_cross_phase(torch, K, dev, mesh) -> dict:
-    """``dist_tp_whisper``: whisper-large-v3 at full width (4 + 4 of its 32
+    """``dist_tp_whisper``: whisper-large-v3 at full width (2 + 2 of its 32
     + 32 layers), four gloo ranks on a (2, 2) mesh under its rules_for
     storage (FSDP: every d dim over data, ``frontend_proj`` and the
     encoder's final norm too; 10 of 20 heads, 2,560 of 5,120 MLP columns,
@@ -5829,13 +5969,394 @@ def _cross_tag(arch: str) -> str:
             "llama-3.2-vision-11b": "llama_vision"}[arch]
 
 
+# ---------------------------- the multi-pod production layout (2c, 2b)
+
+#: the multi-pod mesh's axes, ``make_production_mesh(multi_pod=True)``'s;
+#: the ranks build small meshes of them with the same code
+#: (``launch.mesh._mesh``)
+POD_AXES = ("pod", "data", "model")
+#: dist_multipod runs: tag -> (mesh shape, arch, config changes, bf16
+#: train shape, f32 train shape or None).  olmoe-1b-7b at full width, 16
+#: -> MULTIPOD_OLMOE_LAYERS layers, on (2, 2, 1) (its experts stored over
+#: ("data", "pod"), the a2a path at M 1) and on (2, 1, 2) at S 2047 (M
+#: does not divide S: the one-hot path across ranks under grad);
+#: whisper-large-v3 at full width, 32 + 32 -> 2 + 2 layers, on (2, 2, 1)
+#: (embed, attn_in and attn_out_d over ("data", "pod")), B 4 (the batch
+#: splits over pod x data = 4 ranks) x 448 tokens over 1500 frames.  One
+#: olmoe layer, not two: each gloo rank gathers a layer's 805 MB of
+#: experts through the host three times a step (a one-layer step took 6.6
+#: s a rank, PERF.md), and the time limit holds one
+MULTIPOD_OLMOE_LAYERS = 1
+MULTIPOD_TP = {
+    "olmoe_221": ((2, 2, 1), "olmoe-1b-7b", {
+        "n_layers": MULTIPOD_OLMOE_LAYERS, "capacity_factor": 3.0},
+        (4, 2048), (4, 512)),
+    "whisper_221": ((2, 2, 1), "whisper-large-v3",
+                    {"n_layers": 2, "n_encoder_layers": 2},
+                    (4, WHISPER_TOKENS), None),
+    "olmoe_212": ((2, 1, 2), "olmoe-1b-7b", {
+        "n_layers": MULTIPOD_OLMOE_LAYERS}, (2, 2047), (2, 511)),
+}
+#: olmoe's capacity factor on (2, 2, 1), 1.25 -> 3 in training and 8 in
+#: decode: there the ranks' a2a shards bucket their own tokens' pairs,
+#: the one rank all of them (its a2a at M 1; in decode its one-hot path
+#: over B 4 tokens, ceil(32 / 64 x cf) rows an expert), so at 1.25 they
+#: drop different pairs and compute different functions, as the
+#: reference's layouts do.  At these factors neither can drop one: at M
+#: 1 an expert holds T k cf^2 / E rows of T tokens' pairs, at most T of
+#: which can choose it, and cf^2 >= E / k = 8 (at 2 the f32 run missed
+#: by 0.89 of its largest gradient: PERF.md); decode's one rank holds 4
+#: rows an expert for 4 tokens.  On (2, 1, 2) the ranks' one-hot path
+#: and the one rank's (MULTIPOD_ONE_HOT) bucket the same global tokens
+#: alike, at the config's 1.25
+MULTIPOD_DECODE_CF = 8.0
+#: the runs whose one-rank reference takes the one-hot path (no mesh,
+#: whole moments), as their ranks do
+MULTIPOD_ONE_HOT = ("olmoe_212",)
+#: the run whose ZeRO-1 state is saved sharded and restored
+MULTIPOD_SAVE = ("olmoe_221", "bf16")
+#: decode on (2, 2, 1) under serve_rules(multi_pod=True): olmoe-1b-7b
+#: with MULTIPOD_OLMOE_LAYERS layers, B 4 (one row a rank), from position
+#: 1000 of 2048 keys, MULTIPOD_DECODE_STEPS steps (each gathers every
+#: expert through the host: 1.73 s a step at f32, PERF.md), f32 and bf16
+MULTIPOD_DECODE_STEPS = 4
+MULTIPOD_SEED = 283
+
+
+def _multipod_cfgs(tag: str):
+    """(dtype tag, config, global shape, seed, batches: one a step) of a
+    MULTIPOD_TP run: bf16 TP_STEPS steps, f32 one (its hold reads step
+    0's gradients; an f32 step gathers 1.6 GB of experts a rank)."""
+    from repro_torch.configs import get_config
+
+    _, arch, changes, shape, shape32 = MULTIPOD_TP[tag]
+    cfg = get_config(arch).replace(**changes)
+    out = [("bf16", cfg, shape, MULTIPOD_SEED, TP_STEPS)]
+    if shape32 is not None:
+        out.append(("f32", cfg.replace(dtype="float32"), shape32,
+                    MULTIPOD_SEED + 2, 1))
+    return out
+
+
+def _decode_runs_multipod():
+    arch = f"olmoe-1b-7b:{MULTIPOD_OLMOE_LAYERS}:{MULTIPOD_DECODE_CF}"
+    return [(arch, dt, "b4", 4, 2048, 1000, True)
+            for dt in ("float32", "bfloat16")]
+
+
+def _multipod_launches(cfg, train: bool, seq_split: bool = False) -> dict:
+    """Each kernel's launches a step of a MULTIPOD run: whisper's as
+    ``_cross_launches``; olmoe's a train step with remat="full" each
+    layer's flash and four norms forward and in the recompute, the final
+    norm once; a decode step each layer's attention and four norms."""
+    if cfg.family == "encdec":
+        return _cross_launches(cfg, train, seq_split)
+    L, twice = cfg.n_layers, 2 if train and cfg.remat == "full" else 1
+    out = dict.fromkeys(KERNELS + MESH_KERNELS, 0)
+    out["flash_attention" if train else "decode_attention"] = twice * L
+    out["rmsnorm"] = twice * 4 * L + 1
+    return out
+
+
+def _multipod_save(torch, cfg, dev, mesh, state, slices, out: str,
+                   rank: int) -> dict:
+    """The sharded save of a MULTIPOD state with ``shardings=`` under
+    ``out/ckpt`` and ``restore_checkpoint(shardings=)`` of it onto the
+    same mesh, two ranks at a time (bit-exact local blocks); this rank's
+    blocks, with their slices, go to ``out`` for the main process to
+    assemble."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models.common import local_tree, tree_leaves
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.train.step import train_state_shardings
+
+    specs = dict(tree_leaves(model_specs(cfg)))
+    rec = {}
+    with activate(mesh, rules_for(cfg, True)[1]):
+        shardings = train_state_shardings(cfg, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(out, "ckpt"), TP_STEPS, state,
+                        shardings=shardings)
+        rec["save_s"] = time.perf_counter() - t0
+        # two ranks at a time: a local restore lands the whole blob in a
+        # page-locked host buffer (6.26 GB, cached by torch's host
+        # allocator after), four at once did not fit the host's 96 GiB
+        for turn in range(0, dist.get_world_size(), 2):
+            if turn <= rank < turn + 2:
+                t0 = time.perf_counter()
+                back, step = restore_checkpoint(
+                    os.path.join(out, "ckpt"), state, device=dev,
+                    shardings=shardings)
+                torch.cuda.synchronize()
+                rec["restore_s"] = time.perf_counter() - t0
+                got = dict(tree_leaves(local_tree(back)))
+                rec["restored_step"] = step
+                rec["restore_bad"] = [k for k, t in tree_leaves(state)
+                                      if not torch.equal(got[k], t)]
+                del back, got
+                gc.collect()
+            dist.barrier()
+        flat_sh = dict(tree_leaves(shardings))
+        blocks = {}
+        for k, t in tree_leaves(state):
+            pl = flat_sh.get(k)
+            leaf = k.split("/", 2)[-1] if k.startswith("opt/") else \
+                k[len("params/"):]
+            sl = (None if pl is None else slices[leaf]
+                  if k.startswith("params/") else pl.mesh.local_slices(
+                      pl.spec, specs[leaf].shape))
+            blocks[k] = (sl, t.detach().cpu())
+        torch.save(blocks, os.path.join(out, f"save_r{rank}.pt"))
+    return rec
+
+
+def multipod_rank(torch, K, dev, rank: int, out: str) -> dict:
+    """``--gloo-program multipod``: one of four ranks of dist_multipod.
+    It builds the (2, 2, 1) and (2, 1, 2) (pod, data, model) meshes and
+    runs every MULTIPOD_TP run on its mesh under the multi-pod rules with
+    ZeRO-1 moments (the save of MULTIPOD_SAVE's state among them), the
+    MoE runs routed as the one-rank runs were (``routing.pt``), each held
+    here against its one-rank run (``ref_TAG_DT.pt``, read mapped:
+    ``_hold_tp``), then decode on (2, 2, 1) against this process's
+    one-rank runs in ``out``."""
+    from repro_torch.launch.mesh import _mesh
+
+    meshes = {shape: _mesh(shape, POD_AXES, dev)
+              for shape in dict.fromkeys(v[0] for v in MULTIPOD_TP.values())}
+    tables = torch.load(os.path.join(out, "routing.pt"))
+    res = {}
+    for tag, (shape, *_) in MULTIPOD_TP.items():
+        res[tag] = {}
+        for dt, c, tshape, seed, steps in _multipod_cfgs(tag):
+            routing = (_pinned(torch, tables[f"{tag}/{dt}"])
+                       if c.family == "moe" else None)
+            state, slices, rec = _sharded_train(
+                torch, K, c, dev, meshes[shape], _tp_opt(steps), seed,
+                _tp_batches(torch, c, dev, tshape, seed + 1)[:steps],
+                multi_pod=True, routing=routing)
+            if routing is not None:
+                rec["routing_flips"] = routing.n_flips()
+            if (tag, dt) == MULTIPOD_SAVE:
+                rec["save"] = _multipod_save(torch, c, dev, meshes[shape],
+                                             state, slices, out, rank)
+            del state
+            torch.cuda.empty_cache()
+            rec["slices"] = slices
+            one = torch.load(os.path.join(out, f"ref_{tag}_{dt}.pt"),
+                             mmap=True)
+            rec["held"] = _hold_tp(torch, dt, rec, one, one.get("g32"))
+            del one, rec["grads0"], rec["slices"]
+            res[tag][dt] = rec
+            emit("dist_multipod_rank", rank=rank, run=f"{tag} {dt}",
+                 ok=rec["held"][0], ms_per_step=rec["ms"],
+                 peak_gb=rec["peak_gb"])
+    t0 = time.perf_counter()
+    res["decode"] = _decode_ranks(torch, K, dev, _decode_runs_multipod(),
+                                  (2, 2, 1), out, mesh=meshes[(2, 2, 1)],
+                                  multi_pod=True,
+                                  steps=MULTIPOD_DECODE_STEPS)
+    res["decode_s"] = time.perf_counter() - t0
+    return res
+
+
+def _multipod_one_rank(torch, K, dev, mesh, out: str) -> dict:
+    """Every MULTIPOD_TP run on the 1-rank NCCL mesh.  What a rank holds
+    its run against goes to ``out/ref_TAG_DT.pt`` (losses, clip norms,
+    step 0's gradients; the f32 gradients of a bf16 run's weights, an
+    f32 run's floor, as ``_one_rank_tp`` makes them), and the MoE runs'
+    routing (``_pinned``) to ``out/routing.pt``, so that this
+    process holds no gradients while the ranks run.  Returns each run's
+    numbers."""
+    one, tables = {}, {}
+    for tag in MULTIPOD_TP:
+        one[tag] = {}
+        for dt, c, shape, seed, steps in _multipod_cfgs(tag):
+            batches = _tp_batches(torch, c, dev, shape, seed + 1)[:steps]
+            routing = _pinned(torch) if c.family == "moe" else None
+            state, slices, rec = _sharded_train(
+                torch, K, c, dev, None if tag in MULTIPOD_ONE_HOT else mesh,
+                _tp_opt(steps), seed, batches, routing=routing)
+            del state
+            torch.cuda.empty_cache()
+            if routing is not None:
+                tables[f"{tag}/{dt}"] = [t.cpu() for t in routing.recorded]
+            ref = {k: rec[k] for k in ("losses", "grad_norms", "grads0")}
+            if dt == "bf16":
+                ref["g32"] = _grads0(torch, c, dev, seed, batches[0])
+            else:
+                moved = _grads0(torch, c, dev, seed, batches[0], move=1e-7)
+                ref["floor"] = max(((k, _dist_from(torch, g, rec["grads0"][
+                    k])) for k, g in moved.items()), key=lambda kv: kv[1])
+                del moved
+            torch.save(ref, os.path.join(out, f"ref_{tag}_{dt}.pt"))
+            del ref, rec["grads0"]
+            one[tag][dt] = rec
+            emit("dist_multipod_one_rank", run=f"{tag} {dt}",
+                 losses=rec["losses"], ms_per_step=rec["ms"],
+                 peak_gb=rec["peak_gb"])
+    torch.save(tables, os.path.join(out, "routing.pt"))
+    return one
+
+
+def _multipod_assemble(torch, cfg, out: str, ranks: int) -> dict:
+    """The whole state (flat keys) of ``cfg`` from every rank's
+    ``save_rR.pt`` blocks: each block copied into its slices of the
+    leaf, the leaves without slices (the steps) taken as they are."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import model_specs
+
+    specs = dict(tree_leaves(model_specs(cfg)))
+    flat = {}
+    for r in range(ranks):
+        blocks = torch.load(os.path.join(out, f"save_r{r}.pt"), mmap=True,
+                            weights_only=False)
+        for k, (sl, t) in blocks.items():
+            if sl is None:
+                flat[k] = t.clone()
+                continue
+            leaf = k.split("/", 2)[-1] if k.startswith("opt/") else \
+                k[len("params/"):]
+            flat.setdefault(k, torch.empty(specs[leaf].shape,
+                                           dtype=t.dtype))
+            flat[k][sl] = t
+        del blocks
+    return flat
+
+
+def dist_multipod_phase(torch, K, dev, mesh) -> dict:
+    """``dist_multipod_*``: the reference's multi-pod production layout
+    (``rules_for(cfg, multi_pod=True)``, ``opt_rules_for(..., True)``) on
+    four gloo ranks of one card, one spawn, two (pod, data, model) meshes.
+    On (2, 2, 1): olmoe-1b-7b at full width with 1 layer, B 4 x S 2048
+    bf16 and B 4 x S 512 f32, experts stored data-major over ("data",
+    "pod") and gathered by the a2a path at M 1; whisper-large-v3 at full
+    width with 2 + 2 layers, B 4 x 448 tokens over 1500 frames bf16, its
+    d dims over ("data", "pod"); ZeRO-1 moments throughout.  The olmoe
+    bf16 state is saved sharded, byte-identical to the whole state's save
+    here, and restored with ``shardings=`` bit-exact on the ranks; olmoe
+    decode (B 4) under
+    ``serve_rules(multi_pod=True)``, f32 and bf16.  On (2, 1, 2): olmoe
+    at B 2 x S 2047 bf16 and 2 x 511 f32, where M does not divide S, so
+    the MoE block trains through the one-hot path across ranks.  Every
+    run is held against this process's run of the same weights and
+    batches on the 1-rank NCCL (1, 1) mesh as ``dist_tp_zamba2`` is
+    (decode as ``dist_decode_phase``), the MoE runs routed as the one
+    rank routed (``MoEProbe``'s replay: flips counted), and each rank's
+    parameter and moment blocks are the data-major blocks of the spec
+    (bytes, shapes).  Returns the launches by path."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.weights import unflatten
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_multipod_")
+    failed = []
+    t_phase = time.perf_counter()
+    try:
+        one = _multipod_one_rank(torch, K, dev, mesh, out)
+        runs = _decode_runs_multipod()
+        one_dec = _decode_one_rank(torch, K, dev, runs, out, pin=True,
+                                   steps=MULTIPOD_DECODE_STEPS)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(torch, "multipod", 4, out)
+        seconds = time.perf_counter() - t0
+        flat = _multipod_assemble(torch, _multipod_cfgs(MULTIPOD_SAVE[0])[
+            0 if MULTIPOD_SAVE[1] == "bf16" else 1][1], out, len(ranks))
+        t0 = time.perf_counter()
+        whole = save_checkpoint(os.path.join(out, "whole"), TP_STEPS,
+                                unflatten(flat))
+        whole_s = time.perf_counter() - t0
+        del flat
+        sharded = os.path.join(out, "ckpt", f"step_{TP_STEPS:010d}")
+        same = {f: _same_file(os.path.join(whole, f),
+                              os.path.join(sharded, f))
+                for f in ("data.bin", "manifest.json")}
+        nbytes = os.path.getsize(os.path.join(sharded, "data.bin"))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    by_path = {}
+    for tag, (shape, arch, *_) in MULTIPOD_TP.items():
+        phase = f"dist_multipod_{tag}"
+        report, recs = {}, []
+        for dt, c, tshape, _, steps in _multipod_cfgs(tag):
+            want = {k: steps * n for k, n in _multipod_launches(
+                c, True).items() if k in KERNELS}
+            for r, res in enumerate(ranks):
+                rec = res[tag][dt]
+                ok, numbers = rec["held"]
+                bad = [name for name, n in want.items()
+                       if rec["launches"][name] != n]
+                if not rec["blocks_ok"] or rec["moment_bytes"] != \
+                        rec["moment_bytes_want"]:
+                    bad.append("blocks")
+                if not (ok and not bad and rec["device"].startswith(
+                        "cuda")):
+                    failed.append(f"{phase} {dt}: rank {r} on "
+                                  f"{rec['device']}, {bad} off "
+                                  f"({rec['launches']} vs {want}): "
+                                  f"{numbers}")
+                report.setdefault(dt, []).append({
+                    "ok": ok, "losses": rec["losses"],
+                    "ms_per_step": rec["ms"], "peak_gb": rec["peak_gb"],
+                    "moment_gb": rec["moment_bytes"] / 1e9,
+                    "blocks_data_major": rec["blocks_ok"],
+                    "routing_flips": rec.get("routing_flips"),
+                    "launches": rec["launches"], **numbers,
+                    **({"save": rec["save"]} if "save" in rec else {})})
+                recs.append(rec)
+            mine = one[tag][dt]
+            report[f"{dt}_one_rank"] = {
+                "losses": mine["losses"], "ms_per_step": mine["ms"],
+                "peak_gb": mine["peak_gb"],
+                "moment_gb": mine["moment_bytes"] / 1e9,
+                "n_layers": c.n_layers, "batch": tshape[0],
+                "seq": tshape[1], "steps": steps}
+        emit(phase, arch=arch, mesh=list(shape), axes=list(POD_AXES),
+             rules="rules_for(multi_pod=True), opt_rules_for(True)",
+             steps=TP_STEPS, backend="gloo (through the host, 4 ranks on "
+             "one card, not NVLink)", one_rank_backend="nccl (1, 1)",
+             loss_rtol=TP_LOSS_RTOL, f32_tol=TP_F32_TOL,
+             bf16_factor=TP_BF16_FACTOR, spawn_s=seconds, **report)
+        by_path[phase] = _sum_launches(recs)
+    tag, dt = MULTIPOD_SAVE
+    saves = [res[tag][dt]["save"] for res in ranks]
+    for r, sv in enumerate(saves):
+        if sv["restored_step"] != TP_STEPS or sv["restore_bad"]:
+            failed.append(f"dist_multipod_save: rank {r} restored step "
+                          f"{sv['restored_step']}, not bit-exact: "
+                          f"{sv['restore_bad'][:5]}")
+    if not all(same.values()):
+        failed.append(f"dist_multipod_save: the sharded save differs from "
+                      f"the whole save: {same}")
+    emit("dist_multipod_save", run=f"{tag} {dt}", byte_identical=same,
+         sharded_save_bytes=nbytes, whole_save_s=whole_s,
+         ranks=[{k: sv[k] for k in ("save_s", "restore_s")}
+                for sv in saves])
+    by_path["dist_multipod_decode"] = _hold_decode_ranks(
+        torch, "dist_multipod_decode", runs[0][0], [
+            {(2, 2, 1): res["decode"]} for res in ranks], runs, one_dec,
+        ((2, 2, 1),), seconds, failed, _multipod_launches,
+        axes=POD_AXES, multi_pod=True, steps=MULTIPOD_DECODE_STEPS)
+    emit("dist_multipod", seconds=time.perf_counter() - t_phase,
+         spawn_s=seconds, decode_s=[res["decode_s"] for res in ranks])
+    check(not failed, "; ".join(failed))
+    return by_path
+
+
 #: --gloo-program -> (world size, the rank's function)
 GLOO_PROGRAMS = {"moe": (2, moe_rank), "tp": (2, tp_rank),
                  "zero1": (4, zero1_rank),
                  "decode_qwen3": (4, decode_qwen3_rank),
                  "decode_pair": (2, decode_pair_rank),
                  "recurrent": (2, recurrent_rank),
-                 "cross4": (4, cross4_rank), "cross2": (2, cross2_rank)}
+                 "cross4": (4, cross4_rank), "cross2": (2, cross2_rank),
+                 "multipod": (4, multipod_rank)}
 
 
 def distributed_phase(torch, K, dev) -> dict:
@@ -5854,6 +6375,7 @@ def distributed_phase(torch, K, dev) -> dict:
         by_path.update(dist_decode_phase(torch, K, dev, mesh))
         by_path.update(dist_recurrent_phase(torch, K, dev, mesh))
         by_path.update(dist_cross_phase(torch, K, dev, mesh))
+        by_path.update(dist_multipod_phase(torch, K, dev, mesh))
     return by_path
 
 

@@ -408,7 +408,7 @@ class _StreamingRestore:
             return local
         from torch.distributed.tensor import DTensor
 
-        return DTensor.from_local(local, pl.mesh.device_mesh, tuple(pl),
+        return DTensor.from_local(local, pl.device_mesh, tuple(pl),
                                   run_check=False)
 
     def synchronize(self) -> None:

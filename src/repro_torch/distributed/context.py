@@ -31,10 +31,19 @@ collectives run) or a shape-only :class:`Mesh` (axis names and sizes, the
 counterpart of JAX's ``AbstractMesh``: enough to plan specs and restore
 spans without ranks).  ``sharding`` turns a spec into DTensor placements,
 one per mesh dim; ``Mesh.local_slices`` cuts one rank's block from the
-spec itself.  The two differ where a tuple entry names its axes out of
-mesh order (``("data", "pod")`` on a ``(pod, data, model)`` mesh): JAX
-takes the first axis named as major, a DTensor the earlier mesh dim, so
-``sharding`` raises there while the slices follow JAX.
+spec itself.  A tuple entry may name its axes out of mesh order
+(``("data", "pod")`` on a ``(pod, data, model)`` mesh, the multi-pod
+rules' data axes): JAX takes the first axis named as major, and so do
+the slices, the process groups (:meth:`Mesh.group`, whose members are
+ordered as the axes are named) and the collectives over them.  A DTensor
+takes the earlier dim of its ``DeviceMesh`` as major, so ``sharding``
+then gives the placements over a ``DeviceMesh`` of the same ranks with
+its dims permuted until every entry's axes come in the order it names
+them (``Placements.device_mesh``; built from the mesh's own per-dim
+groups, so it runs no collective).  A permuted mesh was chosen over
+strided shard placements because ``Shard`` on a permuted mesh is public
+API whose local block is the slices' by construction, while a strided
+placement is private to DTensor and changes between releases.
 
 Unlike the reference's, the active context is process-wide, not
 thread-local: under ``remat`` the backward's recompute runs model code on
@@ -47,7 +56,6 @@ Hillclimbing edits the *rules*, never the models.
 from __future__ import annotations
 
 import math
-import weakref
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
@@ -131,20 +139,34 @@ class PartitionSpec(tuple):
 
 
 class Placements(tuple):
-    """A leaf's DTensor placements, one per mesh dim, with the mesh and
-    the spec they came from (``mesh.local_slices(spec, shape)`` is this
-    rank's block)."""
+    """A leaf's DTensor placements, one per dim of ``device_mesh``, with
+    the mesh and the spec they came from (``mesh.local_slices(spec,
+    shape)`` is this rank's block).  ``axes`` names the axis of each
+    placement: the mesh's axis order, or a permutation of it where the
+    spec names a tuple's axes out of mesh order."""
 
-    def __new__(cls, placements, mesh: "Mesh", spec: PartitionSpec):
+    def __new__(cls, placements, mesh: "Mesh", spec: PartitionSpec,
+                axes: Optional[tuple] = None):
         obj = super().__new__(cls, placements)
         obj.mesh = mesh
         obj.spec = spec
+        obj.axes = mesh.axis_names if axes is None else tuple(axes)
         return obj
 
+    @property
+    def device_mesh(self):
+        """The ``DeviceMesh`` the placements refer to (``None`` on a
+        shape-only mesh)."""
+        return self.mesh.permuted(self.axes)
 
-#: DeviceMesh -> {axes: process group}: groups over several axes are built
-#: once per mesh (``new_group`` is collective and not free)
-_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+def _cache(dm) -> dict:
+    """``dm``'s own cache of the groups over several of its axes and its
+    permuted meshes (``new_group`` is collective and not free).  Kept on
+    the object: a ``DeviceMesh`` compares equal to another of the same
+    layout, and one made under a later process group must not find the
+    groups of an earlier, destroyed one."""
+    return dm.__dict__.setdefault("_repro_torch_groups", {})
 
 
 class Mesh:
@@ -193,20 +215,35 @@ class Mesh:
             raise RuntimeError("this rank is not in the mesh")
         return dict(zip(self.axis_names, coord))
 
+    def in_order(self, axes: Sequence[str]) -> tuple:
+        """``axes`` (those the mesh has) in the mesh's order: the group to
+        ask for where the order does not matter (an all-reduce), so that
+        every caller shares one group."""
+        return tuple(a for a in self.axis_names if a in axes)
+
     def group(self, axes: Sequence[str]):
-        """The process group spanning ``axes`` (in mesh order; group rank
-        = position along them, the earlier mesh axis major), ``None`` for
-        no axes.  Collective for several axes: every rank of the mesh asks
-        for the same axes at the same point."""
+        """The process group spanning ``axes`` (those the mesh has), its
+        members in the order the axes are named, the first named major:
+        position along them, as JAX orders the devices of ``P(axes)``.
+        ``None`` for no axes.  Collective for several axes: every rank of
+        the mesh asks for the same axes at the same point.
+
+        ``torch.distributed`` ranks a group's members by global rank, the
+        mesh's order; where ``axes`` are named otherwise the group is a
+        separate one, and ``collectives.set_member_order`` records its
+        order for the collectives (:func:`collectives.group_rank` is this
+        rank's position)."""
         dm = self._ranks()
-        axes = tuple(a for a in self.axis_names if a in axes)
+        axes = tuple(a for a in axes if a in self.axis_names)
         if not axes:
             return None
         if len(axes) == 1:
             return dm.get_group(axes[0])
-        cache = _GROUPS.setdefault(dm, {})
+        cache = _cache(dm)
         if axes not in cache:
             import torch.distributed as dist
+
+            from repro_torch.distributed.collectives import set_member_order
 
             dims = [self.axis_names.index(a) for a in axes]
             rest = [i for i in range(len(self.axis_names)) if i not in dims]
@@ -217,15 +254,36 @@ class Mesh:
                 g = dist.new_group(row)
                 if me in row:
                     cache[axes] = g
+                    set_member_order(g, row)
         return cache[axes]
+
+    def permuted(self, axes: Sequence[str]):
+        """The ``DeviceMesh`` of these ranks with its dims in the order of
+        ``axes`` (a permutation of the mesh's), built from the mesh's own
+        per-dim groups (no collective); the mesh's own where ``axes`` are
+        in its order, ``None`` on a shape-only mesh."""
+        dm = self.device_mesh
+        axes = tuple(axes)
+        if dm is None or axes == self.axis_names:
+            return dm
+        cache = _cache(dm)
+        key = ("permuted", axes)
+        if key not in cache:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            dims = [self.axis_names.index(a) for a in axes]
+            cache[key] = DeviceMesh.from_group(
+                [dm.get_group(a) for a in axes], dm.device_type,
+                mesh=dm.mesh.permute(*dims).contiguous(),
+                mesh_dim_names=axes)
+        return cache[key]
 
     def member_coords(self, axes: Sequence[str]) -> list[dict]:
         """The coordinates of the members of this rank's group over
-        ``axes`` (:meth:`group`), in group-rank order: this rank's
-        coordinate with ``axes`` run through row-major, the earlier mesh
-        axis major."""
+        ``axes`` (:meth:`group`), in its order: this rank's coordinate
+        with ``axes`` run through row-major, the first named major."""
         me = self.coordinate()
-        axes = [a for a in self.axis_names if a in axes]
+        axes = [a for a in axes if a in self.axis_names]
         out = []
         for i in range(math.prod(self.shape[a] for a in axes)):
             c = dict(me)
@@ -363,26 +421,26 @@ class ShardingCtx:
 
     def sharding(self, logical: Sequence[Optional[str]],
                  shape: Optional[Sequence[int]] = None) -> Placements:
-        """The spec's DTensor placements, one per mesh dim.  Raises
-        ``NotImplementedError`` for a tuple entry whose axes are out of
-        mesh order (a DTensor cannot take the first-named axis as major)."""
+        """The spec's DTensor placements, one per dim of their
+        ``device_mesh``.  Where a tuple entry names its axes out of mesh
+        order, the dims that entry's axes hold take them in its order
+        (``Placements.axes``), so the earlier dim is the first named and
+        each rank's local block is ``Mesh.local_slices``' (module
+        docstring)."""
         from torch.distributed.tensor import Replicate, Shard
 
         spec = self.spec(logical, shape)
-        out = [Replicate()] * len(self.mesh.axis_names)
+        names = list(self.mesh.axis_names)
+        for entry in spec:
+            axes = _axes(entry)
+            at = sorted(names.index(a) for a in axes)
+            for i, a in zip(at, axes):
+                names[i] = a
+        out = [Replicate()] * len(names)
         for dim, entry in enumerate(spec):
-            if entry is None:
-                continue
-            idx = [self.mesh.axis_names.index(a)
-                   for a in (entry if isinstance(entry, tuple) else (entry,))]
-            if idx != sorted(idx):
-                raise NotImplementedError(
-                    f"spec entry {entry!r} names mesh axes out of the mesh's "
-                    f"order {self.mesh.axis_names}: JAX takes the first "
-                    f"named as major, a DTensor the earlier mesh dim")
-            for i in idx:
-                out[i] = Shard(dim)
-        return Placements(out, self.mesh, spec)
+            for a in _axes(entry):
+                out[names.index(a)] = Shard(dim)
+        return Placements(out, self.mesh, spec, tuple(names))
 
     def axis_size(self, name: str) -> int:
         if name not in self.mesh.axis_names:
@@ -399,20 +457,14 @@ class ShardingCtx:
         return tuple(a for a in target if a in self.mesh.axis_names)
 
     def fsdp_axes(self) -> tuple[str, ...]:
-        """The mesh axes ``expert_mlp`` resolves to: an expert leaf's dim 1
-        is stored split over them (FSDP) and the MoE block all-gathers it.
-        Raises ``NotImplementedError`` where the rules name them out of
-        mesh order (the gather takes the earlier mesh axis as major)."""
+        """The mesh axes ``expert_mlp`` resolves to, in the rules' order
+        (the first named major): an expert leaf's dim 1 is stored split
+        over them (FSDP) and the MoE block all-gathers it over
+        ``mesh.group`` of them."""
         target = self.rules.rules.get("expert_mlp")
         if isinstance(target, str):
             target = (target,)
-        axes = tuple(a for a in (target or ()) if a in self.mesh.axis_names)
-        if list(axes) != [a for a in self.mesh.axis_names if a in axes]:
-            raise NotImplementedError(
-                f"expert_mlp axes {axes} out of the mesh's order "
-                f"{self.mesh.axis_names}: the gather would take the earlier "
-                f"mesh axis as major")
-        return axes
+        return tuple(a for a in (target or ()) if a in self.mesh.axis_names)
 
     def expert_split(self, logical: Sequence[Optional[str]]) -> list:
         """Per dim of a leaf with these logical names, the mesh axes (of
@@ -445,20 +497,12 @@ class ShardingCtx:
               shape: Sequence[int]) -> tuple:
         """This rank's block of a leaf of global ``shape`` and these
         logical names under the rules (its spec, divisibility-masked and
-        deduped as the reference's), one ``slice`` per dim.  Raises
-        ``NotImplementedError`` where an entry names its axes out of the
-        mesh's order (the gathers over a group take the earlier mesh axis
-        as major)."""
+        deduped as the reference's), one ``slice`` per dim; a tuple
+        entry's first axis is major, as the groups order their members."""
         key = ("block", tuple(logical), tuple(int(n) for n in shape))
         if key not in self.memo:
-            spec = self.spec(logical, key[2])
-            for entry in spec:
-                axes = list(_axes(entry))
-                if axes != [a for a in self.mesh.axis_names if a in axes]:
-                    raise NotImplementedError(
-                        f"spec entry {entry!r} out of the mesh's order "
-                        f"{self.mesh.axis_names}")
-            self.memo[key] = self.mesh.local_slices(spec, key[2])
+            self.memo[key] = self.mesh.local_slices(
+                self.spec(logical, key[2]), key[2])
         return self.memo[key]
 
     def batch_rows(self, batch: int) -> tuple[slice, tuple]:
@@ -473,9 +517,7 @@ class ShardingCtx:
         the rules (its spec over ``KV_CACHE_LOGICAL``, divisibility-masked
         and deduped as the reference's), remembered by the global batch
         and its local shape for :meth:`kv_block_of`.  Raises
-        ``NotImplementedError`` where an entry names its axes out of the
-        mesh's order (the gathers over a group take the earlier mesh axis
-        as major), and ``ValueError`` where another block of the same
+        ``ValueError`` where another block of the same
         global batch and local shape was made under this context (the
         decode step could not tell the two caches apart)."""
         shape = tuple(int(n) for n in shape)
@@ -596,7 +638,13 @@ def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
 
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(x.device_mesh, tuple(ctx.sharding(logical)))
+    pl = ctx.sharding(logical)
+    if pl.device_mesh is x.device_mesh:
+        return x.redistribute(x.device_mesh, tuple(pl))
+    # another dim order of the same ranks: whole, then this rank's block
+    local = x.full_tensor()[pl.mesh.local_slices(pl.spec, x.shape)]
+    return DTensor.from_local(local.contiguous(), pl.device_mesh, tuple(pl),
+                              run_check=False)
 
 
 def process_index() -> int:

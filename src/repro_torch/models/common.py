@@ -204,7 +204,7 @@ def distribute_tree(tree: Any, shardings: Any) -> Any:
         if pl is None:
             return t
         local = t.detach()[pl.mesh.local_slices(pl.spec, t.shape)]
-        return DTensor.from_local(local.contiguous(), pl.mesh.device_mesh,
+        return DTensor.from_local(local.contiguous(), pl.device_mesh,
                                   tuple(pl), run_check=False)
 
     return tree_map(one, tree, shardings)
@@ -231,8 +231,10 @@ def fsdp_gather(tree: Any, specs: Any) -> Any:
     """``tree`` (this rank's blocks of leaves declared by ``specs``, whose
     ``layers`` dim, if any, is already sliced off) with every ``d`` dim
     (``FSDP_DIMS``) that the active rules store split over data axes
-    all-gathered over them; the gradient of a gathered leaf is
-    reduce-scattered back to the block (``collectives.gather_dim``).
+    all-gathered over them, in the order the rules name them (the first
+    named major: ``("data", "pod")`` data-major, as the blocks are cut);
+    the gradient of a gathered leaf is reduce-scattered back to the block
+    (``collectives.gather_dim``).
     Without an active context, or with no such dim, the tree itself."""
     ctx = active_ctx()
     if ctx is None:

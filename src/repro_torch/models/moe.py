@@ -19,16 +19,27 @@ axes, FSDP, all-gathered inside the block).  The collectives are
 every leaf replicated over ``model`` its full gradient on every model rank.
 
 **The one-hot path on a mesh of more than one rank** (decode under a
-mesh, where S = 1 never meets the a2a rule for M > 1; forward only, it
-raises under grad): the ranks gather the tokens of the batch axes, so
-each routes the global batch (capacity, dropped pairs and the
-load-balance means are the reference's), runs its expert shards on the
-pairs routed to them and reduces the activations, never the weights:
-under FSDP expert storage (dim 1 of ``wi`` / ``wg`` over the data axes,
-that is ``d``, and of ``wo``, that is ``f``) the partial hidden ``h``
-over those axes before the activation, then the partial output over
-them and over ``model``.  Each rank keeps its rows
-(:func:`_moe_one_hot_ranks`).
+mesh, where S = 1 never meets the a2a rule for M > 1, and training
+where M does not divide S or the batch holds fewer than 4 M tokens):
+the ranks gather the tokens of the batch axes, so each routes the global
+batch (capacity, dropped pairs and the load-balance means are the
+reference's), runs its expert shards on the pairs routed to them and
+reduces the activations, never the weights: under FSDP expert storage
+(dim 1 of ``wi`` / ``wg`` over the data axes, that is ``d``, and of
+``wo``, that is ``f``) the partial hidden ``h`` over those axes before
+the activation, then the partial output over them and over ``model``.
+Each rank keeps its rows (:func:`_moe_one_hot_ranks`).  Under grad each
+collective carries a stated backward, so that after the train step's
+sum over the batch axes (``train.step._reduce_grads``, which divides by
+their size) every leaf's gradient is the global loss's, each rank's loss
+counted once: the row gather reduce-scatters each row's gradient back to
+its rank; the output's sum over the expert group sums the gradient over
+the group's batch axes only (ranks along ``model`` hold the same rows
+and the same loss); the expert inputs and the gates sum their gradient
+over the expert group and keep a share of it, one part per rank of the
+group with other rows (``collectives.share_grad``).  The router and
+``lb``, computed whole on every rank from the global tokens, then give
+each rank its share, which the train step sums once.
 
 The one-hot einsum costs O(T * E * cap * d): at a 4096-token prefill of 64
 experts that is petaflops of multiplications by zero.  The port computes
@@ -51,7 +62,6 @@ import math
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as C
@@ -123,17 +133,16 @@ def _expert_mlp(cfg: ModelConfig, xs: torch.Tensor, wi: torch.Tensor,
                 wg: Optional[torch.Tensor], wo: torch.Tensor,
                 part: Optional[tuple] = None) -> torch.Tensor:
     """xs ``[E, C, d]`` -> ``[E, C, d]`` through each expert.  ``part``
-    (FSDP expert storage on a mesh, forward only): ``(group, d block,
-    f block)``, where wi / wg hold the d block of their rows and wo the
-    f block of its rows: xs is whole, the hidden is summed over ``group``
-    before the activation, and the output is this rank's partial sum over
-    f (the caller reduces it)."""
+    (FSDP expert storage on a mesh): ``(group, d block, f block)``, where
+    wi / wg hold the d block of their rows and wo the f block of its rows:
+    xs is whole, the hidden is summed over ``group`` before the activation
+    (its gradient too: each rank reads its f block of it), and the output
+    is this rank's partial sum over f (the caller reduces it)."""
     def up(w):
         if part is None:
             return torch.bmm(xs, w)
-        h = torch.bmm(xs[..., part[1]], w)               # partial over d
-        dist.all_reduce(h, group=part[0])
-        return h
+        # partial over d
+        return C.shared_sum(torch.bmm(xs[..., part[1]], w), part[0])
 
     h = up(wi)
     if wg is not None:
@@ -243,8 +252,7 @@ def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     global batch, B times the batch axes' size.  ``batch_axes``: the axes
     ``x``'s rows are split over, where they are not the rules' (a decode
     batch too small to split: ``()``).  Where the rule picks the one-hot
-    path under a mesh of more than one rank, :func:`_moe_one_hot_ranks`
-    (forward only)."""
+    path under a mesh of more than one rank, :func:`_moe_one_hot_ranks`."""
     B, S, d = x.shape
     ctx = active_ctx()
     wi, wo, wg = p["wi"], p["wo"], p.get("wg")
@@ -285,27 +293,21 @@ def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 def _moe_one_hot_ranks(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx,
                        batch_axes: tuple) -> tuple[torch.Tensor, torch.Tensor]:
-    """The one-hot path on a mesh of more than one rank, forward only.
-    ``x`` ``[B, S, d]`` is this rank's rows (split over ``batch_axes``,
-    replicated over the rest), the expert leaves its shards; the router is
-    whole.  Every rank routes the global tokens, :func:`_moe_indexed`
-    gives its experts' share of each pair it keeps, and the shares are
-    summed over the axes the experts are split over."""
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for t in p.values())):
-        raise NotImplementedError(
-            f"the one-hot MoE path on a {ctx.mesh.shape} mesh under grad "
-            f"(B {x.shape[0]} x S {x.shape[1]} a rank: below the a2a rule "
-            f"S % model == 0 and B * S >= 4 * model): it is forward only "
-            f"(decode under a mesh); training there waits, ROADMAP Queue "
-            f"1 item 2")
+    """The one-hot path on a mesh of more than one rank.  ``x`` ``[B, S,
+    d]`` is this rank's rows (split over ``batch_axes``, replicated over
+    the rest), the expert leaves its shards; the router is whole.  Every
+    rank routes the global tokens, :func:`_moe_indexed` gives its experts'
+    share of each pair it keeps, and the shares are summed over the axes
+    the experts are split over.  The backwards are the module
+    docstring's."""
     B, S, d = x.shape
     mesh = ctx.mesh
     xt = x.reshape(B * S, d)
     batch_group = mesh.group(batch_axes) if batch_axes else None
     if batch_group is not None:
-        xt = C.all_gather_cat(xt, batch_group)           # every rank's rows
+        xt = C.gather_dim(xt, batch_group, 0)            # every rank's rows
     gate_vals, gate_idx, lb = _gates(cfg, xt, p["router"])
+    gate_vals = gate_vals.to(x.dtype)
     # this rank's experts, and its blocks of d (wi, wg) and f (wo)
     specs = moe_specs(cfg)
     sl_i = mesh.local_slices(ctx.spec(specs["wi"].logical, specs["wi"].shape),
@@ -313,13 +315,23 @@ def _moe_one_hot_ranks(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx,
     sl_o = mesh.local_slices(ctx.spec(specs["wo"].logical, specs["wo"].shape),
                              specs["wo"].shape)
     split = ctx.layout(specs["wi"].logical, specs["wi"].shape)
-    part = (mesh.group(split[1]), sl_i[1], sl_o[1]) if split[1] else None
-    y = _moe_indexed(cfg, xt, gate_vals.to(x.dtype), gate_idx, p["wi"],
-                     p.get("wg"), p["wo"], experts=sl_i[0], part=part)
-    axes = split[0] + split[1]
-    if axes:
-        dist.all_reduce(y, group=mesh.group(axes))
+    part = (mesh.group(mesh.in_order(split[1])), sl_i[1], sl_o[1]) \
+        if split[1] else None
+    axes = mesh.in_order(split[0] + split[1])
+    group = mesh.group(axes) if axes else None
+    # the axes of the expert group along which the rows (and losses) differ
+    rows_axes = tuple(a for a in axes if a in batch_axes)
+    xt_e = xt
+    if group is not None:
+        parts = math.prod(mesh.shape[a] for a in rows_axes)
+        xt_e = C.share_grad(xt, group, parts)
+        gate_vals = C.share_grad(gate_vals, group, parts)
+    y = _moe_indexed(cfg, xt_e, gate_vals, gate_idx, p["wi"], p.get("wg"),
+                     p["wo"], experts=sl_i[0], part=part)
+    if group is not None:
+        y = C.sum_partials(y, group,
+                           mesh.group(rows_axes) if rows_axes else None)
     if batch_group is not None:
-        i = dist.get_rank(batch_group)
+        i = C.group_rank(batch_group)
         y = y[i * B * S:(i + 1) * B * S]
     return y.reshape(B, S, d), lb

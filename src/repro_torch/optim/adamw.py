@@ -85,7 +85,7 @@ def zero1_layout(ctx, param_specs: Any, opt_rules: ShardingRules) -> dict:
     """Per "/"-key of a leaf whose moments ``opt_rules`` split further than
     the active rules split the parameter: (the moment block's slices
     within this rank's parameter block, the group over the added axes,
-    every member's slices in group-rank order).  Raises
+    every member's slices in the group's order).  Raises
     ``NotImplementedError`` where a moment would not be a block of its
     parameter's block."""
     mesh = ctx.mesh
@@ -98,10 +98,12 @@ def zero1_layout(ctx, param_specs: Any, opt_rules: ShardingRules) -> dict:
             raise NotImplementedError(
                 f"{key}: its moments ({ml}) are not a block of the "
                 f"parameter's block ({pl})")
-        added = {a for p, m in zip(pl, ml) for a in m if a not in p}
-        if not added:
+        # the added axes in the moments' spec order (the first named
+        # major: ``("data", "pod")`` under the multi-pod rules), the order
+        # of the group's members and of their slices
+        axes = tuple(a for p, m in zip(pl, ml) for a in m if a not in p)
+        if not axes:
             continue
-        axes = tuple(a for a in mesh.axis_names if a in added)
         pspec = ctx.spec(s.logical, s.shape)
         mspec = octx.spec(s.logical, s.shape)
         base = mesh.local_slices(pspec, s.shape)

@@ -48,7 +48,11 @@ loss is the mean over the batch axes.
 
 Every family trains under these rules: the encdec and vlm families'
 cross-attention on a rank's heads, their encoder and ``frontend_proj``
-gathered where stored FSDP (``models.transformer``).  Rules the step
+gathered where stored FSDP (``models.transformer``).  So do the multi-pod
+production rules (``rules_for(cfg, multi_pod=True)`` on a ``(pod, data,
+model)`` mesh): the batch spans ``("pod", "data")`` and the FSDP dims
+and ZeRO-1 moments ``("data", "pod")``, data-major, which the groups and
+gathers follow (``distributed.context.Mesh.group``).  Rules the step
 cannot honour raise ``NotImplementedError`` before the first collective
 (:func:`check_train_rules`): a ``seq_sp`` rule (sequence-parallel norm
 segments), a ``layers`` rule (pipeline stages) and rules that split the
@@ -257,14 +261,12 @@ def check_train_rules(ctx, cfg: ModelConfig) -> None:
                 continue
             if name in TP_DIMS and axes == ("model",):
                 continue
-            if name in FSDP_DIMS and "model" not in axes and list(axes) \
-                    == [a for a in ctx.mesh.axis_names if a in axes]:
+            if name in FSDP_DIMS and "model" not in axes:
                 continue
             raise NotImplementedError(_where(
                 f"{key}: the rules split its {name!r} dim over {axes}; "
                 f"the step splits heads, MLP columns and vocabulary over "
-                f"'model' only, and stores d dims over data axes (in mesh "
-                f"order)"))
+                f"'model' only, and stores d dims over data axes"))
         wk = flat.get(key[:-2] + "wk") if key.endswith("/wq") else None
         if wk is not None and "kv_heads" in wk.logical:
             q = ctx.layout(s.logical, s.shape)[s.logical.index("qheads")]
@@ -338,8 +340,10 @@ def _layout(ctx, cfg: ModelConfig, opt_cfg: AdamWConfig,
         axes = [a for a in batch if a not in stored]
         if _partial_over_model(ctx, cfg, flat, key, stored):
             axes.append("model")
-        reduce[key] = (mesh.group(tuple(axes)),
-                       mesh.group(tuple(stored)) if stored else None)
+        # all-reduces: any order of the axes, so the mesh's (one group
+        # for every leaf over the same axes)
+        reduce[key] = (mesh.group(mesh.in_order(axes)),
+                       mesh.group(mesh.in_order(stored)) if stored else None)
     return reduce, zero1
 
 
@@ -363,7 +367,7 @@ def _reduce_grads(ctx, layout: dict, loss: torch.Tensor,
         if shards is not None:
             norm_groups[key] = shards
     loss = loss.clone()
-    group = ctx.mesh.group(ctx.batch_axes())
+    group = ctx.mesh.group(ctx.mesh.in_order(ctx.batch_axes()))
     if group is not None:
         dist.all_reduce(loss, group=group)
     return loss / n_data, norm_groups

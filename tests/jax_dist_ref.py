@@ -306,8 +306,103 @@ def slices(data: dict, cases: list) -> dict:
     return out
 
 
+def _pod_mesh(jax, np, shape, names=("pod", "data", "model")):
+    n = int(np.prod(shape))
+    return jax.sharding.Mesh(np.array(jax.devices()[:n]).reshape(shape),
+                             tuple(names))
+
+
+def multipod(data: dict, train: list, moe: list, decode: list) -> dict:
+    """The multi-pod production layout: on a ``(pod, data, model)`` mesh
+    of the forced devices, under the compute rules of
+    ``rules_for(cfg, multi_pod=True)``: per ``train`` case (name, arch,
+    mesh shape) one jitted ``make_train_step`` on batch 0 (loss, clip
+    norm, the parameters and moments after it) and the gradients of
+    ``lm_loss``; per ``moe`` case (tag, mesh shape, axis names,
+    multi_pod, B, S) ``moe_block`` on ``x[:B, :S]`` (y, lb and the
+    gradients of mean_t(y_t . cot_t) + lb); per ``decode`` case (name,
+    arch, mesh shape, B, S_max, prompt_len) ``decode_step`` under
+    ``decode_rules``, the prompt teacher-forced then greedy (tokens, each
+    step's logits)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    jax.devices()       # the backend starts with this process's count
+    from repro.configs import reduced_config
+    from repro.distributed.context import ShardingRules, activate
+    from repro.launch.dryrun import decode_rules, rules_for
+    from repro.models.moe import moe_block
+    from repro.models.transformer import decode_step, init_cache, lm_loss
+    from repro.optim.adamw import AdamWConfig
+    from repro.train.step import init_train_state, make_train_step
+
+    out = {}
+    for name, arch, shape, _ in train:
+        cfg = reduced_config(arch).replace(dtype="float32")
+        rules, _ = rules_for(cfg.replace(name=arch), True)
+        params = _nest({k[len(arch) + 1:]: jnp.asarray(v)
+                        for k, v in data.items() if k.startswith(arch + "/")})
+        batch = {k: jnp.asarray(data[f"{k}/{name}"][0])
+                 for k in ("tokens", *STUBS) if f"{k}/{name}" in data}
+        opt = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=1, decay_steps=1)
+        with activate(_pod_mesh(jax, np, shape), rules):
+            grads = jax.jit(jax.grad(lambda p, b: lm_loss(p, cfg, b)))(
+                params, batch)
+            state, m = jax.jit(make_train_step(cfg, opt))(
+                init_train_state(params, opt), batch)
+        out[f"{name}/loss"] = np.asarray(m["loss"])
+        out[f"{name}/grad_norm"] = np.asarray(m["grad_norm"])
+        for k, v in _flat(grads).items():
+            out[f"{name}/grads/{k}"] = np.asarray(v)
+        for k, v in _flat(state["params"]).items():
+            out[f"{name}/params/{k}"] = np.asarray(v)
+        for k in ("m", "v"):
+            for key, v in _flat(state["opt"][k]).items():
+                out[f"{name}/opt/{k}/{key}"] = np.asarray(v)
+    p = {k: jnp.asarray(data[f"moe/{k}"]) for k in ("router", "wi", "wg",
+                                                    "wo")}
+    for tag, shape, names, multi_pod, B, S in moe:
+        cfg = reduced_config("olmoe-1b-7b").replace(dtype="float32")
+        rules = rules_for(cfg, True)[0] if multi_pod else ShardingRules()
+        x = jnp.asarray(data["moe/x"][:B, :S])
+        cot = jnp.asarray(data["moe/cot"][:B, :S])
+        with activate(_pod_mesh(jax, np, shape, names), rules):
+            def f(p, x):
+                y, lb = moe_block(p, cfg, x)
+                return jnp.mean(jnp.sum(y * cot, -1)) + lb, (y, lb)
+
+            (_, (y, lb)), (gp, gx) = jax.jit(jax.value_and_grad(
+                f, argnums=(0, 1), has_aux=True))(p, x)
+        out[f"{tag}/y"], out[f"{tag}/lb"] = np.asarray(y), np.asarray(lb)
+        out[f"{tag}/gx"] = np.asarray(gx)
+        for k, g in gp.items():
+            out[f"{tag}/grads/{k}"] = np.asarray(g)
+    for name, arch, shape, B, s_max, prompt_len in decode:
+        cfg = reduced_config(arch).replace(dtype="float32")
+        rules, _ = rules_for(cfg.replace(name=arch), True)
+        params = _nest({k[len(arch) + 1:]: jnp.asarray(v)
+                        for k, v in data.items() if k.startswith(arch + "/")})
+        toks = np.asarray(data[f"prompt/{name}"], np.int32)
+        with activate(_pod_mesh(jax, np, shape),
+                      decode_rules(cfg, rules, B, model_axis=shape[-1])):
+            step = jax.jit(lambda p, c, t, pos: decode_step(p, cfg, c, t,
+                                                            pos))
+            cache, nxt = init_cache(cfg, B, s_max), None
+            for t in range(s_max):
+                if t >= prompt_len:
+                    toks = np.concatenate([toks, nxt], axis=1)
+                logits, cache = step(params, cache, jnp.asarray(
+                    toks[:, t:t + 1]), jnp.int32(t))
+                nxt = np.asarray(jnp.argmax(logits, axis=-1))[:, None]
+                out[f"{name}/logits{t}"] = np.asarray(logits)
+        out[f"{name}/tokens"] = toks
+    return out
+
+
 PROGRAMS = {"moe": moe, "dp_train": dp_train, "tp_train": tp_train,
-            "compression": compression, "slices": slices, "decode": decode}
+            "compression": compression, "slices": slices, "decode": decode,
+            "multipod": multipod}
 
 
 def main(program: str, n: int, inp: str, outp: str, args: str) -> None:

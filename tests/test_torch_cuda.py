@@ -1094,3 +1094,116 @@ def test_sharded_save_on_one_rank_is_the_whole_save(card, nccl_mesh,
     for f in ("data.bin", "manifest.json"):
         with open(f"{a}/{f}", "rb") as fa, open(f"{b}/{f}", "rb") as fb:
             assert fa.read() == fb.read(), f
+
+
+@pytest.fixture
+def nccl_pod_mesh(card, tmp_path):
+    """A 1-rank NCCL process group and a (1, 1, 1) (pod, data, model)
+    mesh over it, built by the code ``make_production_mesh`` uses."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import _mesh
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield _mesh((1, 1, 1), ("pod", "data", "model"), card)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_data_major_placements_on_one_rank_on_the_card(card, nccl_pod_mesh,
+                                                       tmp_path):
+    """Reduced olmoe under the multi-pod storage rules: the expert leaves'
+    ``("data", "pod")`` entry puts their placements on a ``DeviceMesh``
+    whose dims are permuted to (data, pod, model), built from the NCCL
+    mesh's own groups; ``distribute_tree`` / ``full_tree`` round-trip bit
+    for bit, the sharded save is the whole save's bytes, and
+    ``restore_checkpoint(shardings=)`` lands each leaf on the card as the
+    saved one."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models.common import (distribute_tree, full_tree,
+                                           init_params, local_tree,
+                                           sharding_tree, tree_leaves)
+    from repro_torch.models.transformer import model_specs
+
+    cfg = _card_config("olmoe-1b-7b", "bfloat16")
+    specs = model_specs(cfg)
+    tree = init_params(specs, torch.Generator(card).manual_seed(5),
+                       cfg.torch_dtype, card)
+    with activate(nccl_pod_mesh, rules_for(cfg, True)[1]):
+        shardings = sharding_tree(specs)
+        pl = dict(tree_leaves(shardings))["blocks/b0_moe/moe/wi"]
+        assert pl.axes == ("data", "pod", "model")
+        assert pl.device_mesh is not nccl_pod_mesh
+        assert pl.device_mesh.mesh_dim_names == pl.axes
+        dt = distribute_tree(tree, shardings)
+        back = dict(tree_leaves(full_tree(dt)))
+        local = dict(tree_leaves(local_tree(dt)))
+        save_checkpoint(str(tmp_path / "sharded"), 1, local_tree(dt),
+                        shardings=shardings)
+        out, _ = restore_checkpoint(str(tmp_path / "sharded"), specs,
+                                    device=card, shardings=shardings)
+    whole = save_checkpoint(str(tmp_path / "whole"), 1, tree)
+    for f in ("data.bin", "manifest.json"):
+        with open(f"{whole}/{f}", "rb") as a, open(
+                f"{tmp_path}/sharded/step_{1:010d}/{f}", "rb") as b:
+            assert a.read() == b.read(), f
+    got = dict(tree_leaves(out))
+    for k, t in tree_leaves(tree):
+        assert torch.equal(back[k], t) and torch.equal(local[k], t), k
+        assert isinstance(got[k], DTensor), k
+        assert got[k].to_local().is_cuda and torch.equal(
+            got[k].to_local(), t), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_hot_row_gather_backward_on_one_rank(card, nccl_pod_mesh, dtype):
+    """The one-hot MoE path across ranks under grad, on the 1-rank NCCL
+    (pod, data, model) mesh under the multi-pod rules: its row gather
+    (``gather_dim`` over the batch axes: its backward a reduce-scatter),
+    the gradient shares and the partial sums are identities on one rank,
+    so y, lb and every gradient equal the one-hot path's bit for bit, on
+    the card."""
+    from repro_torch.distributed import activate
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models import moe
+
+    cfg = _card_config("olmoe-1b-7b", dtype)
+    specs = moe.moe_specs(cfg)
+    gen = torch.Generator(card).manual_seed(9)
+    p = {k: (torch.randn(s.shape, generator=gen, device=card) * s.scale).to(
+        cfg.torch_dtype) for k, s in specs.items()}
+    x = torch.randn((2, 7, cfg.d_model), generator=gen, device=card).to(
+        cfg.torch_dtype)
+    cot = torch.randn(x.shape, generator=gen, device=card).to(x.dtype)
+
+    def grads(fn):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xi = x.clone().requires_grad_(True)
+        y, lb = fn(leaves, xi)
+        keys = sorted(leaves)
+        g = torch.autograd.grad((y.float() * cot.float()).sum() + lb,
+                                [xi] + [leaves[k] for k in keys])
+        return y, lb, dict(zip(["x"] + keys, g))
+
+    with activate(nccl_pod_mesh, rules_for(cfg, True)[1]) as ctx:
+        group = ctx.mesh.group(ctx.batch_axes())
+        t = x.clone().requires_grad_(True)
+        y = C.gather_dim(t, group, 0)
+        (g,) = torch.autograd.grad(y, t, cot)
+        assert y.is_cuda and torch.equal(y, x) and torch.equal(g, cot)
+        got = grads(lambda q, xi: moe._moe_one_hot_ranks(
+            q, cfg, xi, ctx, ctx.batch_axes()))
+    want = grads(lambda q, xi: moe.moe_block(q, cfg, xi))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for k, g in want[2].items():
+        assert got[2][k].is_cuda and torch.equal(got[2][k], g), k

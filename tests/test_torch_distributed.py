@@ -12,9 +12,8 @@ reference's, and the sharded restore on spawned ranks.
 - Per-rank slices: ``Mesh.local_slices`` at every coordinate equals
   ``NamedSharding(...).devices_indices_map`` for the device there (the
   reference in one process with 512 forced host devices,
-  ``tests/jax_dist_ref.py``); DTensor placements where they can express
-  the spec, ``NotImplementedError`` where a tuple entry is out of mesh
-  order.
+  ``tests/jax_dist_ref.py``); DTensor placements express every spec, over
+  a permuted dim order where a tuple entry is out of mesh order.
 - ``plan_for_ctx`` equals the reference's with ``jax.process_index`` (and
   the port's ``process_index``) patched per rank.
 - Sharded restore (spawned gloo ranks, ``tests/torch_ranks.py``): a
@@ -157,43 +156,79 @@ def test_each_ranks_slice_matches_the_reference_device(jax_slices, mesh):
     assert n > 0
 
 
+def _dtensor_block(pl, shape, coord) -> tuple:
+    """The block DTensor gives the rank at ``coord`` for placements
+    ``pl`` over dims ``pl.axes``: a tensor dim sharded over several mesh
+    dims is cut by the earlier dim first (major)."""
+    from torch.distributed.tensor import Shard
+
+    out = []
+    for dim, n in enumerate(shape):
+        idx, parts = 0, 1
+        for a, p in zip(pl.axes, pl):
+            if isinstance(p, Shard) and p.dim == dim:
+                idx = idx * pl.mesh.shape[a] + coord[a]
+                parts *= pl.mesh.shape[a]
+        out.append(slice(idx * n // parts, (idx + 1) * n // parts))
+    return tuple(out)
+
+
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_placements_express_the_spec_or_raise(mesh):
+    """Every leaf's placements express its spec: a ``Shard`` of a dim on
+    each mesh axis its entry names, over a dim order (``Placements.axes``)
+    in which every tuple entry's axes come as it names them -- the mesh's
+    own order, or a permutation of it where an entry is out of mesh order
+    (the multi-pod rules' ``("data", "pod")``).  The block DTensor then
+    cuts for a rank is ``Mesh.local_slices``' (the corners of the mesh and
+    a few coordinates between them)."""
     from torch.distributed.tensor import Replicate, Shard
 
     sizes, names = MESHES[mesh]
+    coords = list(itertools.product(*(range(n) for n in sizes)))
+    coords = [dict(zip(names, c)) for c in coords[::max(len(coords) // 7,
+                                                        1)] + coords[-1:]]
+    permuted = 0
     for rules, arch in itertools.product(RULES, list_archs()):
         port, _ = _ctxs(mesh, rules, arch)
         for key, s in _leaves(arch):
             spec = port.spec(s.logical, s.shape)
             entries = [e if isinstance(e, tuple) else (e,) for e in spec]
-            ordered = all(list(e) == [a for a in names if a in e]
-                          for e in entries if e != (None,))
-            if not ordered:
-                with pytest.raises(NotImplementedError, match="mesh"):
-                    port.sharding(s.logical, s.shape)
-                continue
             pl = port.sharding(s.logical, s.shape)
             assert pl.spec == spec and pl.mesh is port.mesh
-            assert len(pl) == len(names)
-            for i, a in enumerate(names):
+            assert len(pl) == len(names) and sorted(pl.axes) == sorted(names)
+            for e in entries:
+                if e != (None,):
+                    assert [a for a in pl.axes if a in e] == list(e)
+            permuted += pl.axes != names
+            for i, a in enumerate(pl.axes):
                 dims = [d for d, e in enumerate(entries) if a in e]
                 assert pl[i] == (Shard(dims[0]) if dims else Replicate())
+            for c in coords:
+                assert _dtensor_block(pl, s.shape, c) == \
+                    port.mesh.local_slices(spec, s.shape, c), (key, c)
+    assert (permuted > 0) == (mesh == "2x16x16")
 
 
 def test_an_out_of_order_tuple_raises_for_placements_only():
     """``("data", "pod")`` on a (pod, data, model) mesh: JAX takes data as
-    major; the slices follow it, the placements refuse."""
+    major, and so do the slices and the placements, whose dims put data
+    before pod; on a shape-only mesh they have no ``DeviceMesh``."""
+    from torch.distributed.tensor import Shard
+
     port, ref = _ctxs("2x16x16", "fsdp_storage", "olmoe-1b-7b")
     s = dict(_leaves("olmoe-1b-7b"))["blocks/b0_moe/moe/wi"]
     spec = port.spec(s.logical, s.shape)
     assert spec[2] == ("data", "pod")
-    with pytest.raises(NotImplementedError):
-        port.sharding(s.logical, s.shape)
-    got = port.mesh.local_slices(spec, s.shape, {"pod": 1, "data": 2,
-                                                  "model": 0})
+    pl = port.sharding(s.logical, s.shape)
+    assert pl.axes == ("data", "pod", "model")
+    assert tuple(pl) == (Shard(2), Shard(2), Shard(1))
+    assert pl.device_mesh is None
+    coord = {"pod": 1, "data": 2, "model": 0}
+    got = port.mesh.local_slices(spec, s.shape, coord)
     step = s.shape[2] // 32
     assert got[2] == slice((2 * 2 + 1) * step, (2 * 2 + 2) * step)
+    assert _dtensor_block(pl, s.shape, coord) == got
 
 
 @pytest.mark.parametrize("mesh", ["2x2", "1x4", "16x16", "2x16x16"])

@@ -139,16 +139,39 @@ def test_at_the_configs_capacity_the_paths_drop_different_pairs(runs, case):
         assert r["lb"].item() == pytest.approx(lb.item(), abs=1e-6)
 
 
+def _one_hot_rows(data, b, s, rows):
+    """The one-hot path on one rank under grad on ``x[:b, :s]``: y, lb,
+    and the gradients of mean_t(y_t . cot_t) + lb over the whole batch,
+    the input's cut to ``rows``."""
+    cfg = _cfg(1.25)
+    p = {k: torch.tensor(data[k], requires_grad=True)
+         for k in ("router", "wi", "wg", "wo")}
+    x = torch.tensor(data["x"][:b, :s], requires_grad=True)
+    y, lb = moe_block(p, cfg, x)
+    obj = (y * torch.from_numpy(np.ascontiguousarray(
+        data["cot"][:b, :s]))).sum(-1).mean() + lb
+    keys = sorted(p)
+    g = torch.autograd.grad(obj, [x] + [p[k] for k in keys])
+    return y.detach(), lb.detach(), g[0], dict(zip(keys, g[1:]))
+
+
+def _hold_grads(res, gx, gp, rows, what):
+    _close(res["gx"], gx[rows].numpy(), GRAD_TOL, f"{what} x")
+    for k, g in res["grads"].items():
+        block = tuple(slice(a, b) for a, b in res["slices"][k])
+        _close(g, gp[k][block].numpy(), GRAD_TOL, f"{what} {k}")
+
+
 @pytest.mark.parametrize("shape", ONE_HOT_SHAPES, ids=["S%M", "B*S<4M"])
 def test_the_one_hot_path_below_the_a2a_rule(runs, shape):
     """Under a mesh the reference's rule still picks the one-hot path when
     M does not divide S or the batch holds fewer than 4 M tokens.  On four
     gloo ranks of a (1, 4) mesh, each holding 2 of the 8 experts, every
     rank gives the one-hot path's output and load-balance loss over the
-    whole batch (decode under a mesh).  With parameters that require grad
-    it raises, naming the rule and ROADMAP, before any collective (a
-    shape-only mesh suffices); on one rank it is the one-hot path,
-    exactly."""
+    whole batch (decode under a mesh), and under grad the one-rank path's
+    gradients: the input's, the router's and each rank's block of every
+    expert leaf's (the collectives' stated backwards); on one rank it is
+    the one-hot path, exactly."""
     data, _, ranks = runs
     cfg = _cfg(1.25)
     p = {k: torch.from_numpy(data[k]) for k in ("router", "wi", "wg", "wo")}
@@ -156,16 +179,17 @@ def test_the_one_hot_path_below_the_a2a_rule(runs, shape):
                                                         :shape[1]]))
     with torch.no_grad():
         want = moe_block(p, cfg, x)
-    got = [r[f"{shape[0]}x{shape[1]}"] for r in ranks["one_hot_1x4"]]
+    _, _, gx, gp = _one_hot_rows(data, *shape, slice(None))
+    key = f"{shape[0]}x{shape[1]}"
+    got = [r[key] for r in ranks["one_hot_1x4"]]
     assert len(got) == 4
     for y, lb in got:
         _close(y, want[0].numpy(), OUT_TOL, "one-hot y")
         assert abs(lb.item() - want[1].item()) <= 1e-6
-    grad_p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
-    with activate(Mesh((1, 4), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="S % model == 0") as e:
-            moe_block(grad_p, cfg, x)
-    assert "ROADMAP" in str(e.value)
+    for r in ranks["one_hot_1x4"]:
+        res = r[f"{key}/grad"]
+        _close(res["y_grad_run"], want[0].numpy(), OUT_TOL, "one-hot y")
+        _hold_grads(res, gx, gp, slice(None), "one-hot")
     x = x[:1, :3]                       # B * S = 3 < 4 on a (1, 1) mesh
     want = moe_block(p, cfg, x)
     with activate(Mesh((1, 1), ("data", "model"))):
@@ -181,20 +205,22 @@ def test_sharded_experts_below_the_a2a_rule_raise(runs, mesh):
     model and data with ``expert_mlp="data"``) and their batch rows at S
     3, where M does not divide S: without grad every rank's output is the
     one-hot path's on its rows (the tokens gathered over the batch axes,
-    the FSDP partials reduced), with its load-balance loss; with
-    parameters that require grad every rank raises the rule instead of
-    failing inside a product on the wrong shapes."""
+    the FSDP partials reduced), with its load-balance loss; under grad
+    (where this path raised before it carried gradients) every rank's
+    gradients, reduced as the train step reduces them, are the one-rank
+    path's: its rows of the input's, and its block of every leaf's."""
     data, _, ranks = runs
     cfg = _cfg(1.25)
     p = {k: torch.from_numpy(data[k]) for k in ("router", "wi", "wg", "wo")}
     with torch.no_grad():
         y, lb = moe_block(p, cfg, torch.from_numpy(
             np.ascontiguousarray(data["x"][:, :3])))
+    _, _, gx, gp = _one_hot_rows(data, data["x"].shape[0], 3, slice(None))
     got = [r[mesh] for r in ranks["below_rule"]]
     assert len(got) == 4
     for res in got:
         rows = slice(*res["rows"])
         _close(res["y"], y[rows].numpy(), OUT_TOL, f"{mesh} y")
+        _close(res["y_grad_run"], y[rows].numpy(), OUT_TOL, f"{mesh} y")
         assert abs(res["lb"].item() - lb.item()) <= 1e-6
-        raised = res["raised"]
-        assert raised is not None and "S % model == 0" in raised
+        _hold_grads(res, gx, gp, rows, mesh)

@@ -151,10 +151,11 @@ def moe(inputs: str, cases: list) -> dict:
     rank's blocks).  On four ranks also ``below_rule``: per (D, M, fsdp)
     in ``BELOW_RULE``, ``moe_block`` on the expert shards and this rank's
     batch rows at S 3, where M does not divide S and the one-hot path is
-    chosen: its output and load-balance loss without grad, and what it
-    raises with parameters that require grad; and ``one_hot_1x4``: the
+    chosen: its output and load-balance loss without grad, and its
+    gradients under grad (``_one_hot_grads``); and ``one_hot_1x4``: the
     one-hot path on the (1, 4) mesh's expert shards at each of
-    ``ONE_HOT_SHAPES`` (below the a2a rule), without grad."""
+    ``ONE_HOT_SHAPES`` (below the a2a rule), without grad and under
+    grad."""
     import torch.distributed as dist
 
     from repro_torch.configs import reduced_config
@@ -202,27 +203,61 @@ def moe(inputs: str, cases: list) -> dict:
                 p = _local(ctx, moe_specs(cfg), data)
                 bi, nb = ctx.batch_shard()
                 n = data["x"].shape[0] // nb
+                rows = slice(bi * n, (bi + 1) * n)
                 x = torch.from_numpy(np.ascontiguousarray(
-                    data["x"][bi * n:(bi + 1) * n, :3]))
+                    data["x"][rows, :3]))
                 with torch.no_grad():
                     y, lb = moe_block(p, cfg, x)
-                try:
-                    moe_block({k: v.requires_grad_(True)
-                               for k, v in p.items()}, cfg, x)
-                    raised = None
-                except NotImplementedError as e:
-                    raised = str(e)
+                grads = _one_hot_grads(ctx, cfg, p, x, torch.from_numpy(
+                    np.ascontiguousarray(data["cot"][rows, :3])), nb)
             out["below_rule"][f"{D}x{M}_fsdp{int(fsdp)}"] = {
-                "y": y, "lb": lb, "rows": (bi * n, (bi + 1) * n),
-                "raised": raised}
+                "y": y, "lb": lb, "rows": (rows.start, rows.stop), **grads}
         out["one_hot_1x4"] = {}
-        with activate(_mesh((1, 4)), _rules()) as ctx, torch.no_grad():
+        with activate(_mesh((1, 4)), _rules()) as ctx:
             p = _local(ctx, moe_specs(cfg), data)
             for b, s in ONE_HOT_SHAPES:
                 x = torch.from_numpy(np.ascontiguousarray(
                     data["x"][:b, :s]))
-                out["one_hot_1x4"][f"{b}x{s}"] = moe_block(p, cfg, x)
+                with torch.no_grad():
+                    got = moe_block(p, cfg, x)
+                out["one_hot_1x4"][f"{b}x{s}"] = got
+                out["one_hot_1x4"][f"{b}x{s}/grad"] = _one_hot_grads(
+                    ctx, cfg, p, x, torch.from_numpy(np.ascontiguousarray(
+                        data["cot"][:b, :s])), 1)
     return out
+
+
+def _one_hot_grads(ctx, cfg, p: dict, x, cot, nb: int) -> dict:
+    """``moe_block`` under grad on this rank's rows ``x`` and expert blocks
+    ``p``: the gradients of mean_t(y_t . cot_t) + lb over its rows, each
+    leaf's reduced as the train step reduces it (summed over the batch
+    axes it is not stored over, divided by ``nb``, their size), the
+    input's divided by ``nb``, y, lb and each leaf's slices."""
+    import torch.distributed as dist
+
+    from repro_torch.models.moe import moe_block, moe_specs
+
+    p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    x = x.clone().requires_grad_(True)
+    y, lb = moe_block(p, cfg, x)
+    keys = sorted(p)
+    g = torch.autograd.grad((y * cot).sum(-1).mean() + lb,
+                            [x] + [p[k] for k in keys])
+    grads = dict(zip(keys, g[1:]))
+    specs = moe_specs(cfg)
+    for k in keys:
+        s = specs[k]
+        stored = {a for part in ctx.layout(s.logical, s.shape)
+                  for a in part}
+        axes = ctx.mesh.in_order([a for a in ctx.batch_axes()
+                                  if a not in stored])
+        if axes:
+            dist.all_reduce(grads[k], group=ctx.mesh.group(axes))
+        grads[k] /= nb
+    return {"y_grad_run": y.detach(), "lb": lb.detach(), "gx": g[0] / nb,
+            "grads": grads,
+            "slices": {k: _slices(ctx, specs[k].logical, specs[k].shape)
+                       for k in keys}}
 
 
 #: meshes whose expert shards meet the one-hot path at S 3 (M does not
@@ -770,9 +805,227 @@ def decode(inputs: str, cases: list, root: str) -> dict:
     return out
 
 
+#: the multi-pod mesh's axes (``launch.mesh.make_production_mesh(
+#: multi_pod=True)``'s, at a small size)
+POD_AXES = ("pod", "data", "model")
+
+
+def _pod_mesh(shape):
+    """A (pod, data, model) mesh of the process group's ranks, built by
+    the code ``make_production_mesh`` builds its mesh with."""
+    from repro_torch.launch.mesh import _mesh
+
+    return _mesh(tuple(shape), POD_AXES, "cpu")
+
+
+def _slices(ctx, logical, shape) -> list:
+    return [(sl.start, sl.stop) for sl in ctx.mesh.local_slices(
+        ctx.spec(logical, shape), shape)]
+
+
+def _pod_train(data: dict, case: list, root: str) -> dict:
+    """One case (name, arch, mesh shape, save) of ``multipod``: one train
+    step of ``arch``'s reduced config at f32 under the multi-pod storage
+    rules with ZeRO-1 moments, on this rank's rows of batch 0; its loss
+    and clip norm, the gradients AdamW received, the updated parameter
+    and moment blocks with their slices.  With ``save``: the state saved
+    under ``root/NAME`` with ``shardings=`` and restored with them onto
+    the mesh (its local blocks and ``full_tree``)."""
+    import repro_torch.train.step as train_step
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models.common import full_tree, local_tree
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.weights import unflatten
+
+    name, arch, shape, save = case
+    cfg = reduced_config(arch).replace(dtype="float32")
+    opt = AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=1, decay_steps=1,
+                      zero1=True)
+    full = {k[len(arch) + 1:]: v for k, v in data.items()
+            if k.startswith(arch + "/")}
+    _, storage = rules_for(cfg.replace(name=arch), True)
+    res = {}
+    with activate(_pod_mesh(shape), storage) as ctx:
+        specs = model_specs(cfg)
+        res["slices"] = {k: _slices(ctx, s.logical, s.shape)
+                         for k, s in tree_leaves(specs)}
+        state = train_step.init_sharded_train_state(
+            unflatten(_local(ctx, specs, full)), cfg, opt)
+        step = train_step.make_train_step(cfg, opt)
+        bi, nb = ctx.batch_shard()
+        real, seen = train_step.adamw_apply, []
+
+        def recording(grads, *a, **kw):
+            seen.append({k: g.detach().clone()
+                         for k, g in tree_leaves(grads)})
+            return real(grads, *a, **kw)
+
+        train_step.adamw_apply = recording
+        try:
+            n = data[f"tokens/{name}"].shape[1] // nb
+            state, m = step(state, _batch(
+                {f"{k}/{arch}": data[f"{k}/{name}"] for k in
+                 ("tokens", *STUBS) if f"{k}/{name}" in data}, arch, 0,
+                slice(bi * n, (bi + 1) * n)))
+        finally:
+            train_step.adamw_apply = real
+        res.update(loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
+                   grads0=seen[0], params={
+                       k: v.detach().clone()
+                       for k, v in tree_leaves(state["params"])})
+        shardings = train_step.train_state_shardings(cfg, state)
+        flat_sh = dict(tree_leaves(shardings))
+        res["opt"] = {k: t.clone() for k, t in tree_leaves(state["opt"])
+                      if k != "step"}
+        res["opt_slices"] = {
+            k: [(sl.start, sl.stop) for sl in flat_sh[f"opt/{k}"].mesh
+                .local_slices(flat_sh[f"opt/{k}"].spec,
+                              full[k.split("/", 1)[1]].shape)]
+            for k in res["opt"]}
+        if save:
+            d = os.path.join(root, name)
+            save_checkpoint(d, 1, state, shardings=shardings)
+            back, _ = restore_checkpoint(d, state, device="cpu",
+                                         shardings=shardings)
+            res["restored_local"] = dict(tree_leaves(local_tree(back)))
+            res["restored_full"] = dict(tree_leaves(full_tree(back)))
+            res["placements"] = {
+                k: (tuple(repr(p) for p in pl), pl.axes)
+                for k, pl in flat_sh.items() if pl is not None}
+            res["state"] = {k: t.detach().clone()
+                            for k, t in tree_leaves(state)}
+    return res
+
+
+def _pod_moe(data: dict, case: list) -> dict:
+    """One case (tag, mesh shape, axis names, multi_pod, B, S) of
+    ``multipod``: ``moe_block`` of reduced olmoe at f32 under grad on
+    this rank's rows of ``x[:B, :S]`` and its expert blocks, below the
+    a2a rule (the one-hot path across ranks), under the multi-pod storage
+    rules (``multi_pod``) or the default ones (``_one_hot_grads``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import ShardingRules, activate
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models.moe import moe_specs
+
+    tag, shape, names, multi_pod, B, S = case
+    cfg = reduced_config("olmoe-1b-7b").replace(dtype="float32")
+    rules = (rules_for(cfg, True)[1] if multi_pod else ShardingRules())
+    mesh = DeviceMesh("cpu", torch.arange(int(np.prod(shape))).view(
+        *shape), mesh_dim_names=tuple(names))
+    with activate(mesh, rules) as ctx:
+        bi, nb = ctx.batch_shard()
+        rows = slice(bi * B // nb, (bi + 1) * B // nb)
+        return {"rows": (rows.start, rows.stop), **_one_hot_grads(
+            ctx, cfg, _local(ctx, moe_specs(cfg), data),
+            torch.tensor(data["x"][rows, :S]),
+            torch.tensor(data["cot"][rows, :S]), nb)}
+
+
+def _pod_decode(data: dict, case: list) -> dict:
+    """One case (name, arch, mesh shape, B, S_max, prompt_len) of
+    ``multipod``: decode of ``arch``'s reduced config at f32 under
+    ``serve_rules(..., multi_pod=True)``, the prompt teacher-forced and
+    greedy to S_max (tokens, each step's logits), the same through
+    ``generate(capture=False)``, this rank's cache blocks, and what
+    ``CapturedServeStep`` raises on the gloo mesh."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import activate
+    from repro_torch.launch.dryrun import serve_rules
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import init_cache, model_specs
+    from repro_torch.serve.step import CapturedServeStep, make_serve_step
+    from repro_torch.weights import unflatten
+
+    name, arch, shape, B, s_max, prompt_len = case
+    cfg = reduced_config(arch).replace(dtype="float32")
+    full = {k[len(arch) + 1:]: v for k, v in data.items()
+            if k.startswith(arch + "/")}
+    mesh = _pod_mesh(shape)
+    res = {}
+    with activate(mesh, serve_rules(cfg.replace(name=arch), mesh, B,
+                                    multi_pod=True)) as ctx, \
+            torch.no_grad():
+        params = unflatten(_local(ctx, model_specs(cfg), full))
+        cache = init_cache(cfg, B, s_max, "cpu")
+        prompt = torch.from_numpy(data[f"prompt/{name}"]).long()
+        res["tokens"], res["logits"], _ = _serve_loop(
+            make_serve_step(cfg), params, cache, prompt, s_max)
+        res["generate"] = generate(cfg, params, prompt, s_max - prompt_len,
+                                   device="cpu", capture=False)
+        blk = ctx.kv_block((B, s_max, cfg.n_kv_heads, cfg.hd))
+        res["block"] = [(sl.start, sl.stop)
+                        for sl in (blk.rows, blk.keys, blk.heads)]
+        res["batch_axes"] = blk.batch_axes
+        try:
+            CapturedServeStep(cfg, params, B, s_max, device="cpu")
+            res["captured_raised"] = None
+        except NotImplementedError as e:
+            res["captured_raised"] = str(e)
+    return res
+
+
+def _pod_order(shape) -> dict:
+    """The collectives over ``("data", "pod")`` on a (pod, data, model)
+    mesh: each rank's data-major block of ``arange(8 * 3)`` gathered
+    (``gather_dim``), its gradient reduce-scattered back (the gradient of
+    sum(gathered * w) for a known w), ``split`` of the whole, and
+    ``all_gather_stacked``; the same gather with the group's recorded
+    member order dropped (``mutated``: the members in global-rank order,
+    pod-major), which a sound check must tell apart; this rank's
+    coordinate and group rank."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.context import Mesh, PartitionSpec
+
+    mesh = Mesh.of(_pod_mesh(shape))
+    axes = ("data", "pod")
+    group = mesh.group(axes)
+    whole = torch.arange(8 * 3, dtype=torch.float32).view(8, 3)
+    block = whole[mesh.local_slices(PartitionSpec(axes), whole.shape)]
+    w = torch.arange(8 * 3, dtype=torch.float32).view(8, 3) * 0.5 + 1
+    b = block.clone().requires_grad_(True)
+    gathered = C.gather_dim(b, group, 0)
+    (grad,) = torch.autograd.grad((gathered * w).sum(), [b])
+    out = {"coordinate": mesh.coordinate(), "group_rank": C.group_rank(
+        group), "block": block, "gathered": gathered.detach(),
+        "grad": grad, "split": C.split(whole, group),
+        "stacked": C.all_gather_stacked(block, group),
+        "members": mesh.member_coords(axes)}
+    order = C._ORDER.pop(group)
+    try:
+        out["mutated"] = C.gather_dim(block, group, 0)
+    finally:
+        C._ORDER[group] = order
+    return out
+
+
+def multipod(inputs: str, train: list, moe: list, decode: list,
+             order: list, root: str) -> dict:
+    """The multi-pod production layout on four ranks: ``train`` cases
+    (``_pod_train``), ``moe`` cases (``_pod_moe``), ``decode`` cases
+    (``_pod_decode``) and the member order of a group over ``("data",
+    "pod")`` on an ``order``-shaped mesh (``_pod_order``)."""
+    data = dict(np.load(inputs))
+    out = {"order": _pod_order(order)}
+    for case in train:
+        out[case[0]] = _pod_train(data, case, root)
+    for case in moe:
+        out[case[0]] = _pod_moe({k[len("moe/"):]: v for k, v in data.items()
+                                 if k.startswith("moe/")}, case)
+    for case in decode:
+        out[case[0]] = _pod_decode(data, case)
+    return out
+
+
 PROGRAMS = {"moe": moe, "dp_train": dp_train, "tp_train": tp_train,
             "compression": compression, "restore": restore,
-            "decode": decode}
+            "decode": decode, "multipod": multipod}
 
 
 def _main(program: str, rank: int, world: int, init: str, out: str) -> None:
