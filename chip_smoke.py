@@ -27,7 +27,12 @@ Phases (one JSON line each, ``"phase"`` names them):
    cross-attention, llama-3.2-vision's), causal at hd 112 G 8 (kimi-k2)
    and olmoe's; decode at olmoe's, kimi's and whisper's instances and the
    one-query cross-attention over 1500 and 1024 memory rows; rmsnorm at d
-   768, 7168 and olmoe's q/k-norm rows.
+   768, 7168 and olmoe's q/k-norm rows.  Then flash_attention's
+   compute-probability variant (``probs="compute"``, the
+   ``flash_attention_compute`` entry of the summary) against its plain
+   version over FLASH_COMPUTE_CASES (bf16 within 2e-2 and 1e-2
+   row-relative, f32 within 2e-5), timed at qwen3-1.7b's prefill and
+   gemma3-1b's local layer beside the float32 mode, SDPA and its bound.
 4. ``geometry_*``: the chunk-geometry loop on the card
    (``repro_torch.core``).  ``geometry_sweep`` / ``geometry_winners``: the
    paper's sweep at its real size, ``sweep_scenarios`` over the six-replica
@@ -309,6 +314,22 @@ Phases (one JSON line each, ``"phase"`` names them):
    ``serve_rules(multi_pod=True)`` on (2, 2, 1), B 4, f32 and bf16, held
    as ``dist_decode_phase`` holds its runs.  ``dist_multipod``: the
    phase's seconds.
+25. ``compute_probs_prefill`` / ``compute_probs_step`` (run after
+   ``prefill``, on the restored weights): qwen3-1.7b at full width and
+   depth under ``attn_probs_dtype="compute"``.  The prefill at B 4 x S
+   2048 through the kernels (28 launches of the compute variant per
+   forward, exactly) held against the plain compute path by
+   ``hold_kernel_path``; one train step (``lm_loss`` and its gradients,
+   ``remat="full"``) at B 4 x S 2048, its loss within COMPUTE_LOSS_RTOL
+   of the plain compute path's and its gradient's distance from the f32
+   gradient within twice the plain path's.  Printed, not held: the
+   logits' distance from the float32 mode's and both modes' ms.
+26. ``examples`` (run after ``train_resume``): the four entry points of
+   ``repro_torch.examples`` on the card, in this process: quickstart;
+   multisource_restore onto the card, bit-exact; autotune_chunks on the
+   card and on the CPU, the same winners; train_100m for
+   EXAMPLE_TRAIN_STEPS steps (its loss trends down), its first loss
+   against the plain path's on the same weights and batch.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -412,6 +433,11 @@ FLASH_BF16_ROW_REL_TOL = 1e-2
 
 #: the port's kernels, by wrapper name
 KERNELS = ("decode_attention", "rmsnorm", "flash_attention", "ssm_scan")
+#: launch counts of kernel variants that share a wrapper: the summary's
+#: name -> (wrapper, its counter).  flash_attention's compute-probability
+#: instances (``probs="compute"`` at bf16) count apart from its launches
+VARIANTS = {"flash_attention_compute": ("flash_attention",
+                                        "compute_launches")}
 
 #: the dense family's paths: gemma3-1b prefill (S 8192, the reference's
 #: ``prefill_32k`` cut: the forward materialises [B, S, 262144] logits) and
@@ -484,6 +510,18 @@ TRAIN_REPEAT = 4
 RESUME_SHAPE = (2, 1024)
 #: H100 SXM dense bf16 peak (NVIDIA's H100 datasheet)
 BF16_PEAK = 989e12
+#: compute_probs: qwen3-1.7b at full width and depth under
+#: attn_probs_dtype="compute", the prefill at PREFILL_SHAPE and one train
+#: step at TRAIN_SHAPE; the step's loss within COMPUTE_LOSS_RTOL of the
+#: plain compute path's (TP_LOSS_RTOL's limit for bf16 losses)
+COMPUTE_SEED = 37
+COMPUTE_LOSS_RTOL = 2e-3
+#: examples: train_100m's steps on the card, the example's default (the
+#: reference asserts its loss trend from 10 steps on; at 12 the cosine
+#: schedule decays before the loss moves, and on an H100 the last three
+#: losses' mean stayed above the first three's); its first loss against
+#: the plain path's within COMPUTE_LOSS_RTOL
+EXAMPLE_TRAIN_STEPS = 30
 
 
 class CheckFailed(Exception):
@@ -603,7 +641,7 @@ def kernel_phase(torch, K, dev, ptxas):
     # worst error per kernel and dtype, each beside its dtype's tolerance
     worst = {name: dict.fromkeys(dtypes, 0.0)
              for name in ("decode_attention", "rmsnorm", "flash_attention",
-                          "ssm_scan")}
+                          "flash_attention_compute", "ssm_scan")}
 
     def record(name, label, dt, out, ref, tols=TOL):
         err = (out.float() - ref.float()).abs().max().item()
@@ -731,6 +769,8 @@ def kernel_phase(torch, K, dev, ptxas):
     flash["serving_family_shapes"] = [
         flash_time(torch, K, dev, randn, ptxas, *shape)
         for shape in FLASH_SERVING_SHAPES]
+    flash_compute = flash_compute_phase(torch, K, dev, randn, record, worst,
+                                        ptxas, flash)
     ssm = ssm_kernel_phase(torch, K, dev, record, worst, ptxas)
 
     prefill_rms = [{k: t[k] for k in ("shape", "kernel_ms", "kernel_cold_ms",
@@ -770,7 +810,7 @@ def kernel_phase(torch, K, dev, ptxas):
                                 "plain_ms", "library_ms", "bound_ms",
                                 "bound_share", "plan")} for t in r_serving],
          "ptxas": rt["ptxas"]},
-        flash, ssm,
+        flash, flash_compute, ssm,
     ]
 
 
@@ -1056,10 +1096,29 @@ def flash_time(torch, K, dev, randn, ptxas, label, B, Sq, Sk, H, KV, hd,
                bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
                tflop_s=flops / ms / 1e9)
     emit("kernel_time", kernel="flash_attention", **out,
-         ptxas=[ln for ln in ptxas_of(ptxas, "flash_attention")
-                if ln.split(":")[0].endswith(f"Li{hd}")])
+         ptxas=flash_ptxas(ptxas, hd))
     del q, k, v
     torch.cuda.empty_cache()
+    return out
+
+
+def flash_ptxas(ptxas, hd: int, compute=None) -> list:
+    """``ptxas``'s lines of the flash_attention instances that run at
+    ``hd`` (the bf16 kernel runs hd 112 at 128): the f32 kernel's and
+    the bf16 kernel's, or only the bf16 kernel's float32-mode
+    (``compute=False``) or compute-mode (``compute=True``) instance."""
+    import re
+
+    hds = {hd, max(hd, 128) if hd == 112 else hd}
+    out = []
+    for ln in ptxas_of(ptxas, "flash_attention"):
+        name = ln.split(":")[0]
+        m = re.search(r"Li(\d+)(?:ELb([01]))?", name)
+        if not m or int(m.group(1)) not in hds:
+            continue
+        if compute is not None and (m.group(2) or "0") != str(int(compute)):
+            continue
+        out.append(ln)
     return out
 
 
@@ -1072,83 +1131,111 @@ def row_rel_err(out, ref) -> float:
     return (diff[keep] / norm[keep]).max().item() if keep.any() else 0.0
 
 
-def flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas):
-    """flash_attention against its plain version over FLASH_CASES (bf16
-    also row by row, FLASH_BF16_ROW_REL_TOL), then timed at the two model
-    paths' shapes (bf16, causal)."""
+#: flash_attention timed at the model paths' causal shapes, bf16: (label,
+#: B, S, H, KV, hd, window)
+FLASH_TIME_SHAPES = (("qwen3-1.7b", 4, 2048, 16, 8, 128, None),
+                     ("zamba2-7b", 1, 4096, 32, 32, 112, None),
+                     ("gemma3-1b global", 1, 8192, 4, 1, 256, None),
+                     ("gemma3-1b local", 1, 8192, 4, 1, 256, 512),
+                     ("qwen2.5-14b", 1, 4096, 40, 8, 128, None),
+                     ("nemotron-4-15b", 1, 4096, 48, 8, 128, None))
+
+
+def flash_sweep(torch, K, randn, record, name, dt, cases,
+                probs="float32") -> float:
+    """flash_attention in ``probs`` mode against its plain version over
+    ``cases`` at ``dt``: each launch counted as ``name`` (at f32 the
+    compute mode is the float32 mode's launch, ``flash_attention``),
+    element-wise within TOL (``record``), bf16 also row by row within
+    FLASH_BF16_ROW_REL_TOL.  Returns the largest row-relative error."""
+    counter = name if dt == "bfloat16" else "flash_attention"
+    worst_row_rel = 0.0
+    for B, Sq, Sk, H, KV, hd, causal, win, scale in cases:
+        q = randn((B, Sq, H, hd), dt)
+        k, v = randn((B, Sk, KV, hd), dt), randn((B, Sk, KV, hd), dt)
+        kw = dict(causal=causal, window=win, scale=scale, probs=probs)
+        before = counts(K)[counter]
+        out = K.flash_attention(q, k, v, **kw)
+        check(counts(K)[counter] == before + 1,
+              f"{name} {dt}: the launch did not count as {counter}")
+        ref = K.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{name} {dt}: non-finite output")
+        label = (f"B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} causal{causal} "
+                 f"window{win} scale{scale}")
+        record(name, label, dt, out, ref)
+        if dt == "bfloat16":
+            rel = row_rel_err(out, ref)
+            ok = rel <= FLASH_BF16_ROW_REL_TOL
+            print(json.dumps({
+                "case": f"{name} bf16 {label} row-relative",
+                "max_row_rel_err": rel, "tol": FLASH_BF16_ROW_REL_TOL,
+                "ref_rms": ref.float().square().mean().sqrt().item(),
+                "ok": ok}), flush=True)
+            check(ok, f"{name} bf16 {label}: row-relative error {rel} over "
+                  f"{FLASH_BF16_ROW_REL_TOL}")
+            worst_row_rel = max(worst_row_rel, rel)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return worst_row_rel
+
+
+def flash_path_time(torch, K, dev, randn, B, S, H, KV, hd, win,
+                    probs="float32") -> dict:
+    """flash_attention in ``probs`` mode at one causal bf16 shape (a
+    sliding window when ``win``), timed beside its plain version, SDPA
+    (``is_causal``, or the window as a boolean mask) and the bound."""
     import torch.nn.functional as F
 
-    worst_row_rel = 0.0
-    for dt in ("float32", "bfloat16"):
-        for B, Sq, Sk, H, KV, hd, causal, win, scale in FLASH_CASES:
-            q = randn((B, Sq, H, hd), dt)
-            k, v = randn((B, Sk, KV, hd), dt), randn((B, Sk, KV, hd), dt)
-            kw = dict(causal=causal, window=win, scale=scale)
-            out = K.flash_attention(q, k, v, **kw)
-            ref = K.flash_attention_plain(q, k, v, **kw)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out.float()).all()),
-                  f"flash_attention {dt}: non-finite output")
-            label = (f"B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} causal{causal} "
-                     f"window{win} scale{scale}")
-            record("flash_attention", label, dt, out, ref)
-            if dt == "bfloat16":
-                rel = row_rel_err(out, ref)
-                ok = rel <= FLASH_BF16_ROW_REL_TOL
-                print(json.dumps({
-                    "case": f"flash_attention bf16 {label} row-relative",
-                    "max_row_rel_err": rel, "tol": FLASH_BF16_ROW_REL_TOL,
-                    "ref_rms": ref.float().square().mean().sqrt().item(),
-                    "ok": ok}), flush=True)
-                check(ok, f"flash_attention bf16 {label}: row-relative error "
-                      f"{rel} over {FLASH_BF16_ROW_REL_TOL}")
-                worst_row_rel = max(worst_row_rel, rel)
-            del q, k, v, out, ref
-
-    times = {}
-    for label, (B, S, H, KV, hd, win) in (
-            ("qwen3-1.7b", (4, 2048, 16, 8, 128, None)),
-            ("zamba2-7b", (1, 4096, 32, 32, 112, None)),
-            ("gemma3-1b global", (1, 8192, 4, 1, 256, None)),
-            ("gemma3-1b local", (1, 8192, 4, 1, 256, 512)),
-            ("qwen2.5-14b", (1, 4096, 40, 8, 128, None)),
-            ("nemotron-4-15b", (1, 4096, 48, 8, 128, None))):
-        q = randn((B, S, H, hd), "bfloat16")
-        k, v = randn((B, S, KV, hd), "bfloat16"), randn((B, S, KV, hd),
-                                                        "bfloat16")
-        ms, eager = cuda_time_ms(
-            torch, lambda: K.flash_attention(q, k, v, window=win), 10)
-        plain, _ = cuda_time_ms(
-            torch, lambda: K.flash_attention_plain(q, k, v, window=win), 2)
+    q = randn((B, S, H, hd), "bfloat16")
+    k, v = randn((B, S, KV, hd), "bfloat16"), randn((B, S, KV, hd),
+                                                    "bfloat16")
+    kw = dict(window=win, probs=probs)
+    ms, eager = cuda_time_ms(
+        torch, lambda: K.flash_attention(q, k, v, **kw), 10)
+    plain, _ = cuda_time_ms(
+        torch, lambda: K.flash_attention_plain(q, k, v, **kw), 2)
+    lib = None          # torch < 2.5 has no GQA in scaled_dot_product_attention
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
-        lib = None      # torch < 2.5 has no GQA in scaled_dot_product_attention
-        if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
-            if win is None:
-                kw = dict(is_causal=True)
-            else:           # the sliding window as a boolean mask
-                i = torch.arange(S, device=dev)
-                kw = dict(attn_mask=(i[None, :] <= i[:, None])
-                          & (i[None, :] > i[:, None] - win))
-            lib, _ = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, enable_gqa=True, **kw), 10)
-            del kw
-        nbytes, flops = flash_bound(B, S, H, KV, hd, window=win)
-        bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        shape = (f"B{B} S{S} H{H} KV{KV} hd{hd} causal"
-                 f"{'' if win is None else f' window{win}'} bf16")
-        times[label] = dict(shape=shape, ms=ms, eager_ms=eager,
-                            plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                            bound_by=by, bytes=nbytes, flops=flops,
-                            tflop_s=flops / ms / 1e9)
+        if win is None:
+            lkw = dict(is_causal=True)
+        else:               # the sliding window as a boolean mask
+            i = torch.arange(S, device=dev)
+            lkw = dict(attn_mask=(i[None, :] <= i[:, None])
+                       & (i[None, :] > i[:, None] - win))
+        lib, _ = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, enable_gqa=True, **lkw), 10)
+        del qs, ks, vs, lkw
+    del q, k, v
+    torch.cuda.empty_cache()
+    nbytes, flops = flash_bound(B, S, H, KV, hd, window=win)
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
+    return dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} causal"
+                      f"{'' if win is None else f' window{win}'} bf16",
+                ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+                bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
+                tflop_s=flops / ms / 1e9)
+
+
+FLASH_LIBRARY = ("F.scaled_dot_product_attention(enable_gqa=True; "
+                 "is_causal, or the window as a boolean mask)")
+
+
+def flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas):
+    """flash_attention against its plain version over FLASH_CASES (bf16
+    also row by row, FLASH_BF16_ROW_REL_TOL), then timed at the model
+    paths' shapes (FLASH_TIME_SHAPES)."""
+    worst_row_rel = max(flash_sweep(torch, K, randn, record,
+                                    "flash_attention", dt, FLASH_CASES)
+                        for dt in ("float32", "bfloat16"))
+    times = {}
+    for label, *shape in FLASH_TIME_SHAPES:
+        times[label] = flash_path_time(torch, K, dev, randn, *shape)
         emit("kernel_time", kernel="flash_attention", path=label,
-             library="F.scaled_dot_product_attention(enable_gqa=True; "
-                     "is_causal, or the window as a boolean mask)",
-             **times[label],
-             ptxas=[ln for ln in ptxas_of(ptxas, "flash_attention")
-                    if ln.split(":")[0].endswith(f"Li{hd}")
-                    or ln.split(":")[0].endswith(f"Li{max(hd, 128)}")])
-        del q, k, v, qs, ks, vs
-        torch.cuda.empty_cache()
+             library=FLASH_LIBRARY, **times[label],
+             ptxas=flash_ptxas(ptxas, shape[4], compute=False))
     main = times["qwen3-1.7b"]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1164,6 +1251,81 @@ def flash_kernel_phase(torch, K, dev, randn, record, worst, ptxas):
             "other_paths": {k: t for k, t in times.items()
                             if k != "qwen3-1.7b"},
             "ptxas": ptxas_of(ptxas, "flash_attention")}
+
+#: flash_attention's compute-probability mode (``probs="compute"``, the
+#: models' ``attn_probs_dtype="compute"``) against its plain version: at
+#: bf16 the hd 64 / 112 / 128 / 256 instances, GQA, windows, ragged and
+#: non-causal shapes, rows with no visible key, the one-query
+#: cross-attention over whisper's 1500 frames (a decode step under the
+#: option), whisper's encoder and the two timed paths; at f32 (where the
+#: mode is the float32 mode's launch) the small cases.  (B, Sq, Sk, H, KV,
+#: hd, causal, window, scale)
+FLASH_COMPUTE_CASES = (
+    (2, 256, 256, 4, 2, 64, True, None, None),
+    (2, 77, 77, 4, 2, 112, True, 1, None),
+    (1, 128, 128, 4, 1, 128, True, None, 1.0 / 16.0),
+    (1, 190, 333, 4, 1, 64, False, 100, None),
+    (1, 256, 64, 2, 1, 64, False, 8, None),
+    (2, 300, 300, 4, 2, 128, True, None, None),
+    (1, 700, 700, 4, 1, 256, True, 128, None),
+    (1, 1, 1500, 20, 20, 64, False, None, None),
+    (1, 1500, 1500, 20, 20, 64, False, None, None),
+    (4, 2048, 2048, 16, 8, 128, True, None, None),
+    (1, 8192, 8192, 4, 1, 256, True, 512, None))
+FLASH_COMPUTE_F32_CASES = FLASH_COMPUTE_CASES[:5]
+#: the compute mode is timed at qwen3-1.7b's prefill and gemma3-1b's
+#: local layer (labels of FLASH_TIME_SHAPES)
+FLASH_COMPUTE_TIMED = ("qwen3-1.7b", "gemma3-1b local")
+
+
+def flash_compute_phase(torch, K, dev, randn, record, worst, ptxas,
+                        flash) -> dict:
+    """flash_attention's compute-probability variant against its plain
+    version (``flash_attention_plain(probs="compute")``) over
+    FLASH_COMPUTE_CASES (``flash_sweep``), then timed at
+    FLASH_COMPUTE_TIMED beside its plain version, SDPA and the same bound
+    as the float32 mode (the same products over the same pairs), with the
+    float32 mode's time from ``flash`` (this call) beside it.  Returns its
+    summary entry."""
+    name = "flash_attention_compute"
+    worst_row_rel = max(
+        flash_sweep(torch, K, randn, record, name, "bfloat16",
+                    FLASH_COMPUTE_CASES, "compute"),
+        flash_sweep(torch, K, randn, record, name, "float32",
+                    FLASH_COMPUTE_F32_CASES, "compute"))
+    times = {}
+    for label, *shape in FLASH_TIME_SHAPES:
+        if label not in FLASH_COMPUTE_TIMED:
+            continue
+        t = flash_path_time(torch, K, dev, randn, *shape, probs="compute")
+        f32_mode = (flash if label == "qwen3-1.7b"
+                    else flash["other_paths"][label])["ms"]
+        times[label] = dict(t, float32_mode_ms=f32_mode,
+                            over_float32_mode=t["ms"] / f32_mode)
+        emit("kernel_time", kernel=name, path=label, library=FLASH_LIBRARY,
+             **times[label], ptxas=flash_ptxas(ptxas, shape[4],
+                                               compute=True))
+    main = times["qwen3-1.7b"]
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
+            "variant_of": "flash_attention (kCompute instances)",
+            "computes": "src/repro/models/layers.py:228 (_sdpa, "
+                        "probs_dtype='compute')",
+            "launches": None,
+            "max_abs_err": max(worst[name].values()),
+            "max_abs_err_by_dtype": worst[name], "tol": TOL,
+            "bf16_max_row_rel_err": worst_row_rel,
+            "bf16_row_rel_tol": FLASH_BF16_ROW_REL_TOL,
+            "ms": main["ms"], "eager_ms": main["eager_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "float32_mode_ms": main["float32_mode_ms"],
+            "timed_shape": main["shape"],
+            "other_paths": {k: t for k, t in times.items()
+                            if k != "qwen3-1.7b"},
+            "ptxas": [ln for hd in (64, 128, 256)
+                      for ln in flash_ptxas(ptxas, hd, compute=True)]}
 
 
 def ssm_bound(B, S, H, P, N, Q, ex=2, ey=4):
@@ -2322,12 +2484,16 @@ def profile_phase(torch, cfg, dev, params, toks, ms_per_step: float,
 # ------------------------------------------------------------------ prefill
 
 def counts(K) -> dict:
-    return {name: getattr(K, name).launches for name in KERNELS}
+    return {**{name: getattr(K, name).launches for name in KERNELS},
+            **{name: getattr(getattr(K, w), attr)
+               for name, (w, attr) in VARIANTS.items()}}
 
 
 def reset_counts(K) -> None:
     for name in KERNELS + MESH_KERNELS:
         getattr(K, name).launches = 0
+    for w, attr in VARIANTS.values():
+        setattr(getattr(K, w), attr, 0)
 
 
 def device_profile(torch, fn, names) -> dict:
@@ -3723,6 +3889,223 @@ def train_resume_phase(torch, K, cfg, dev) -> dict:
          deterministic_algorithms="on (warn_only)", restored_leaves=leaves,
          state_bit_exact=True, run_s=run_s, restore_s=restore_s,
          launches=launches)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _vector_dist(torch, a: list, b: list) -> float:
+    """|a - b| over every leaf at once, in f32."""
+    return math.sqrt(sum(float((x.float() - y.float()).square().sum())
+                         for x, y in zip(a, b)))
+
+
+def compute_probs_phase(torch, K, cfg, dev, params) -> dict:
+    """``compute_probs``: qwen3-1.7b at full width and depth on the restored
+    weights under ``attn_probs_dtype="compute"``.  The prefill at
+    PREFILL_SHAPE through the kernels (every attention the compute variant
+    of flash_attention, launches exact), held against the plain compute
+    path by ``hold_kernel_path`` (the prefill's limits); one train step's
+    loss and gradients (``lm_loss`` under the config's ``remat="full"``:
+    each attention launches twice) at TRAIN_SHAPE, the loss within
+    COMPUTE_LOSS_RTOL of the plain compute path's and the gradient's
+    distance from the f32 gradient (whole vector) within twice the plain
+    path's.  Printed, not held: the logits' distance from the float32
+    mode's and both modes' ms (prefill and step).  Returns the launches of
+    the timed prefills and the kernel step."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve.step import make_prefill_step
+
+    t_phase = time.perf_counter()
+    ccfg = cfg.replace(attn_probs_dtype="compute")
+    B, S = PREFILL_SHAPE
+    L = cfg.n_layers
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(COMPUTE_SEED))}
+    step = make_prefill_step(ccfg)
+    with torch.inference_mode():
+        step(params, batch)                                   # warm-up
+        reset_counts(K)
+        secs, lk = timed_prefill(torch, step, params, batch, 2)
+        launches = counts(K)
+        want = {"flash_attention_compute": 2 * L, "flash_attention": 0,
+                "rmsnorm": 2 * (4 * L + 1), "decode_attention": 0,
+                "ssm_scan": 0}
+        for name, n in want.items():
+            check(launches[name] == n, f"compute_probs prefill {name}: "
+                  f"{launches[name]} launches, expected {n}")
+        (plain_s,), lp = timed_prefill(
+            torch, make_prefill_step(ccfg, plain=True), params, batch, 1)
+        f32_mode = make_prefill_step(cfg)
+        f32_mode(params, batch)
+        f32_secs, lf = timed_prefill(torch, f32_mode, params, batch, 2)
+        cfg32, p32 = f32_model(ccfg, params)
+        k32 = make_prefill_step(cfg32)(p32, batch)
+        l32 = make_prefill_step(cfg32, plain=True)(p32, batch)
+        del p32
+    torch.cuda.empty_cache()
+    hold = hold_kernel_path(torch, lk, lp, k32, l32,
+                            "qwen3-1.7b compute prefill")
+    modes = {"max_abs": (lk - lf).abs().max().item(),
+             "angle": _angle(torch, lk.float(), lf.float()),
+             "argmax_agree": (lk.argmax(-1) == lf.argmax(-1)).float()
+             .mean().item()}
+    del lk, lp, lf, k32, l32
+    prefill_ms = sorted(secs)[0] * 1e3
+    emit("compute_probs_prefill", arch=cfg.name, batch=B, seq=S,
+         ms_per_prefill=prefill_ms, ms_all=[t * 1e3 for t in secs],
+         float32_mode_ms=sorted(f32_secs)[0] * 1e3, plain_ms=plain_s * 1e3,
+         launches=launches, plain_vs_kernel=hold,
+         logits_vs_float32_mode=modes)
+
+    # one train step: lm_loss and its gradients (remat "full")
+    B, S = TRAIN_SHAPE
+    tb = {"tokens": batch["tokens"][:B, :S]}
+    reset_counts(K)
+    loss_k, gk = lm_grads(torch, ccfg, params, tb, plain=False)
+    step_launches = counts(K)
+    # timed again: the first call of a checkpointed backward loads
+    # torch's checkpoint machinery (seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm_grads(torch, ccfg, params, tb, plain=False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    twice = 2 if cfg.remat == "full" else 1
+    want = {"flash_attention_compute": twice * L, "flash_attention": 0,
+            "rmsnorm": twice * 4 * L + 1}
+    for name, n in want.items():
+        check(step_launches[name] == n, f"compute_probs step {name}: "
+              f"{step_launches[name]} launches, expected {n}")
+    t0 = time.perf_counter()
+    loss_f, gf = lm_grads(torch, cfg, params, tb, plain=False)
+    torch.cuda.synchronize()
+    f32_mode_step_ms = (time.perf_counter() - t0) * 1e3
+    del gf
+    loss_p, gp = lm_grads(torch, ccfg, params, tb, plain=True)
+    cfg32 = ccfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    loss_32, g32 = lm_grads(torch, cfg32, p32, tb, plain=True)
+    del p32
+    dist_k, dist_p = _vector_dist(torch, gk, g32), _vector_dist(torch, gp,
+                                                                 g32)
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in gk)
+    del gk, gp, g32
+    torch.cuda.empty_cache()
+    check(finite, "compute_probs step: non-finite kernel-path gradients")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(rel <= COMPUTE_LOSS_RTOL, f"compute_probs step: loss {loss_k} "
+          f"against the plain path's {loss_p} (rel {rel})")
+    check(dist_k <= 2 * dist_p, f"compute_probs step: gradient {dist_k} "
+          f"from f32, over twice the plain path's {dist_p}")
+    emit("compute_probs_step", arch=cfg.name, batch=B, seq=S,
+         remat=cfg.remat, loss={"bf16_kernel": loss_k, "bf16_plain": loss_p,
+                                "f32_plain": loss_32,
+                                "float32_mode_kernel": loss_f},
+         loss_rel_diff=rel, loss_rtol=COMPUTE_LOSS_RTOL,
+         grad_dist_from_f32={"kernel": dist_k, "plain": dist_p,
+                             "limit": "kernel <= 2 x plain"},
+         step_ms=step_ms, float32_mode_step_ms=f32_mode_step_ms,
+         step_ms_note="one lm_loss forward and backward (its second "
+                      "call), host clock ended by a synchronize",
+         launches=step_launches,
+         phase_s=time.perf_counter() - t_phase)
+    return {k: launches[k] + step_launches[k] for k in launches}
+
+
+def _first_batch(cfg, steps: int, B: int, S: int):
+    """The tokens ``run_training(cfg, steps, B, S)`` trains on at step 0
+    (its synthetic stream, seed 0, cut by ``TokenDatasetSpec``), as int32
+    ``[B, S]``."""
+    import numpy as np
+
+    from repro_torch.data import TokenDatasetSpec, synthetic_tokens
+
+    tokens = synthetic_tokens(max(B * (S + 1) * (steps + 4), 65_536),
+                              cfg.vocab_size, seed=0)
+    spec = TokenDatasetSpec(n_tokens=tokens.size, seq_len=S, global_batch=B)
+    item = tokens.itemsize
+    rows = [tokens[start // item:start // item + S + 1]
+            for start, _ in spec.ranges_for_step(0)]
+    return np.stack(rows)[:, :-1].astype(np.int32)
+
+
+def examples_phase(torch, K, dev) -> dict:
+    """``examples``: the four entry points of ``repro_torch.examples`` on
+    the card, in this process.  ``quickstart`` (host: the simulator and
+    three loopback mirrors); ``multisource_restore`` onto the card,
+    bit-exact with the slowest mirror stopped 0.2 s in;
+    ``autotune_chunks`` on the card and on the CPU, the same winners and
+    their times within rtol 1e-5 (as ``geometry_card_vs_cpu``);
+    ``train_100m`` for EXAMPLE_TRAIN_STEPS steps (its own assert: the loss
+    trends down), its first loss equal to the kernel path's on its step-0
+    weights and batch, and within COMPUTE_LOSS_RTOL of the plain path's.
+    Returns train_100m's launches."""
+    from repro_torch.examples import (autotune_chunks, multisource_restore,
+                                      quickstart, train_100m)
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import lm_loss, model_specs
+
+    secs = {}
+    t0 = time.perf_counter()
+    q = quickstart.main()
+    secs["quickstart"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    r = multisource_restore.main(["--device", "cuda"])
+    secs["multisource_restore"] = time.perf_counter() - t0
+    check(r["bit_exact"] and r["device"].startswith("cuda"),
+          f"examples: multisource_restore {r}")
+
+    t0 = time.perf_counter()
+    card = autotune_chunks.main(["--device", "cuda"])
+    secs["autotune_chunks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = autotune_chunks.main(["--device", "cpu"])
+    secs["autotune_chunks_cpu"] = time.perf_counter() - t0
+    pairs = ([(card["grid"][k], cpu["grid"][k]) for k in card["grid"]]
+             + list(zip(card["batch"], cpu["batch"])))
+    worst = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in pairs)
+    check(all(a[:2] == b[:2] for a, b in pairs) and worst <= 1e-5,
+          f"examples: autotune winners on the card {pairs} differ from the "
+          f"CPU's (rel {worst})")
+
+    cfg = train_100m.config_100m()
+    B, S = 8, 256                       # the example's defaults
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_100m_")
+    reset_counts(K)
+    try:
+        t0 = time.perf_counter()
+        tr = train_100m.main(["--steps", str(EXAMPLE_TRAIN_STEPS),
+                              "--device", "cuda", "--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        secs["train_100m"] = time.perf_counter() - t0
+    except AssertionError as e:     # the example's own loss-trend assert
+        raise CheckFailed(f"examples: train_100m: {e}") from e
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = counts(K)
+    check(launches["flash_attention"] == EXAMPLE_TRAIN_STEPS * cfg.n_layers,
+          f"examples: train_100m flash_attention launches {launches}")
+    params = init_params(model_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         cfg.torch_dtype, dev)
+    batch = {"tokens": torch.from_numpy(
+        _first_batch(cfg, EXAMPLE_TRAIN_STEPS, B, S)).to(dev)}
+    with torch.no_grad():
+        lk = lm_loss(params, cfg, batch).item()
+        lp = lm_loss(params, cfg, batch, plain=True).item()
+    del params
+    first = tr["losses"][0]
+    check(abs(first - lk) <= 1e-3 * abs(lk), f"examples: train_100m's "
+          f"first loss {first} is not its step-0 kernel loss {lk}")
+    check(abs(lk - lp) <= COMPUTE_LOSS_RTOL * abs(lp), f"examples: "
+          f"train_100m first loss {lk} against the plain path's {lp}")
+    emit("examples", seconds=secs, quickstart=q, restore=r,
+         autotune={"card": card, "cpu": cpu, "max_rel_time_diff": worst},
+         train_100m={"params": tr["params"], "losses": tr["losses"],
+                     "first_loss_kernel": lk, "first_loss_plain": lp,
+                     "launches": launches})
     torch.cuda.empty_cache()
     return launches
 
@@ -6466,12 +6849,15 @@ def main() -> int:
                                                       params)
         by_path = {"serve": serve_launches,
                    "prefill": prefill_phase(torch, K, cfg, dev, params)}
+        by_path["compute_probs"] = compute_probs_phase(torch, K, cfg, dev,
+                                                       params)
         by_path["train_grad_hold"] = train_grad_phase(torch, K, dev)
         # trains the restored weights in place; nothing reads them after
         by_path["train"] = train_phase(torch, K, cfg, dev, params)
         by_path["train_resume"] = train_resume_phase(torch, K, cfg, dev)
         del params
         torch.cuda.empty_cache()
+        by_path["examples"] = examples_phase(torch, K, dev)
         by_path.update(distributed_phase(torch, K, dev))
         by_path["hybrid_prefill"], by_path["hybrid_generate"] = \
             hybrid_phase(torch, K, dev)

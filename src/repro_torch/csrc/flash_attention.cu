@@ -47,6 +47,16 @@
 // kernel, which keeps it f32; the reference model's own XLA path rounds it
 // too.
 //
+// The compute-probability mode (the model's attn_probs_dtype="compute",
+// the reference's _sdpa(..., probs_dtype="compute")) is the same kernel
+// with kCompute set: each score is rounded to bf16, multiplied by the
+// bf16-rounded scale and rounded again, as the reference rounds q.k and
+// then * scale, before the online max and the exp; and the row sum l adds
+// the bf16-rounded P that P V reads, where the float32 mode sums the f32
+// P.  Both modes keep a running max with rescaling and normalise o in f32
+// before its one rounding (the reference subtracts the row's final max
+// and rounds P V before it multiplies by the rounded 1 / l).
+//
 // f32: wgmma takes no f32 inputs, only TF32, whose 10-bit mantissa would
 // break the 2e-5 tolerance the f32 checks rest on, so f32 keeps a scalar
 // kernel (namespace scalar): one 256-thread block per (b * H + h, 64-query
@@ -423,6 +433,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// lo and hi rounded to the nearest bf16, kept as floats: one packed
+// conversion (conversions issue at a fraction of the FMA rate) and two
+// integer ops to widen the halves back
+__device__ __forceinline__ void round_bf16x2(float& lo, float& hi) {
+  const uint32_t u = pack_bf16(lo, hi);
+  lo = __uint_as_float(u << 16);
+  hi = __uint_as_float(u & 0xffff0000u);
+}
+
 // D (+)= A B, m64n128k16, A and B from shared memory (both K-major)
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int accumulate) {
@@ -501,11 +520,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HDP>
+// scale: the softmax scale times log2(e) (float32 mode), or the scale
+// already rounded to bf16 (kCompute)
+template <int HDP, bool kCompute>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Sq,
-    int Sk, int H, int KV, int hd, float scale_log2, int causal, int window) {
+    int Sk, int H, int KV, int hd, float scale, int causal, int window) {
   using L = Smem<HDP>;
   constexpr int kBK = L::BK;   // keys per tile
   constexpr int NO = HDP / 2;  // output accumulator floats per thread
@@ -600,6 +621,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     const int k0 = t * kBK;
     const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wq_first) ||
                       (window > 0 && k0 <= wq_last - window);
+    if constexpr (kCompute) {
+      // bf16(bf16(q.k) * scale), then to base 2 in f32; elements 2i and
+      // 2i + 1 are neighbouring columns of one row
+#pragma unroll
+      for (int i = 0; i < kBK / 2; i += 2) {
+        float a = sc[i], b = sc[i + 1];
+        round_bf16x2(a, b);
+        a *= scale;
+        b *= scale;
+        round_bf16x2(a, b);
+        sc[i] = a * kLog2e;
+        sc[i + 1] = b * kLog2e;
+      }
+    }
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -609,7 +644,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
       for (int n8 = 0; n8 < kBK / 8; ++n8)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          float x = sc[n8 * 4 + 2 * r + c] * scale_log2;
+          float x = sc[n8 * 4 + 2 * r + c];
+          if constexpr (!kCompute) x *= scale;  // kCompute: scaled above
           if (edge) {
             const int kj = k0 + n8 * 8 + col + c;
             const bool ok = kj < Sk && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
@@ -626,13 +662,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
       alpha[r] = exp2f(m[r] - m_use);
       float sum = 0.f;
 #pragma unroll
-      for (int n8 = 0; n8 < kBK / 8; ++n8)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float p = exp2f(sc[n8 * 4 + 2 * r + c] - m_use);
-          sc[n8 * 4 + 2 * r + c] = p;
-          sum += p;
-        }
+      for (int n8 = 0; n8 < kBK / 8; ++n8) {
+        const int i = n8 * 4 + 2 * r;
+        float p0 = exp2f(sc[i] - m_use), p1 = exp2f(sc[i + 1] - m_use);
+        if constexpr (kCompute) round_bf16x2(p0, p1);  // l sums the P that P V reads
+        sc[i] = p0;
+        sc[i + 1] = p1;
+        sum += p0;
+        sum += p1;
+      }
       l[r] = l[r] * alpha[r] + sum;
       m[r] = m_new;
     }
@@ -745,7 +783,7 @@ int encode(CUtensorMap* map, const void* base, int hd, int heads, int S, int B, 
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
-template <int HDP>
+template <int HDP, bool kCompute>
 int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
                int H, int KV, int hd, float scale, int causal, int window,
                cudaStream_t stream) {
@@ -753,8 +791,8 @@ int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, in
   // above 48 KB of dynamic shared memory a kernel must opt in, once
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_wgmma_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HDP, kCompute>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
@@ -764,38 +802,59 @@ int launch_hdp(const void* q, const void* k, const void* v, void* out, int B, in
   if (!e) e = encode(&tv, v, hd, KV, Sk, B, Smem<HDP>::BK);
   if (e) return e;
   const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)(B * H));
-  flash_attention_wgmma_kernel<HDP><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, hd, scale * kLog2e, causal,
-      window);
+  flash_attention_wgmma_kernel<HDP, kCompute><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, hd,
+      kCompute ? scale : scale * kLog2e, causal, window);
   return (int)cudaGetLastError();
 }
 
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-           int H, int KV, int hd, float scale, int causal, int window, cudaStream_t stream) {
+template <bool kCompute>
+int launch_mode(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+                int H, int KV, int hd, float scale, int causal, int window,
+                cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch_hdp<64>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, stream);
+    case 64:
+      return launch_hdp<64, kCompute>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window,
+                                      stream);
     case 112:
-    case 128: return launch_hdp<128>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, stream);
-    case 256: return launch_hdp<256>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, stream);
+    case 128:
+      return launch_hdp<128, kCompute>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window,
+                                       stream);
+    case 256:
+      return launch_hdp<256, kCompute>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window,
+                                       stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+           int H, int KV, int hd, float scale, int causal, int window, int compute,
+           cudaStream_t stream) {
+  return compute ? launch_mode<true>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window,
+                                     stream)
+                 : launch_mode<false>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window,
+                                      stream);
 }
 
 }  // namespace tc
 
 // dtype codes: 0 = float32 (the scalar kernel), 1 = bfloat16 (the
 // tensor-core kernel).  causal is 0 or 1; window <= 0 means no window.
+// compute = 1 takes the bf16 kernel's compute-probability instances, with
+// scale already rounded to bf16 by the caller; at float32 the two modes
+// are one function and compute is ignored.
 // Returns 0; a tensor map that cannot be encoded gives 20000 + the
 // driver's CUresult; otherwise cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unsupported hd, dtype or shape).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int Sq, int Sk, int H,
                                       int KV, int hd, float scale, int causal,
-                                      int window, int dtype, void* stream) {
+                                      int window, int compute, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return scalar::launch(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, s);
-  if (dtype == 1) return tc::launch(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, s);
+  if (dtype == 1)
+    return tc::launch(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, compute, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -143,7 +143,7 @@ def library() -> ctypes.CDLL:
                                                   i, i, i, i, p]
     lib.decode_attention_merge_launch.restype = i
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
-                                           i, i, i, p]
+                                           i, i, i, i, p]
     lib.flash_attention_launch.restype = i
     lib.ssm_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                     i, i, p]

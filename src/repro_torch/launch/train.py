@@ -37,7 +37,7 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
 from repro_torch.transfer import RangeServer, Replica, Throttle
 
-__all__ = ["main", "run_training", "start_mirror"]
+__all__ = ["main", "run_training", "start_mirror", "stop_mirror"]
 
 
 def start_mirror(blobs: dict, rate: float) -> RangeServer:
@@ -47,6 +47,15 @@ def start_mirror(blobs: dict, rate: float) -> RangeServer:
     for path, data in blobs.items():
         s.add_blob(path, data)
     return s
+
+
+def stop_mirror(server: RangeServer) -> None:
+    """Stop a mirror for good: sever its sessions, stop its accept loop,
+    then sever what was accepted in between (``stop`` alone leaves the
+    open sessions served)."""
+    server.kill_connections()
+    server.stop()
+    server.kill_connections()
 
 
 def run_training(cfg, steps: int, batch: int, seq: int, *,
@@ -127,9 +136,7 @@ def run_training(cfg, steps: int, batch: int, seq: int, *,
         if pipe is not None:
             pipe.close()
         for s in servers:
-            s.kill_connections()
-            s.stop()
-            s.kill_connections()
+            stop_mirror(s)
     return state, losses
 
 

@@ -54,7 +54,12 @@ over the block's sequence group and each merges them all
 (``decode_attention_merge``); the out-projection is row-parallel, as in
 :func:`attention`.
 
-Not ported: the ``attn_probs_dtype="compute"`` lever (it raises).
+``attn_probs_dtype="compute"`` (the reference's perf lever) keeps the
+full-sequence attention's scores and probabilities in the compute dtype
+with f32 row sums and the normalisation after PV: on the plain path the
+reference's own ``_sdpa`` branch, on the kernel path the compute
+variant of ``flash_attention`` (``probs="compute"``).  Decode from the
+cache does not read it, as in the reference.
 """
 
 from __future__ import annotations
@@ -263,15 +268,32 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          bias: torch.Tensor, scale: float) -> torch.Tensor:
+          bias: torch.Tensor, scale: float,
+          probs_dtype: str = "float32") -> torch.Tensor:
     """q ``[B, Sq, KV, G, hd]``, k/v ``[B, Sk, KV, hd]``, bias ``[Sq, Sk]`` ->
-    ``[B, Sq, KV, G, hd]``.  f32 scores and softmax, probabilities rounded
-    to the compute dtype before the PV product (the reference's default
-    ``probs_dtype="float32"`` branch)."""
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
-    scores = scores + bias[None, None, None]
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    ``[B, Sq, KV, G, hd]``.  ``probs_dtype="float32"`` (the reference's
+    default branch): f32 scores and softmax, probabilities rounded to the
+    compute dtype before the PV product.  ``"compute"``: the scores, their
+    scale and the bias in the compute dtype, the row max held out of the
+    gradient, ``p = exp(s - m)`` in the compute dtype, the unnormalised
+    PV product, the denominator summed in f32 and the normalisation after
+    PV (the reference's compute branch, step for step)."""
+    if probs_dtype != "compute":
+        scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
+        scores = scores + bias[None, None, None]
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    # the scale rounded to the compute dtype, as a Python float: the
+    # product rounds once, as the reference's product of two bf16 values
+    s = torch.einsum("bqkgh,bskh->bkgqs", q, k) * torch.tensor(
+        scale, dtype=q.dtype).item()
+    s = s + bias[None, None, None].to(q.dtype)          # [B, KV, G, Sq, Sk]
+    m = s.amax(dim=-1, keepdim=True).detach()
+    p = torch.exp(s - m)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v)          # unnormalised
+    denom = p.float().sum(dim=-1, keepdim=True)
+    inv = (1.0 / denom.clamp_min(1e-30)).permute(0, 3, 1, 2, 4)
+    return o * inv.to(o.dtype)
 
 
 def _heads_tp(p: dict, cfg: ModelConfig):
@@ -343,8 +365,12 @@ def attention(
     (as the reference's XLA path rounds them; the TPU kernel keeps them in
     f32), and kept in f32 at f32.  One query against ``kv_x`` with no mask
     (a decode step's cross-attention) calls ``decode_attention`` at
-    ``pos = Sk - 1`` instead, the same function.  ``plain=True`` runs the
-    reference's exact query-blocked ``_sdpa`` (blocks of ``q_block``
+    ``pos = Sk - 1`` instead, the same function.  Under
+    ``cfg.attn_probs_dtype == "compute"`` every kernel call, the one-query
+    cross-attention included, is ``flash_attention(probs="compute")``
+    (``decode_attention`` keeps f32 probabilities), and the plain path
+    takes the reference's compute branch of ``_sdpa``.  ``plain=True``
+    runs the reference's exact query-blocked ``_sdpa`` (blocks of ``q_block``
     queries over all keys, or over the ``window - 1 + q_block`` keys a
     sliding-window block can reach; above ``q_block`` queries Sq must be a
     multiple of it, as in the reference), which rounds the probabilities
@@ -352,8 +378,8 @@ def attention(
     tolerance.  ``rope``: the (sin, cos) of positions 0..Sq-1
     (``rope_sin_cos``) for self-attention, computed here when not
     given."""
-    if cfg.attn_probs_dtype != "float32":
-        raise NotImplementedError("attn_probs_dtype='compute' is not ported")
+    # any other value is the float32 mode, as in the reference's _sdpa
+    probs = "compute" if cfg.attn_probs_dtype == "compute" else "float32"
     B, Sq, _ = x.shape
     cross = kv_x is not None
     group, p = _heads_tp(p, cfg)
@@ -375,18 +401,20 @@ def attention(
     G = H // KV
     scale = cfg.attn_scale or 1.0 / math.sqrt(hd)
 
-    if not plain and cross and Sq == 1 and not causal and window is None:
+    if (not plain and cross and Sq == 1 and not causal and window is None
+            and probs == "float32"):
         last = torch.full((), Sk - 1, dtype=torch.int32, device=x.device)
         out = decode_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), last, scale=scale)
     elif not plain:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, window=window, scale=scale)
+                              causal=causal, window=window, scale=scale,
+                              probs=probs)
     else:
         q = q.reshape(B, Sq, KV, G, hd)
         if Sq <= q_block:
             bias = _mask_bias(positions, kv_positions, causal, window)
-            out = _sdpa(q, k, v, bias, scale)
+            out = _sdpa(q, k, v, bias, scale, probs)
         else:
             # exact query-blocked attention; sliding-window causal layers
             # slice the window - 1 + q_block keys a block can reach
@@ -414,9 +442,9 @@ def attention(
                     bias = _mask_bias(pi, kv_positions, causal, window)
                 if remat_blocks:
                     outs.append(checkpoint(_sdpa, qi, kb, vb, bias, scale,
-                                           use_reentrant=False))
+                                           probs, use_reentrant=False))
                 else:
-                    outs.append(_sdpa(qi, kb, vb, bias, scale))
+                    outs.append(_sdpa(qi, kb, vb, bias, scale, probs))
             out = torch.cat(outs, dim=1)
     y = out_proj(out.reshape(B, Sq, H, hd), p["wo"])
     return y if group is None else C.reduce_from_model(y, group)

@@ -59,9 +59,10 @@ FLASH_CASES = [  # B, Sq, Sk, H, KV, hd, causal, window
 def test_flash_function_gradients_equal_the_plain_path(monkeypatch, case,
                                                        dtype):
     B, Sq, Sk, H, KV, hd, causal, window = case
-    monkeypatch.setattr(fops, "_launch", lambda q, k, v, c, w, s:
+    monkeypatch.setattr(fops, "_launch", lambda q, k, v, c, w, s, p:
                         fops.flash_attention_plain(q, k, v, causal=c,
-                                                   window=w, scale=s))
+                                                   window=w, scale=s,
+                                                   probs=p))
     rng = np.random.default_rng(0)
     q = _randn(rng, (B, Sq, H, hd), dtype)
     k = _randn(rng, (B, Sk, KV, hd), dtype)
@@ -174,7 +175,7 @@ def _counting(monkeypatch, ops, plain):
 
 
 WRAPPERS = {
-    "flash_attention": (fops, lambda q, k, v, c, w, s: torch.empty_like(q),
+    "flash_attention": (fops, lambda q, k, v, c, w, s, p: torch.empty_like(q),
                         ((1, 8, 2, 16), (1, 8, 2, 16), (1, 8, 2, 16)),
                         lambda q, k, v: fops.flash_attention(q, k, v),
                         "FlashAttentionFn"),

@@ -281,6 +281,49 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
         assert (diff[keep] / norm[keep]).max().item() <= FLASH_BF16_ROW_REL_TOL
 
 
+#: the compute-probability mode: hd 64 / 112 / 128 / 256, GQA, windows,
+#: rows with no visible key, non-causal Sq != Sk, one query (a decode
+#: step's cross-attention under the option), qwen3's prefill
+FLASH_COMPUTE_CASES = [
+    (2, 256, 256, 4, 2, 64, True, None, None),
+    (2, 77, 77, 4, 2, 112, True, 1, None),
+    (1, 128, 128, 4, 1, 128, True, None, 1.0 / 16.0),
+    (1, 256, 64, 2, 1, 64, False, 8, None),
+    (1, 700, 700, 4, 1, 256, True, 128, None),
+    (2, 300, 333, 4, 2, 256, False, None, None),
+    (1, 1, 1500, 20, 20, 64, False, None, None),
+    (4, 2048, 2048, 16, 8, 128, True, None, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_COMPUTE_CASES, ids=str)
+def test_flash_attention_compute_kernel_matches_plain(card, case, dtype):
+    """``probs="compute"``: at bf16 the kernel's compute instances (counted
+    in ``compute_launches``), at f32 the float32 mode's launch; against
+    ``flash_attention_plain(probs="compute")`` at the float32 mode's
+    tolerances."""
+    B, Sq, Sk, H, KV, hd, causal, window, scale = case
+    q = _randn((B, Sq, H, hd), dtype, card, 0)
+    k = _randn((B, Sk, KV, hd), dtype, card, 1)
+    v = _randn((B, Sk, KV, hd), dtype, card, 2)
+    kw = dict(causal=causal, window=window, scale=scale, probs="compute")
+    before = (flash_attention.launches, flash_attention.compute_launches)
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (flash_attention.launches, flash_attention.compute_launches) == \
+        (before[0] + (not bf16), before[1] + bf16)
+    ref = flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(out.float()).all()
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    if bf16:
+        diff = (out.float() - ref.float()).norm(dim=-1)
+        norm = ref.float().norm(dim=-1)
+        keep = norm > 0
+        assert (diff[keep] / norm[keep]).max().item() <= FLASH_BF16_ROW_REL_TOL
+
+
 def _ssm_inputs(B, S, H, P, N, dtype, dev, seed, dt_scale=1.0):
     """The JAX sweep's distributions (tests/test_kernels_decode_ssm.py),
     dt scaled by ``dt_scale``."""

@@ -191,12 +191,27 @@ def test_lm_loss_matches_reference_at_bf16(loss_dtype):
 
 
 def test_attention_refuses_compute_probs():
-    """``attn_probs_dtype="compute"`` is not ported: it raises rather than
-    computing the f32-probability attention under its name."""
-    _, tcfg, _, tp = setup("qwen3-1.7b", "float32")
-    _, tb = batch_pair(tcfg)
-    with pytest.raises(NotImplementedError, match="attn_probs_dtype"):
-        TT.lm_loss(tp, tcfg.replace(attn_probs_dtype="compute"), tb)
+    """``attn_probs_dtype="compute"`` raised until its port; it now computes
+    the reference's compute-dtype attention: under ``remat="full"`` the
+    loss and every leaf's gradient hold ``jax.value_and_grad`` of the
+    reference's at f32 (loss rtol 1e-5, gradients atol = rtol = 1e-4 of
+    each leaf's largest entry, as the f32 ``lm_loss`` test above).
+    ``tests/test_torch_compute_probs.py`` holds the option in full."""
+    jcfg, tcfg, jp, tp = setup("qwen3-1.7b", "float32")
+    jcfg = jcfg.replace(attn_probs_dtype="compute", remat="full")
+    tcfg = tcfg.replace(attn_probs_dtype="compute", remat="full")
+    jb, tb = batch_pair(tcfg, seed=11)
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p, b: JT.lm_loss(p, jcfg, b)))(jp, jb)
+    params = fresh(tp)
+    keys, leaves = zip(*tree_leaves(params))
+    tl = TT.lm_loss(params, tcfg, tb)
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    want = jflat(jg)
+    for k, g in zip(keys, torch.autograd.grad(tl, leaves)):
+        peak = float(np.abs(want[k]).max())
+        np.testing.assert_allclose(g.numpy(), want[k], rtol=1e-4,
+                                   atol=1e-4 * peak + 1e-7, err_msg=k)
 
 
 # ----------------------------------------------------------- norm levers
